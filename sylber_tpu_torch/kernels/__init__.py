@@ -1,0 +1,25 @@
+"""Build, load and call the hand-written CUDA kernels (``csrc/*.cu``)."""
+
+from __future__ import annotations
+
+import torch
+
+from ._build import build, check, lib
+
+__all__ = ["build", "check", "lib", "stream_of", "require_cuda"]
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """The current CUDA stream on ``t``'s device, as the C entry points take it."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is a contiguous CUDA tensor on one device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{name}: expected CUDA tensors on one device, "
+                             f"got {[str(x.device) for x in tensors]}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: expected contiguous tensors")

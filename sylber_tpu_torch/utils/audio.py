@@ -1,0 +1,59 @@
+"""Audio loading for inference: WAV read, resample to 16 kHz, normalise.
+
+Port of ``sylber_tpu/utils/audio.py`` for RIFF WAV files. FLAC and OGG
+decoding are not ported yet (see ROADMAP.md); such files raise ValueError.
+"""
+
+from __future__ import annotations
+
+from math import gcd
+from pathlib import Path
+from typing import Tuple
+
+import numpy as np
+
+TARGET_SR = 16000
+
+
+def load_wav(path: str | Path) -> Tuple[np.ndarray, int]:
+    """Read a WAV file -> (float32 (C, L) in [-1, 1], sample_rate)."""
+    with open(path, "rb") as f:
+        magic = f.read(4)
+    if magic != b"RIFF":
+        raise ValueError(f"{path}: container {magic!r} is not supported by "
+                         "sylber_tpu_torch yet (WAV only)")
+    from scipy.io import wavfile
+
+    sr, data = wavfile.read(str(path))
+    if data.dtype == np.int16:
+        data = data.astype(np.float32) / 32768.0
+    elif data.dtype == np.int32:
+        data = data.astype(np.float32) / 2147483648.0
+    elif data.dtype == np.uint8:
+        data = (data.astype(np.float32) - 128.0) / 128.0
+    else:
+        data = data.astype(np.float32)
+    data = data[None, :] if data.ndim == 1 else data.T  # (C, L)
+    return data, int(sr)
+
+
+def resample(wav: np.ndarray, orig_sr: int, new_sr: int = TARGET_SR) -> np.ndarray:
+    if orig_sr == new_sr:
+        return wav
+    from scipy.signal import resample_poly
+
+    g = gcd(orig_sr, new_sr)
+    return resample_poly(wav, new_sr // g, orig_sr // g, axis=-1).astype(np.float32)
+
+
+def normalize(wav: np.ndarray) -> np.ndarray:
+    """(x - mean) / std with the unbiased std (torch's default)."""
+    std = wav.std(ddof=1) if wav.size > 1 else 1.0
+    return ((wav - wav.mean()) / (std + 1e-12)).astype(np.float32)
+
+
+def load_for_inference(path: str | Path) -> np.ndarray:
+    """Load + resample to 16 kHz + normalise; returns channel 0 as (L,) float32."""
+    wav, sr = load_wav(path)
+    wav = normalize(resample(wav, sr))
+    return wav[0] if wav.shape[0] >= 1 else wav.reshape(-1)
