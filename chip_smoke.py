@@ -7,16 +7,22 @@ Phases, each of which fails the script when it fails:
 
 1. build the CUDA kernels of ``sylber_tpu_torch/csrc`` with nvcc (sm_90a);
 2. hold every kernel against its plain PyTorch version on the card at the
-   main path's shapes, fp32 and bf16, with ragged key lengths and a fully
-   padded item; time the kernel, the plain version and, as a yardstick only,
-   one PyTorch library call computing the same function;
+   main path's shapes and layout, fp32 and bf16, with ragged key lengths and
+   a fully padded item; time the kernel, the plain version and, as a
+   yardstick only, one PyTorch library call computing the same function
+   (all three on the same tensors); then hold the two
+   attention kernels against their plain versions at the awkward shapes
+   (sequence lengths off the tile, head widths 12 to 128, key lengths at the
+   tile edges, a scale override, contiguous and strided ``(B, L, H, D)`` views);
 3. run the ``Segmenter`` at full hubert-base width (768 wide, 9 layers,
    seeded random weights) in fp32 parity mode and bf16 fast mode on a
    32 x 5 s batch (small-attention path) and a 32 x 12-20 s batch (flash
    path), with every launch counter set to 0 just before and read just
    after; every kernel must have launched; prints the real-time factor;
 4. run the trained ``tests/fixtures/mini_ckpt.npz`` Segmenter on the card
-   and on the CPU; the segments must be identical.
+   and on the CPU; the segments must be identical; then its bf16 fast mode
+   against its fp32 parity mode, both on the card: boundary F1 at tolerance
+   0 must reach 0.995.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit
 (``nvidia-smi``), and as its last line
@@ -66,6 +72,18 @@ def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_time_ms(torch, fn, reps: int) -> float:
+    """Device time of one call: ``reps`` calls captured in a CUDA graph and
+    replayed, so that a short kernel is not timed by the host that enqueues it."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return time_ms(torch, graph.replay, 3, warmup=1) / reps
 
 
 def speechlike(rng, n: int) -> np.ndarray:
@@ -146,7 +164,9 @@ def check_kernels(torch, ops):
         rec = {}
         for dt, tol in (("float32", 2e-5), ("bfloat16", 2e-2)):
             tdt = getattr(torch, dt)
-            q, k, v = (randn(B, H, L, Dh).to(tdt) for _ in range(3))
+            # (B, H, L, D) views of (B, L, H, D) memory, as the encoder layer
+            # hands its projections to the kernels
+            q, k, v = (randn(B, L, H, Dh).to(tdt).transpose(1, 2) for _ in range(3))
             run = lambda: fn(q, k, v, lens)  # noqa: E731
             plain = lambda: plain_fn(q, k, v, lens)  # noqa: E731
             library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep)  # noqa: E731
@@ -154,13 +174,24 @@ def check_kernels(torch, ops):
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
             ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
-            nbytes = 4 * B * H * L * Dh * q.element_size() + 4 * B
+            # q read and o written in full; K and V only up to kv_len[b], which
+            # is where the key loop ends. An item with no valid key needs all
+            # of V in the small kernel (the mean of V) and nothing in flash.
+            kv_rows = 2 * int(lens.sum().item())
+            if name == "small_attention":
+                kv_rows += L * int((lens == 0).sum().item())
+            nbytes = (2 * B * L + kv_rows) * H * Dh * q.element_size() + 4 * B
             ops_n = 4.0 * H * Dh * L * float(lens.sum().item())
             b_ms, b_by = bound_ms(nbytes, ops_n, dt)
+            # device times by graph replay: the small kernel is shorter than
+            # the host's work to enqueue it; eager_ms is the wrapper as called
             rec[dt] = dict(max_abs_err=err, tol=tol, ok=bool(ok),
-                           ms=time_ms(torch, run, 20), plain_ms=time_ms(torch, plain, 5),
-                           library_ms=time_ms(torch, library, 20), bound_ms=b_ms,
-                           bound_by=b_by, shape=[B, H, L, Dh])
+                           ms=graph_time_ms(torch, run, 20),
+                           plain_ms=graph_time_ms(torch, plain, 5),
+                           library_ms=graph_time_ms(torch, library, 20),
+                           eager_ms=time_ms(torch, run, 20),
+                           library_eager_ms=time_ms(torch, library, 20),
+                           bound_ms=b_ms, bound_by=b_by, shape=[B, H, L, Dh])
         results[name] = rec
 
     # segmentation pass 1 at B=32 x 1000 frames x 768
@@ -179,6 +210,47 @@ def check_kernels(torch, ops):
         plain_ms=time_ms(torch, plain, 1, warmup=0), library_ms=None,
         bound_ms=b_ms, bound_by=b_by, shape=[B, L, d])}
     return results
+
+
+def check_attention_edges(torch, ops):
+    """Both attention kernels against their plain versions where tiles, head
+    widths and key lengths are awkward; correctness only. Returns one record
+    per call; ``ok`` is False where the tolerance (fp32 2e-5, bf16 2e-2) is
+    missed or a value is not finite."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    small = (ops.smallattn.small_attention, ops.smallattn.small_attention_plain)
+    flash = (ops.flash.flash_attention, ops.flash.flash_attention_plain)
+    cases = []  # (name, (kernel, plain), L, D, scale, strided)
+    for L in (1, 77, 512):
+        cases += [("small_attention", small, L, D, None, D == 64) for D in (12, 32, 64, 128)]
+    for L in (513, 1999):
+        cases += [("flash_attention", flash, L, D, 0.3 if D != 32 else None, strided)
+                  for D, strided in ((12, False), (32, True), (64, False), (64, True),
+                                     (128, True))]
+    records = []
+    for name, (fn, plain_fn), L, D, scale, strided in cases:
+        # nothing valid, one key, around a 64-key tile edge, one short of L, L
+        lens = sorted({0, 1, min(63, L), min(64, L), min(65, L), L - 1, L})
+        B, H = len(lens), 3
+        kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+        for dt, tol in (("float32", 2e-5), ("bfloat16", 2e-2)):
+            tdt = getattr(torch, dt)
+            if strided:  # (B, H, L, D) views of (B, L, H, D) memory
+                q, k, v = (torch.randn(B, L, H, D, device=dev, generator=gen).to(tdt)
+                           .transpose(1, 2) for _ in range(3))
+            else:
+                q, k, v = (torch.randn(B, H, L, D, device=dev, generator=gen).to(tdt)
+                           for _ in range(3))
+            got, want = fn(q, k, v, kv_len, scale), plain_fn(q, k, v, kv_len, scale)
+            torch.cuda.synchronize()
+            got, want = got.float(), want.float()
+            ok = bool(torch.isfinite(got).all()
+                      and torch.allclose(got, want, rtol=tol, atol=tol))
+            records.append(dict(kernel=name, L=L, D=D, dtype=dt, kv_len=lens, scale=scale,
+                                strided=strided, tol=tol, ok=ok,
+                                max_abs_err=(got - want).abs().max().item()))
+    return records
 
 
 # ---------------------------------------------------------------- phase 3
@@ -200,8 +272,11 @@ def profile(torch, fn, top: int = 12):
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+    ours = {k[:70]: v for k, v in ranked
+            if any(tag in k for tag in ("sylber", "conv0_", "segment_pass1"))}
     return dict(wall_ms=wall * 1e3, device_ms=sum(by_name.values()),
-                launches=len(kernels), top_ms=[(k[:60], v) for k, v in ranked[:top]])
+                launches=len(kernels), top_ms=[(k[:60], v) for k, v in ranked[:top]],
+                port_kernels_ms=ours)
 
 
 def check_outputs(outs, wavs, cfg, width):
@@ -251,7 +326,9 @@ def main_path(torch, Segmenter, HubertConfig, counters):
                 f"RTFx {audio_s / wall:.1f}, {runs[-1]['segments']} segments; "
                 f"profiled run: device busy {prof['device_ms']:.1f} of "
                 f"{prof['wall_ms']:.1f} ms, {prof['launches']} launches; top: "
-                + ", ".join(f"{k} {v:.1f} ms" for k, v in prof["top_ms"][:6]))
+                + ", ".join(f"{k} {v:.1f} ms" for k, v in prof["top_ms"][:6])
+                + "; the port's kernels: "
+                + ", ".join(f"{k} {v:.2f} ms" for k, v in prof["port_kernels_ms"].items()))
         del seg
         torch.cuda.empty_cache()
     launches = {fn.__name__: fn.launches for fn in counters}
@@ -286,6 +363,28 @@ def mini_ckpt_agreement(torch, Segmenter, HubertConfig):
                            max_hidden_diff=float(diff)))
         if not same:
             raise AssertionError(f"mini_ckpt segments differ between GPU and CPU on {name}")
+
+    # bf16 fast mode against fp32 parity mode, both on the card: 16 held-out
+    # utterances of 3-8 s (small-attention path) and two of 11-14 s (flash)
+    from sylber_tpu_torch.utils.metrics import boundary_f1
+
+    fast_cfg = HubertConfig(num_hidden_layers=meta["encoding_layer"], dtype="bfloat16",
+                            frontend_dtype="bfloat16", precision="default", **hub)
+    fast = Segmenter(device="cuda", **{**kw, "hubert_config": fast_cfg})
+    rng = np.random.RandomState(9999)
+    held = [speechlike(rng, int(rng.uniform(3.0, 8.0) * 16000)) for _ in range(16)]
+    held += [speechlike(rng, int(s * 16000)) for s in (11.0, 14.0)]
+    exact_out = gpu.process(held, in_second=False, return_hidden=False)
+    fast_out = fast.process(held, in_second=False, return_hidden=False)
+    f1 = float(np.mean([boundary_f1(f["segments"], e["segments"], tol_frames=0)
+                        for f, e in zip(fast_out, exact_out)]))
+    nseg = int(sum(len(e["segments"]) for e in exact_out))
+    log(f"mini_ckpt bf16 fast vs fp32 exact on the card: boundary F1 (tol 0) {f1:.5f} "
+        f"over {len(held)} utterances, {nseg} segments")
+    report.append(dict(input="bf16 vs fp32, 18 utterances", boundary_f1_tol0=f1,
+                       segments=nseg))
+    if f1 < 0.995 or nseg == 0:
+        raise AssertionError(f"bf16 fast mode boundary F1 {f1} < 0.995 against fp32")
     return report
 
 
@@ -324,6 +423,16 @@ def main() -> int:
     bad = [f"{n} {dt}" for n, rec in checks.items() for dt, r in rec.items() if not r["ok"]]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
+    with matmul_precision("highest"):
+        edges = check_attention_edges(torch, ops)
+    for name in ("small_attention", "flash_attention"):
+        for dt in ("float32", "bfloat16"):
+            errs = [e["max_abs_err"] for e in edges if e["kernel"] == name and e["dtype"] == dt]
+            log(f"phase 2: {name} {dt} edge shapes: {len(errs)} calls, "
+                f"worst max_abs_err {max(errs):.3g}")
+    bad = [e for e in edges if not e["ok"]]
+    if bad:
+        raise AssertionError(f"attention kernels disagree at edge shapes: {bad}")
 
     counters = [ops.frontend.conv0_gn_gelu, ops.smallattn.small_attention,
                 ops.flash.flash_attention, ops.segment.segment_pass1]
@@ -349,15 +458,21 @@ def main() -> int:
                      max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                      bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                      library_ms=r["library_ms"], dtype="float32", shape=r["shape"])
+        extra = tuple(k for k in ("eager_ms", "library_eager_ms") if k in r)
+        entry.update({k: r[k] for k in extra})
         if "bfloat16" in rec:
             entry["bfloat16"] = {k: rec["bfloat16"][k] for k in
                                  ("max_abs_err", "ms", "plain_ms", "library_ms",
-                                  "bound_ms", "bound_by")}
+                                  "bound_ms", "bound_by") + extra}
         line.append(entry)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        build_log = kernels.BUILD_DIR / "build.log"  # registers, shared memory, spills
+        if build_log.exists():
+            Path(args.out).with_suffix(".build.log").write_text(build_log.read_text())
         Path(args.out).write_text(json.dumps(dict(card=smi, kernels=line, main_path=runs,
-                                                  mini_ckpt=mini), indent=1))
+                                                  attention_edges=edges, mini_ckpt=mini),
+                                             indent=1))
     log(json.dumps({"kernels": line}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

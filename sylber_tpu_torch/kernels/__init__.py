@@ -4,9 +4,9 @@ from __future__ import annotations
 
 import torch
 
-from ._build import build, check, lib
+from ._build import BUILD_DIR, build, check, lib
 
-__all__ = ["build", "check", "lib", "stream_of", "require_cuda"]
+__all__ = ["BUILD_DIR", "build", "check", "lib", "stream_of", "require_cuda"]
 
 
 def stream_of(t: torch.Tensor) -> int:
@@ -14,12 +14,13 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def require_cuda(name: str, *tensors: torch.Tensor) -> None:
-    """Raise unless every tensor is a contiguous CUDA tensor on one device."""
+def require_cuda(name: str, *tensors: torch.Tensor, contiguous: bool = True) -> None:
+    """Raise unless every tensor is a CUDA tensor on one device, and
+    contiguous unless the kernel takes strides."""
     dev = tensors[0].device
     for t in tensors:
         if t.device.type != "cuda" or t.device != dev:
             raise ValueError(f"{name}: expected CUDA tensors on one device, "
                              f"got {[str(x.device) for x in tensors]}")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError(f"{name}: expected contiguous tensors")

@@ -30,16 +30,17 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_S = ctypes.POINTER(ctypes.c_longlong)  # element strides, an array on the host
 # entry point -> (argtypes, restype)
 _SIGNATURES = {
     "sylber_cuda_error_string": ([_I], ctypes.c_char_p),
     "sylber_conv0_partials_size": ([_I, _I, _I], _I),
     "sylber_conv0_gn_gelu": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
                               _P], _I),
-    "sylber_small_attention": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
-                                _P], _I),
-    "sylber_flash_attention": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
-                                _P], _I),
+    "sylber_small_attention": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _S, _F,
+                                _I, _P], _I),
+    "sylber_flash_attention": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _S, _F,
+                                _I, _P], _I),
     "sylber_segment_pass1": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
                              _I),
 }

@@ -9,7 +9,8 @@ XLA), and the attention core dispatched on what the inputs show:
 - CUDA, L > 512: the flash kernel (``ops/flash.py``).
 
 Key padding travels as a per-item valid length ``kv_len`` (B,) int32, taken
-from the frame lengths, never as a materialised bias.
+from the frame lengths, never as a materialised bias. The heads are split as
+strided views of the projections, which the kernels read in place.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from .smallattn import MAX_SEQ, small_attention, small_attention_plain
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               kv_len: torch.Tensor, scale: Optional[float] = None) -> torch.Tensor:
-    """(B, H, L, D) attention with keys ``>= kv_len[b]`` masked."""
+    """(B, H, L, D) attention, any strides, keys ``>= kv_len[b]`` masked."""
     if q.device.type == "cpu":
         return small_attention_plain(q, k, v, kv_len, scale)
     if q.shape[-2] <= MAX_SEQ:
@@ -57,7 +58,9 @@ class MultiHeadSelfAttention(nn.Module):
         B, L, d = x.shape
         h = self.num_heads
         q, k, v = (linear(x, p, dtype) for p in (self.q_proj, self.k_proj, self.v_proj))
-        split = lambda t: t.reshape(B, L, h, d // h).transpose(1, 2).contiguous()  # noqa: E731
+        # (B, H, L, D) views of the projections: the kernels take strides and
+        # write the output in the same layout, so nothing is copied here
+        split = lambda t: t.view(B, L, h, d // h).transpose(1, 2)  # noqa: E731
         out = attention(split(q), split(k), split(v), kv_len)
         out = out.transpose(1, 2).reshape(B, L, d)
         return linear(out, self.out_proj, dtype)

@@ -5,10 +5,14 @@ tensor :func:`flash_attention` launches the kernel of ``csrc/flash.cu`` (its
 header says what bounds it and how the design answers that); on a CPU tensor
 it runs :func:`flash_attention_plain`.
 
-Numerics are those of the TPU kernel: everything in fp32 (q scaled in fp32,
-``scale`` may be overridden), masked keys weigh exactly 0, and a query row
-with no valid key (``kv_len == 0``) gives 0. Key padding is a per-item
-``kv_len``; the ragged edge is masked inside the kernel, nothing is padded.
+Numerics are those of the TPU kernel: softmax state and accumulator in fp32,
+q scaled by ``scale`` (which may be overridden), masked keys weigh exactly
+0, and a query row with no valid key (``kv_len == 0``) gives 0. Key padding
+is a per-item ``kv_len``; the ragged edge is masked inside the kernel,
+nothing is padded. On fp32 inputs everything is fp32. On bf16 inputs the
+kernel runs on the tensor cores: it scales the fp32 scores, so q is not
+rounded, and rounds P to bf16 for the P V product where the TPU kernel kept
+fp32; the plain version stays the fp32 reference and the two agree to 2e-2.
 """
 
 from __future__ import annotations
@@ -17,9 +21,10 @@ from typing import Optional
 
 import torch
 
-from ..kernels import check, lib, require_cuda, stream_of
+from ._attn_launch import launch_attention
 
-MAX_HEAD_DIM = 64
+MAX_HEAD_DIM = 128
+MAX_SEQ = 2 ** 31 - 1  # any length an int holds
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -41,30 +46,18 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     kv_len: torch.Tensor,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """(B, H, L, D) attention, any L, D <= 64, keys ``>= kv_len[b]`` masked.
+    """(B, H, L, D) attention, any L, D <= 128, keys ``>= kv_len[b]`` masked.
 
-    ``q, k, v``: float32 or bfloat16, one dtype; ``kv_len``: (B,) int32.
+    ``q, k, v``: float32 or bfloat16, one dtype, any (batch, head, row)
+    strides (a ``(B, L, H, D)`` projection viewed as ``(B, H, L, D)`` is not
+    copied; the output then has that layout too); ``kv_len``: (B,) int32.
     """
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, kv_len, scale)
-    B, H, L, D = q.shape
-    if D > MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention: head dim {D} > {MAX_HEAD_DIM}")
-    if q.dtype not in (torch.float32, torch.bfloat16) or not (
-            k.dtype == v.dtype == q.dtype):
-        raise ValueError(f"flash_attention: q/k/v must share float32 or "
-                         f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if k.shape != q.shape or v.shape != q.shape:
-        raise ValueError("flash_attention: q, k, v shapes differ")
-    if kv_len.dtype != torch.int32 or tuple(kv_len.shape) != (B,):
-        raise ValueError("flash_attention: kv_len must be (B,) int32")
-    require_cuda("flash_attention", q, k, v, kv_len)
+    D = q.shape[-1]
     scale = D ** -0.5 if scale is None else scale
-    out = torch.empty_like(q)
-    check(lib().sylber_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
-        out.data_ptr(), B, H, L, D, float(scale),
-        int(q.dtype == torch.bfloat16), stream_of(q)), "flash_attention")
+    out = launch_attention("sylber_flash_attention", "flash_attention", q, k, v,
+                           kv_len, float(scale), MAX_SEQ, MAX_HEAD_DIM)
     flash_attention.launches += 1
     return out
 

@@ -100,6 +100,90 @@ def test_flash_attention_matches_pallas(flash_interpret, scale):
     assert not _np(got)[2].any()
 
 
+def _bhld_views(arrays, dtype):
+    """(B, H, L, D) tensors that are views of (B, L, H, D) memory, as the
+    encoder layer hands its projections to the attention core."""
+    return [_t(a, dtype).transpose(1, 2).contiguous().transpose(1, 2) for a in arrays]
+
+
+_EDGE_DTYPES = [("float32", 2e-5), ("bfloat16", 2e-2)]
+
+
+@pytest.mark.parametrize("dtype,tol", _EDGE_DTYPES)
+@pytest.mark.parametrize("D", [12, 64])
+@pytest.mark.parametrize("L", [77, 250])
+def test_small_attention_edges_match_pallas(L, D, dtype, tol):
+    """kv_len 0, 1, L-1 and L in one batch; the kv_len == 0 item is the mean
+    of V; strided (B, L, H, D) views give what contiguous inputs give."""
+    rng = np.random.RandomState(10 * L + D)
+    q, k, v = _qkv(rng, 4, 2, L, D)
+    lens = np.array([0, 1, L - 1, L], np.int32)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    want = np.asarray(fused_attention_small(
+        *(jnp.asarray(a, jdt) for a in (q, k, v)), kv_len=jnp.asarray(lens),
+        interpret=True), np.float32)
+    got = small_attention(*(_t(a, tdt) for a in (q, k, v)), torch.from_numpy(lens))
+    np.testing.assert_allclose(_np(got), want, rtol=tol, atol=tol)
+    mean_v = _np(_t(v[0], tdt)).mean(axis=1, keepdims=True)  # (H, 1, D)
+    np.testing.assert_allclose(_np(got)[0], np.broadcast_to(mean_v, got.shape[1:]),
+                               rtol=tol, atol=tol)
+    views = _bhld_views((q, k, v), tdt)
+    assert not views[0].is_contiguous()
+    strided = small_attention(*views, torch.from_numpy(lens))
+    assert strided.shape == got.shape
+    np.testing.assert_array_equal(_np(strided), _np(got))
+
+
+@pytest.mark.parametrize("dtype,tol", _EDGE_DTYPES)
+@pytest.mark.parametrize("D", [12, 64])
+@pytest.mark.parametrize("L", [513, 600])
+def test_flash_attention_edges_match_pallas(flash_interpret, L, D, dtype, tol):
+    """kv_len 0, 1, L-1 and L in one batch; the kv_len == 0 item is 0;
+    strided (B, L, H, D) views give what contiguous inputs give."""
+    rng = np.random.RandomState(10 * L + D)
+    q, k, v = _qkv(rng, 4, 2, L, D)
+    lens = np.array([0, 1, L - 1, L], np.int32)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    valid = np.arange(L)[None, :] < lens[:, None]
+    bias = np.where(valid, 0.0, np.finfo(np.float32).min)[:, None, None, :]
+    want = np.asarray(jax_flash.flash_attention(
+        *(jnp.asarray(a, jdt) for a in (q, k, v)),
+        bias=jnp.asarray(bias, jnp.float32)), np.float32)
+    got = flash_attention(*(_t(a, tdt) for a in (q, k, v)), torch.from_numpy(lens))
+    assert got.dtype == tdt
+    np.testing.assert_allclose(_np(got), want, rtol=tol, atol=tol)
+    assert not _np(got)[0].any()
+    strided = flash_attention(*_bhld_views((q, k, v), tdt), torch.from_numpy(lens))
+    np.testing.assert_array_equal(_np(strided), _np(got))
+
+
+def test_attention_layer_takes_strided_heads():
+    """The encoder layer's attention hands (B, L, H, D) projections to the
+    core as strided views; the result equals the copying formulation."""
+    from sylber_tpu_torch.ops.attention import MultiHeadSelfAttention
+
+    torch.manual_seed(0)
+    B, L, d, h = 2, 40, 48, 4
+    layer = MultiHeadSelfAttention(d, h)
+    x = _t(np.random.RandomState(4).randn(B, L, d))
+    lens = torch.tensor([40, 23], dtype=torch.int32)
+    with torch.no_grad():
+        got = layer(x, lens, torch.float32)
+        want = _copying_attention_layer(layer, x, lens)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-6, atol=1e-6)
+
+
+def _copying_attention_layer(layer, x, lens):
+    from sylber_tpu_torch.ops.attention import linear
+
+    B, L, d = x.shape
+    h = layer.num_heads
+    split = lambda p: linear(x, p, torch.float32).reshape(  # noqa: E731
+        B, L, h, d // h).transpose(1, 2).contiguous()
+    core = attention(split(layer.q_proj), split(layer.k_proj), split(layer.v_proj), lens)
+    return linear(core.transpose(1, 2).reshape(B, L, d), layer.out_proj, torch.float32)
+
+
 def test_attention_dispatch_on_cpu_is_the_xla_path():
     """CPU tensors take the plain path at any length, flash lengths included."""
     from sylber_tpu.ops.attention import dot_product_attention

@@ -19,8 +19,10 @@ from sylber_tpu.api import Segmenter as JaxSegmenter
 from sylber_tpu.data.synthetic import synth_utterance
 from sylber_tpu.io.checkpoint import load_params_npz as jax_load_npz
 from sylber_tpu.models.hubert import HubertConfig as JaxConfig
+from sylber_tpu.utils.metrics import boundary_f1 as jax_boundary_f1
 from sylber_tpu_torch import Segmenter
 from sylber_tpu_torch.models.hubert import HubertConfig
+from sylber_tpu_torch.utils.metrics import boundary_f1
 
 FIXTURES = Path(__file__).parent / "fixtures"
 WAV = FIXTURES / "speechlike.wav"
@@ -75,6 +77,47 @@ def test_segmenter_matches_jax_on_trained_fixture(name):
         assert single["segments"].tolist() == b["segments"].tolist()
         np.testing.assert_allclose(single["segment_features"], b["segment_features"],
                                    atol=2e-4, rtol=0)
+
+
+def test_fast_vs_exact_boundary_agreement():
+    """The bf16 fast mode reproduces the fp32 parity mode's segment decisions
+    on held-out utterances: boundary F1 at tol 0 >= 0.995, the gate the JAX
+    package holds its own fast mode to. The port's boundary_f1 is its own
+    copy and must agree with the JAX package's."""
+    meta = json.loads((FIXTURES / "mini_ckpt.json").read_text())
+    hub = {k: tuple(v) if isinstance(v, list) else v for k, v in meta["hubert"].items()}
+    hub["num_hidden_layers"] = meta["encoding_layer"]
+    kw = dict(model_ckpt=str(FIXTURES / "mini_ckpt.npz"), device="cpu",
+              norm_threshold=meta["norm_threshold"],
+              merge_threshold=meta["merge_threshold"])
+    exact = Segmenter(hubert_config=HubertConfig(**hub), **kw)
+    fast = Segmenter(hubert_config=HubertConfig(
+        dtype="bfloat16", frontend_dtype="bfloat16", precision="default", **hub), **kw)
+    rng = np.random.RandomState(9999)
+    wavs = _utterances(lengths_s=tuple(rng.uniform(3.0, 8.0, 16)))
+    out_e = exact.process(wavs, in_second=False, return_hidden=False)
+    out_f = fast.process(wavs, in_second=False, return_hidden=False)
+    pairs = [(f["segments"], e["segments"]) for f, e in zip(out_f, out_e)]
+    assert all(len(e) for _, e in pairs)
+    f1 = [boundary_f1(f, e, tol_frames=0) for f, e in pairs]
+    assert f1 == pytest.approx([jax_boundary_f1(f, e, tol_frames=0) for f, e in pairs])
+    nseg_delta = np.mean([abs(len(f) - len(e)) for f, e in pairs])
+    assert np.mean(f1) >= 0.995, (np.mean(f1), nseg_delta)
+    assert nseg_delta <= 0.25, nseg_delta
+
+
+@pytest.mark.parametrize("pred,ref,tol,want", [
+    ([[0, 4], [6, 9]], [[0, 4], [6, 9]], 0, 1.0),
+    ([[0, 4], [6, 9]], [[0, 5], [6, 9]], 0, 0.75),
+    ([[0, 4], [6, 9]], [[0, 5], [6, 9]], 1, 1.0),
+    (np.zeros((0, 2)), np.zeros((0, 2)), 0, 1.0),
+    ([[1, 3]], np.zeros((0, 2)), 0, 0.0),
+])
+def test_boundary_f1_matches_jax_package(pred, ref, tol, want):
+    got = boundary_f1(np.asarray(pred), np.asarray(ref), tol_frames=tol)
+    assert got == pytest.approx(want)
+    assert got == pytest.approx(jax_boundary_f1(np.asarray(pred), np.asarray(ref),
+                                                tol_frames=tol))
 
 
 def test_output_contract():
