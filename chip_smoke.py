@@ -13,12 +13,17 @@ Phases, each of which fails the script when it fails:
    (all three on the same tensors); then hold the two
    attention kernels against their plain versions at the awkward shapes
    (sequence lengths off the tile, head widths 12 to 128, key lengths at the
-   tile edges, a scale override, contiguous and strided ``(B, L, H, D)`` views);
+   tile edges, a scale override, contiguous and strided ``(B, L, H, D)`` views),
+   conv0 on a DC offset, an all-zero item and the 20 s bucket, the whole
+   segmentation at awkward lengths, widths and rows, and the division of
+   pass 1's merged mean against the IEEE division for every frame count;
 3. run the ``Segmenter`` at full hubert-base width (768 wide, 9 layers,
    seeded random weights) in fp32 parity mode and bf16 fast mode on a
    32 x 5 s batch (small-attention path) and a 32 x 12-20 s batch (flash
    path), with every launch counter set to 0 just before and read just
-   after; every kernel must have launched; prints the real-time factor;
+   after; every kernel must have launched; the segmentation runs with
+   ``torch.cuda.set_sync_debug_mode("error")``, so a wait for the host
+   inside it fails the run; prints the real-time factor of five timed calls;
 4. run the trained ``tests/fixtures/mini_ckpt.npz`` Segmenter on the card
    and on the CPU; the segments must be identical; then its bf16 fast mode
    against its fp32 parity mode, both on the card: boundary F1 at tolerance
@@ -46,6 +51,13 @@ ROOT = Path(__file__).resolve().parent
 FIXTURES = ROOT / "tests" / "fixtures"
 H100_BYTES_PER_S = 3.35e12
 H100_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}  # fp32 CUDA cores; bf16 tensor cores
+# Least dependent latency of one frame of the pass-1 scan, in SM cycles, from
+# assumed (not measured) instruction latencies: 4 for a dependent fp32 add,
+# multiply or FMA, 24 for a warp shuffle, 40 for an IEEE square root or
+# division. One product (4), a reduction across a warp's lanes (5 x (24 + 4)),
+# the square root of |curr|^2 (40), two divisions (80), compare and select
+# (8), the update of the mean (4 + 4 + 40).
+PASS1_CHAIN_CYCLES = 4 + 5 * (24 + 4) + 40 + 80 + 8 + 48
 
 
 def log(*parts):
@@ -145,9 +157,9 @@ def check_kernels(torch, ops):
         nbytes = 4 * (B * L + D * 12) + B * T0 * D * got.element_size()
         b_ms, b_by = bound_ms(nbytes, B * T0 * D * (2 * 10 + 4), "float32")
         rec[dt] = dict(max_abs_err=err, tol=tol, ok=bool(ok),
-                       ms=time_ms(torch, run, 10), plain_ms=time_ms(torch, plain, 5),
-                       library_ms=time_ms(torch, library, 5), bound_ms=b_ms, bound_by=b_by,
-                       shape=[B, L, D])
+                       ms=graph_time_ms(torch, run, 5), plain_ms=time_ms(torch, plain, 5),
+                       library_ms=time_ms(torch, library, 5), eager_ms=time_ms(torch, run, 10),
+                       bound_ms=b_ms, bound_by=b_by, shape=[B, L, D])
         del got, want
     results["conv0_gn_gelu"] = rec
 
@@ -194,22 +206,231 @@ def check_kernels(torch, ops):
                            bound_ms=b_ms, bound_by=b_by, shape=[B, H, L, Dh])
         results[name] = rec
 
-    # segmentation pass 1 at B=32 x 1000 frames x 768
+    # segmentation at B=32 x 1000 frames x 768: pass 1, then pass 2 +
+    # compaction on pass 1's buffers
+    seg = ops.segment
     B, L, d = 32, 1000, 768
     states = torch.from_numpy(synthetic_states(np.random.RandomState(0), B, L, d)).to(dev)
-    voiced = ops.segment.frame_norms(states) >= 2.6
+    norms = seg.frame_norms(states)
+    voiced = norms >= 2.6
     voiced[3, 700:] = False
-    run = lambda: ops.segment.segment_pass1(states, voiced, 0.8)  # noqa: E731
-    plain = lambda: ops.segment.segment_pass1_plain(states, voiced, 0.8)  # noqa: E731
-    got, want = run(), plain()
-    mism = sum(int((a.int() != b.int()).sum().item()) for a, b in zip(got, want))
-    nbytes = 4 * B * L * d + B * L * (1 + 1 + 1 + 4) + 4 * B
+    plain = lambda: seg.segment_pass1_plain(states, voiced, 0.8)  # noqa: E731
+    want = plain()
+    run = lambda: seg.segment_pass1(states, voiced, 0.8)  # noqa: E731
+    mism = sum(int((a.int() != b.int()).sum().item()) for a, b in zip(run(), want))
+    nbytes = 4 * B * L * d + B * L * (1 + 1 + 1 + 4) + 2 * 8 * B * (L + 1) + 3 * 4 * B
     b_ms, b_by = bound_ms(nbytes, 9.0 * B * L * d, "float32")
     results["segment_pass1"] = {"float32": dict(
-        max_abs_err=float(mism), tol=0, ok=mism == 0, ms=time_ms(torch, run, 5),
+        max_abs_err=float(mism), tol=0, ok=mism == 0, ms=graph_time_ms(torch, run, 10),
         plain_ms=time_ms(torch, plain, 1, warmup=0), library_ms=None,
-        bound_ms=b_ms, bound_by=b_by, shape=[B, L, d])}
+        bound_ms=b_ms, bound_by=b_by, shape=[B, L, d],
+        eager_ms=time_ms(torch, run, 10),
+        chain_bound_ms=L * PASS1_CHAIN_CYCLES / sm_clock_hz() * 1e3)}
+
+    P = seg._prefix_sums(states)
+    p1 = seg.segment_pass1(states, voiced, 0.8)  # equal to the plain version's, see above
+    args = (states, norms, P, p1.segs, p1.nseg, p1.mids, p1.nmid, 0.8)
+    run = lambda: seg.segment_pass2(*args)  # noqa: E731
+    plain = lambda: seg.segment_pass2_plain(*args)  # noqa: E731
+    (got_segs, got_n), (want_segs, want_n) = run(), plain()
+    mism = int((got_segs != want_segs).sum().item() + (got_n != want_n).sum().item())
+    p_rows, win_frames = pass2_traffic(*(a.cpu().numpy() for a in args[:1] + args[3:7]), 0.8)
+    nbytes = (4 * d * (p_rows + win_frames) + 4 * win_frames       # rows of P and states, norms
+              + 2 * 8 * B * (L + 1) + 2 * 4 * B                   # segs, mids, nseg, nmid
+              + 8 * B * (L + 1) + 4 * B)                          # segments, counts
+    b_ms, b_by = bound_ms(nbytes, 2.5 * d * p_rows + 4.0 * d * win_frames, "float32")
+    results["segment_pass2"] = {"float32": dict(
+        max_abs_err=float(mism), tol=0, ok=mism == 0, ms=graph_time_ms(torch, run, 5),
+        eager_ms=time_ms(torch, run, 10),
+        plain_ms=time_ms(torch, plain, 1, warmup=0), library_ms=None,
+        bound_ms=b_ms, bound_by=b_by, shape=[B, L, d],
+        mid_boundaries=int(p1.nmid.sum().item()), segments=int(got_n.sum().item()),
+        p_rows_read=p_rows, window_frames=win_frames)}
     return results
+
+
+def sm_clock_hz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    return float(out) * 1e6
+
+
+def pass2_traffic(states, segs, nseg, mids, nmid, thr):
+    """What pass 2 must read for this data: the rows of the prefix sums (4 per
+    mid boundary it looks at) and the window frames of its sweeps, counted by
+    walking the refinement on the host in numpy as the oracle of the JAX
+    package walks it."""
+    def cos(x, y):
+        return (x * y).sum(-1) / np.sqrt((x * x).sum(-1) + 1e-8) / np.sqrt((y * y).sum(-1) + 1e-8)
+
+    p_rows = win_frames = 0
+    for b in range(len(states)):
+        row = [list(sg) for sg in segs[b, :nseg[b]]]
+        for bd, gi in mids[b, :nmid[b]]:
+            if gi >= len(row) - 1:
+                continue
+            (a0, a1), (b0, b1) = row[gi], row[gi + 1]
+            p_rows += 4
+            mean_a = states[b, a0:a1].mean(0) if a1 > a0 else np.zeros_like(states[b, 0])
+            mean_b = states[b, b0:b1].mean(0)
+            if cos(mean_a, mean_b) >= thr:
+                row[gi + 1] = [a0, b1]
+                continue
+            ws = max(a0, bd - max(1, (a1 - a0) // 2))
+            we = min(b1, bd + max(1, (b1 - b0) // 2))
+            win_frames += we - ws
+            prev, nxt = cos(states[b, ws:we], mean_a), cos(states[b, ws:we], mean_b)
+            opt = ws + int(np.argmax([prev[:j].sum() + nxt[j:].sum() for j in range(we - ws)]))
+            row[gi], row[gi + 1] = [a0, opt], [opt, b1]
+    return int(p_rows), int(win_frames)
+
+
+def segment_batch_plain(torch, seg, states, norm_threshold, merge_threshold, frame_valid=None):
+    """``ops.segment.segment_batch`` with the plain version of each kernel."""
+    norms = seg.frame_norms(states)
+    voiced = norms >= norm_threshold
+    if frame_valid is not None:
+        voiced = voiced & frame_valid
+    P = seg._prefix_sums(states)
+    p1 = seg.segment_pass1_plain(states, voiced, merge_threshold)
+    segs, n = seg.segment_pass2_plain(states, norms, P, p1.segs, p1.nseg, p1.mids, p1.nmid,
+                                      merge_threshold)
+    valid = torch.arange(segs.shape[1], device=n.device)[None, :] < n[:, None]
+    feats = torch.where(valid[..., None], seg._segment_means(P, segs), 0.0)
+    return seg.SegmentResult(segs, n, feats, norms)
+
+
+def check_conv0_edges(torch, ops):
+    """conv0 against its plain version on a DC offset, a batch with an all-zero
+    item, and the 20 s bucket; correctness only (fp32 2e-4, bf16 2e-2)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    randn = lambda *s: torch.randn(*s, device=dev, generator=gen)  # noqa: E731
+    D = 512
+    w = randn(D, 1, 10) / 10 ** 0.5
+    gamma, beta = 1 + 0.1 * randn(D), 0.1 * randn(D)
+    inputs = {"dc_offset_0.5": randn(8, 80000) + 0.5, "all_zero_item": randn(8, 80000),
+              "bucket_20s": randn(8, 320000)}
+    inputs["all_zero_item"][2] = 0.0
+    inputs["bucket_20s"][1, 200000:] = 0.0
+    records = []
+    for name, x in inputs.items():
+        for dt, tol in (("float32", 2e-4), ("bfloat16", 2e-2)):
+            tdt = getattr(torch, dt)
+            got = ops.frontend.conv0_gn_gelu(x, w, gamma, beta, out_dtype=tdt).float()
+            want = ops.frontend.conv0_gn_gelu_plain(x, w, gamma, beta, out_dtype=tdt).float()
+            torch.cuda.synchronize()
+            ok = bool(torch.isfinite(got).all() and torch.allclose(got, want, rtol=tol, atol=tol))
+            records.append(dict(input=name, shape=list(x.shape), dtype=dt, tol=tol, ok=ok,
+                                max_abs_err=(got - want).abs().max().item()))
+            del got, want
+    return records
+
+
+def check_segmentation_edges(torch, ops):
+    """``segment_batch`` on the card (both kernels) against the same pipeline
+    made of the plain versions, on the same tensors: segments and counts
+    exactly, features to 1e-5. Also counts the launches of each call, which
+    must not depend on the number of segments (two cases share a shape: one
+    of ordinary rows, one with an unvoiced row and a row that closes a segment
+    at every frame)."""
+    seg = ops.segment
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(11)
+
+    def rows(B, L, d):
+        return synthetic_states(rng, B, L, d)
+
+    mixed = rows(4, 249, 768)
+    mixed[1] = 0.0                                              # no voiced frame
+    mixed[2] = rng.randn(249, 768).astype(np.float32) * 0.2     # a boundary at every frame
+    valid = np.ones((4, 249), bool)
+    valid[3, 100:] = False                                      # padded frames
+    cases = [("L1", rows(2, 1, 768), None), ("L249_rows", mixed, valid),
+             ("L249_plateaus", rows(4, 249, 768), valid),
+             ("L4000", rows(2, 4000, 768), None), ("d144", rows(4, 300, 144), None),
+             ("d1024", rows(2, 300, 1024), None), ("d50", rows(3, 300, 50), None)]
+    records = []
+    for name, states, frame_valid in cases:
+        x = torch.from_numpy(states).to(dev)
+        if frame_valid is None:  # every case takes the same ops: the launches compare
+            frame_valid = np.ones(states.shape[:2], bool)
+        fv = torch.from_numpy(frame_valid).to(dev)
+        got, launches = count_launches(torch, lambda: seg.segment_batch(x, 2.6, 0.8, fv))
+        want = segment_batch_plain(torch, seg, x, 2.6, 0.8, fv)
+        torch.cuda.synchronize()
+        mism = int((got.segments != want.segments).sum().item()
+                   + (got.num_segments != want.num_segments).sum().item())
+        err = (got.features - want.features).abs().max().item()
+        records.append(dict(case=name, shape=list(states.shape), mismatches=mism,
+                            feature_err=err, ok=mism == 0 and err <= 1e-5, launches=launches,
+                            segments=got.num_segments.tolist()))
+    return records
+
+
+def check_pass1_ties(torch, ops):
+    """Pass 1 where the cosine of two frames lies on the merge threshold or one
+    ulp below it: the kernel's estimate of the cosine cannot decide there and
+    the IEEE quotient must. Frames of small integers, so every sum is exact in
+    any order and the kernel and its plain version see the same cosine."""
+    seg = ops.segment
+    dev = torch.device("cuda")
+    records = []
+    for second in ((1, 2), (1, 4), (2, 3), (3, 1)):
+        states = np.zeros((1, 6, 768), np.float32)
+        states[0, :, :2] = [(1, 1), second] * 3
+        x = torch.from_numpy(states).to(dev)
+        voiced = torch.ones(1, 6, dtype=torch.bool, device=dev)
+        eps = np.float32(1e-8)
+        cosine = (np.float32(second[0] + second[1]) / np.sqrt(np.float32(2) + eps)
+                  / np.sqrt(np.float32(second[0] ** 2 + second[1] ** 2) + eps))
+        for thr in (cosine, np.nextafter(cosine, np.float32(2))):
+            got = seg.segment_pass1(x, voiced, float(thr))
+            want = seg.segment_pass1_plain(x, voiced, float(thr))
+            mism = sum(int((a.int() != b.int()).sum().item()) for a, b in zip(got, want))
+            records.append(dict(second=list(second), thr=float(thr), mismatches=mism,
+                                boundary=bool(want.boundary[0, 1].item()), ok=mism == 0))
+    return records
+
+
+def check_shared_divisor(torch, kernels, max_count):
+    """The division that pass 1 forms its merged mean with (``Divisor`` of
+    ``common.cuh``: a reciprocal taken once, then estimate, remainder and
+    correction) against the IEEE division, computed on the host by numpy, bit
+    for bit: the reciprocal of every frame count 1..``max_count`` must be the
+    rounded ``1 / c`` (with that the quotient is the rounded one for every
+    numerator in range, by Markstein's theorem), and the quotients of random
+    numerators over 2^-40..2^27 in size, by every count once and by counts
+    up to 4001 seven times as often, must have the bits of ``x / c``."""
+    rng = np.random.RandomState(4)
+    c = np.concatenate([np.arange(1, max_count + 1),
+                        rng.randint(1, 4002, 7 * max_count)]).astype(np.float32)
+    x = (rng.randn(c.size) * np.exp(rng.uniform(-12, 8, c.size))).astype(np.float32)
+    dev = torch.device("cuda")
+    tx, tc = torch.from_numpy(x).to(dev), torch.from_numpy(c).to(dev)
+    q, r = torch.empty_like(tx), torch.empty_like(tx)
+    kernels.check(kernels.lib().sylber_shared_divisor(
+        tx.data_ptr(), tc.data_ptr(), q.data_ptr(), r.data_ptr(), c.size,
+        kernels.stream_of(tx)), "shared_divisor")
+    torch.cuda.synchronize()
+    bad_r = int((r.cpu().numpy().view(np.int32) != (np.float32(1) / c).view(np.int32)).sum())
+    bad_q = int((q.cpu().numpy().view(np.int32) != (x / c).view(np.int32)).sum())
+    return dict(divisors=max_count, quotients=int(c.size), reciprocal_mismatches=bad_r,
+                quotient_mismatches=bad_q, ok=bad_r == 0 and bad_q == 0)
+
+
+def count_launches(torch, fn):
+    """``fn()`` and the number of device kernels and copies it enqueued."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, sum(1 for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
 def check_attention_edges(torch, ops):
@@ -273,7 +494,7 @@ def profile(torch, fn, top: int = 12):
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
     ours = {k[:70]: v for k, v in ranked
-            if any(tag in k for tag in ("sylber", "conv0_", "segment_pass1"))}
+            if any(tag in k for tag in ("sylber", "conv0_", "segment_pass"))}
     return dict(wall_ms=wall * 1e3, device_ms=sum(by_name.values()),
                 launches=len(kernels), top_ms=[(k[:60], v) for k, v in ranked[:top]],
                 port_kernels_ms=ours)
@@ -289,6 +510,19 @@ def check_outputs(outs, wavs, cfg, width):
             assert feats.shape == (len(seg), width) and np.isfinite(feats).all()
             assert (seg[:, 0] < seg[:, 1]).all() and seg.min() >= 0 and seg.max() <= t
             assert (seg[1:, 0] >= seg[:-1, 1]).all()
+
+
+def forbid_host_syncs(torch, fn):
+    """``fn`` with ``torch.cuda.set_sync_debug_mode("error")`` around each call:
+    an operation inside it that waits for the device raises."""
+    def guarded(*args, **kwargs):
+        saved = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode(saved)
+    return guarded
 
 
 def main_path(torch, Segmenter, HubertConfig, counters):
@@ -311,24 +545,31 @@ def main_path(torch, Segmenter, HubertConfig, counters):
         for bname, wavs in batches.items():
             seg.process(wavs, in_second=False)  # warm-up: cuDNN plans, kernel build
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            outs = seg.process(wavs, in_second=False)
-            wall = time.perf_counter() - t0
+            walls = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                outs = seg.process(wavs, in_second=False)
+                walls.append(time.perf_counter() - t0)
             check_outputs(outs, wavs, cfg, 768)
             audio_s = sum(len(w) for w in wavs) / 16000.0
+            rtfx = sorted(audio_s / w for w in walls)
             hidden[(mode, bname)] = outs[0]["hidden_states"]
-            runs.append(dict(mode=mode, batch=bname, audio_s=audio_s, wall_s=wall,
-                             rtfx=audio_s / wall,
+            runs.append(dict(mode=mode, batch=bname, audio_s=audio_s, wall_s=walls,
+                             rtfx=rtfx[2], rtfx_min=rtfx[0], rtfx_max=rtfx[-1],
                              segments=int(sum(len(o["segments"]) for o in outs)),
                              profile=profile(torch, lambda: seg.process(wavs))))
             prof = runs[-1]["profile"]
-            log(f"main path {mode} {bname}: {audio_s:.1f} s audio in {wall * 1e3:.1f} ms, "
-                f"RTFx {audio_s / wall:.1f}, {runs[-1]['segments']} segments; "
+            log(f"main path {mode} {bname}: {audio_s:.1f} s audio, 5 timed calls: RTFx median "
+                f"{rtfx[2]:.1f} (min {rtfx[0]:.1f}, max {rtfx[-1]:.1f}), "
+                f"{runs[-1]['segments']} segments; "
                 f"profiled run: device busy {prof['device_ms']:.1f} of "
                 f"{prof['wall_ms']:.1f} ms, {prof['launches']} launches; top: "
                 + ", ".join(f"{k} {v:.1f} ms" for k, v in prof["top_ms"][:6])
                 + "; the port's kernels: "
                 + ", ".join(f"{k} {v:.2f} ms" for k, v in prof["port_kernels_ms"].items()))
+            if prof["launches"] >= 1000:
+                raise AssertionError(f"{mode} {bname}: {prof['launches']} launches in one "
+                                     "process() call; the segmentation should add a fixed few")
         del seg
         torch.cuda.empty_cache()
     launches = {fn.__name__: fn.launches for fn in counters}
@@ -420,25 +661,62 @@ def main() -> int:
                 f"(tol {r['tol']}) ok={r['ok']}  kernel_ms {r['ms']:.4f}  "
                 f"plain_ms {r['plain_ms']:.4f}  library_ms {r['library_ms']}  "
                 f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})  [{smi}]")
+    p1, p2 = checks["segment_pass1"]["float32"], checks["segment_pass2"]["float32"]
+    log(f"phase 2: segment_pass1 eager {p1['eager_ms']:.4f} ms; chain bound "
+        f"{p1['chain_bound_ms']:.4f} ms  [{smi}]")
+    log(f"phase 2: segment_pass2 looked at {p2['mid_boundaries']} mid boundaries, read "
+        f"{p2['p_rows_read']} rows of prefix sums and {p2['window_frames']} window frames, "
+        f"left {p2['segments']} segments")
     bad = [f"{n} {dt}" for n, rec in checks.items() for dt, r in rec.items() if not r["ok"]]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
     with matmul_precision("highest"):
         edges = check_attention_edges(torch, ops)
+        conv0_edges = check_conv0_edges(torch, ops)
+        seg_edges = check_segmentation_edges(torch, ops)
+        ties = check_pass1_ties(torch, ops)
+    division = check_shared_divisor(torch, kernels, ops.segment.MAX_FRAMES)
     for name in ("small_attention", "flash_attention"):
         for dt in ("float32", "bfloat16"):
             errs = [e["max_abs_err"] for e in edges if e["kernel"] == name and e["dtype"] == dt]
             log(f"phase 2: {name} {dt} edge shapes: {len(errs)} calls, "
                 f"worst max_abs_err {max(errs):.3g}")
-    bad = [e for e in edges if not e["ok"]]
+    for e in conv0_edges:
+        log(f"phase 2: conv0_gn_gelu {e['dtype']} {e['input']} {e['shape']}: max_abs_err "
+            f"{e['max_abs_err']:.3g} (tol {e['tol']}) ok={e['ok']}")
+    for e in seg_edges:
+        log(f"phase 2: segment_batch {e['case']} {e['shape']}: {e['mismatches']} mismatches, "
+            f"feature err {e['feature_err']:.3g}, {e['launches']} launches, segments "
+            f"{e['segments']} ok={e['ok']}")
+    log(f"phase 2: segment_pass1 with a cosine on the threshold and one ulp below it: "
+        f"{len(ties)} calls, {sum(t['mismatches'] for t in ties)} mismatches, boundaries "
+        f"{[t['boundary'] for t in ties]}")
+    log(f"phase 2: pass 1's shared-divisor division against IEEE x / c: frame counts 1.."
+        f"{division['divisors']}, {division['reciprocal_mismatches']} reciprocals and "
+        f"{division['quotient_mismatches']} of {division['quotients']} quotients differ")
+    bad = [e for e in edges + conv0_edges + seg_edges + ties + [division] if not e["ok"]]
     if bad:
-        raise AssertionError(f"attention kernels disagree at edge shapes: {bad}")
+        raise AssertionError(f"kernels disagree with their plain versions at edge shapes: {bad}")
+    by_shape = {}
+    for e in seg_edges:
+        by_shape.setdefault(tuple(e["shape"]), set()).add(e["launches"])
+    if any(len(v) != 1 for v in by_shape.values()):
+        raise AssertionError("the launches of segment_batch depend on the segments found: "
+                             f"{[(e['case'], e['launches']) for e in seg_edges]}")
+
+    import sylber_tpu_torch.api as api
 
     counters = [ops.frontend.conv0_gn_gelu, ops.smallattn.small_attention,
-                ops.flash.flash_attention, ops.segment.segment_pass1]
-    runs, launches = main_path(torch, Segmenter, HubertConfig, counters)
+                ops.flash.flash_attention, ops.segment.segment_pass1,
+                ops.segment.segment_pass2]
+    segment_batch = api.segment_batch
+    api.segment_batch = forbid_host_syncs(torch, segment_batch)
+    try:
+        runs, launches = main_path(torch, Segmenter, HubertConfig, counters)
+    finally:
+        api.segment_batch = segment_batch
     log(f"phase 3: launches over the main path ({len(runs)} configurations x "
-        f"warm-up, timed and profiled run): {launches}  [{smi}]")
+        f"warm-up, 5 timed and one profiled run): {launches}  [{smi}]")
     idle = [n for n, c in launches.items() if c == 0]
     if idle:
         raise AssertionError(f"kernels never launched on the main path: {idle}")
@@ -448,7 +726,8 @@ def main() -> int:
     sources = {"conv0_gn_gelu": ("frontend.cu", "sylber_tpu/ops/pallas/frontend.py:122"),
                "small_attention": ("smallattn.cu", "sylber_tpu/ops/pallas/smallattn.py:78"),
                "flash_attention": ("flash.cu", "sylber_tpu/ops/pallas/flash.py:125"),
-               "segment_pass1": ("segment_scan.cu", "sylber_tpu/ops/segment.py:49")}
+               "segment_pass1": ("segment_scan.cu", "sylber_tpu/ops/segment.py:49"),
+               "segment_pass2": ("segment_scan.cu", "sylber_tpu/ops/segment.py:129")}
     line = []
     for name, rec in checks.items():
         r = rec["float32"]
@@ -458,7 +737,8 @@ def main() -> int:
                      max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                      bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                      library_ms=r["library_ms"], dtype="float32", shape=r["shape"])
-        extra = tuple(k for k in ("eager_ms", "library_eager_ms") if k in r)
+        extra = tuple(k for k in ("eager_ms", "library_eager_ms", "chain_bound_ms",
+                                  "mid_boundaries", "p_rows_read", "window_frames") if k in r)
         entry.update({k: r[k] for k in extra})
         if "bfloat16" in rec:
             entry["bfloat16"] = {k: rec["bfloat16"][k] for k in
@@ -471,7 +751,12 @@ def main() -> int:
         if build_log.exists():
             Path(args.out).with_suffix(".build.log").write_text(build_log.read_text())
         Path(args.out).write_text(json.dumps(dict(card=smi, kernels=line, main_path=runs,
-                                                  attention_edges=edges, mini_ckpt=mini),
+                                                  attention_edges=edges,
+                                                  conv0_edges=conv0_edges,
+                                                  segmentation_edges=seg_edges,
+                                                  pass1_ties=ties,
+                                                  shared_divisor=division,
+                                                  mini_ckpt=mini),
                                              indent=1))
     log(json.dumps({"kernels": line}))
     log(smi)

@@ -47,7 +47,8 @@ class HubertConfig:
     The fields are those of ``sylber_tpu.models.hubert.HubertConfig``.
     Dropout rates are kept for configuration compatibility; this port runs
     inference only. ``frontend_l0_analytic`` selects nothing here: layer 0
-    always runs the fused kernel, which takes exact fp32 moments.
+    always runs the fused kernel, which takes its GroupNorm moments from the
+    waveform (the analytic form, summed in fp64) and keeps the erf GELU.
     """
 
     hidden_size: int = 768

@@ -1,17 +1,25 @@
 """Two-pass syllable segmentation and segment mean-pooling on tensors.
 
-Port of ``sylber_tpu/ops/segment.py``:
+Port of ``sylber_tpu/ops/segment.py``. On a CUDA tensor the whole
+segmentation runs on the card in a fixed number of launches, whatever the
+number of segments, and never waits for the host:
 
-- pass 1, the greedy cosine-merge scan, emits per-frame events. On a CUDA
-  tensor :func:`segment_pass1` launches the kernel of
-  ``csrc/segment_scan.cu`` (one block per batch row, the frame loop inside
-  the block); on a CPU tensor it runs :func:`segment_pass1_plain`, a loop
-  over frames vectorised over the batch. The events are scattered into
-  segment buffers with torch ops, as the JAX code does after its scan.
-- pass 2, the boundary refinement at recorded mid boundaries, is a loop of
-  torch ops over ``range(max(nmid))``. Reading that bound is one
-  device-to-host sync per batch.
-- compaction and prefix-sum pooling are torch ops.
+- pass 1, the greedy cosine-merge scan: :func:`segment_pass1` launches the
+  scan kernel of ``csrc/segment_scan.cu`` (one block per batch row, the frame
+  loop inside the block), which emits the per-frame events and fills the
+  segment and mid-boundary buffers itself;
+- pass 2, the boundary refinement at the recorded mid boundaries, and the
+  compaction of the surviving segments: :func:`segment_pass2` launches the
+  second kernel of the same source, in which every row loops over its own
+  mid boundaries;
+- the prefix sums and the mean-pooling are a few torch ops.
+
+On a CPU tensor the two wrappers run their plain versions:
+:func:`segment_pass1_plain`, a loop over frames vectorised over the batch,
+with the events scattered into the buffers as the JAX code does after its
+scan, and :func:`segment_pass2_plain`, a loop over ``range(max(nmid))``
+vectorised over the batch (reading that bound from a device tensor would be
+a device-to-host sync; the kernel has none).
 
 The reference quirk is kept: on a mid boundary the frame count carries on
 instead of resetting (``segment_np.segment_oracle``). Shapes follow the JAX
@@ -26,7 +34,8 @@ import torch
 
 from ..kernels import check, lib, require_cuda, stream_of
 
-MAX_DIM = 1024  # csrc/segment_scan.cu: 256 threads x 4 lanes
+MAX_DIM = 1024       # csrc/segment_scan.cu: the widest frame its blocks hold
+MAX_FRAMES = 1 << 20  # common.cuh: the largest frame count its division is checked for
 
 
 class SegmentResult(NamedTuple):
@@ -41,6 +50,11 @@ class Pass1Events(NamedTuple):
     boundary: torch.Tensor     # (B, L) bool: ... and t is a mid boundary
     seg_start: torch.Tensor    # (B, L) int32: open segment's start before frame t
     final_start: torch.Tensor  # (B,) int32: start of the segment open at the end
+    # the same events as buffers, zero past the counts:
+    segs: torch.Tensor         # (B, L + 1, 2) int32: [start, end) in closing order
+    nseg: torch.Tensor         # (B,) int32
+    mids: torch.Tensor         # (B, L + 1, 2) int32: (frame, index of the segment
+    nmid: torch.Tensor         # (B,) int32            closed there) per boundary
 
 
 def frame_norms(states: torch.Tensor) -> torch.Tensor:
@@ -80,33 +94,52 @@ def segment_pass1_plain(states: torch.Tensor, voiced: torch.Tensor,
         start = torch.where(v, torch.where(is_first | bnd, torch.full_like(start, i),
                                            start),
                             torch.full_like(start, -1))
-    return Pass1Events(close, boundary, seg_start, start)
+    return Pass1Events(close, boundary, seg_start, start,
+                       *_event_buffers(close, boundary, seg_start, start))
+
+
+def _check_states(name: str, states: torch.Tensor) -> None:
+    B, L, d = states.shape
+    if states.dtype != torch.float32:
+        raise ValueError(f"{name}: states must be float32, got {states.dtype}")
+    if B < 1 or not 1 <= L <= MAX_FRAMES or not 1 <= d <= MAX_DIM:
+        raise ValueError(f"{name}: states {(B, L, d)}: need at least one row, 1 to "
+                         f"{MAX_FRAMES} frames and a width of 1 to {MAX_DIM}")
 
 
 def segment_pass1(states: torch.Tensor, voiced: torch.Tensor,
                   merge_threshold: float) -> Pass1Events:
-    """Pass-1 events of ``states`` (B, L, d) float32 given ``voiced`` (B, L) bool."""
+    """Pass-1 events and buffers of ``states`` (B, L, d) float32 given
+    ``voiced`` (B, L) bool."""
     if states.device.type == "cpu":
         return segment_pass1_plain(states, voiced, merge_threshold)
     B, L, d = states.shape
-    if states.dtype != torch.float32 or voiced.dtype != torch.bool:
-        raise ValueError("segment_pass1: states float32 and voiced bool expected")
-    if tuple(voiced.shape) != (B, L):
-        raise ValueError(f"segment_pass1: voiced {tuple(voiced.shape)} != {(B, L)}")
-    if d > MAX_DIM:
-        raise ValueError(f"segment_pass1: feature width {d} > {MAX_DIM}")
+    _check_states("segment_pass1", states)
+    if voiced.dtype != torch.bool or tuple(voiced.shape) != (B, L):
+        raise ValueError(f"segment_pass1: voiced must be bool {(B, L)}, got "
+                         f"{voiced.dtype} {tuple(voiced.shape)}")
     require_cuda("segment_pass1", states, voiced)
+    return _launch_pass1(states, voiced, merge_threshold)
+
+
+def _launch_pass1(states, voiced, merge_threshold) -> Pass1Events:
+    B, L, d = states.shape
     dev = states.device
-    close = torch.empty(B, L, dtype=torch.uint8, device=dev)
-    boundary = torch.empty(B, L, dtype=torch.uint8, device=dev)
+    close = torch.empty(B, L, dtype=torch.bool, device=dev)  # the kernel writes 0 or 1
+    boundary = torch.empty(B, L, dtype=torch.bool, device=dev)
     seg_start = torch.empty(B, L, dtype=torch.int32, device=dev)
-    final_start = torch.empty(B, dtype=torch.int32, device=dev)
+    segs = torch.empty(B, L + 1, 2, dtype=torch.int32, device=dev)
+    mids = torch.empty(B, L + 1, 2, dtype=torch.int32, device=dev)
+    final_start, nseg, nmid = (torch.empty(B, dtype=torch.int32, device=dev)
+                               for _ in range(3))
     check(lib().sylber_segment_pass1(
         states.data_ptr(), voiced.data_ptr(), close.data_ptr(),
         boundary.data_ptr(), seg_start.data_ptr(), final_start.data_ptr(),
-        B, L, d, float(merge_threshold), stream_of(states)), "segment_pass1")
+        segs.data_ptr(), nseg.data_ptr(), mids.data_ptr(), nmid.data_ptr(),
+        B, L, d, float(merge_threshold), stream_of(states)),
+        "segment_pass1")
     segment_pass1.launches += 1
-    return Pass1Events(close.bool(), boundary.bool(), seg_start, final_start)
+    return Pass1Events(close, boundary, seg_start, final_start, segs, nseg, mids, nmid)
 
 
 segment_pass1.launches = 0
@@ -123,21 +156,21 @@ def _scatter_rows(values: torch.Tensor, keep: torch.Tensor, size: int) -> torch.
     return out[:, :size]
 
 
-def _pass1(states, voiced, merge_threshold):
-    B, L, _ = states.shape
+def _event_buffers(close, boundary, seg_start, final_start):
+    """Scatter the pass-1 events into (segs, nseg, mids, nmid)."""
+    B, L = close.shape
     MS = L + 1
-    ev = segment_pass1(states, voiced, merge_threshold)
-    t = torch.arange(L, dtype=torch.int32, device=states.device)[None, :].expand(B, L)
-    segs = _scatter_rows(torch.stack([ev.seg_start, t], -1), ev.close, MS)
-    nseg = ev.close.sum(dim=1).to(torch.int32)
-    pos = (torch.cumsum(ev.close.to(torch.int32), dim=1) - 1).to(torch.int32)
-    mids = _scatter_rows(torch.stack([t, pos], -1), ev.boundary, MS)
-    nmid = ev.boundary.sum(dim=1).to(torch.int32)
+    t = torch.arange(L, dtype=torch.int32, device=close.device)[None, :].expand(B, L)
+    segs = _scatter_rows(torch.stack([seg_start, t], -1), close, MS)
+    nseg = close.sum(dim=1).to(torch.int32)
+    pos = (torch.cumsum(close.to(torch.int32), dim=1) - 1).to(torch.int32)
+    mids = _scatter_rows(torch.stack([t, pos], -1), boundary, MS)
+    nmid = boundary.sum(dim=1).to(torch.int32)
 
     # close the trailing open segment as [start, L)
-    bidx = torch.arange(B, device=states.device)
-    trailing = ev.final_start > -1
-    tail = torch.stack([ev.final_start, torch.full_like(ev.final_start, L)], -1)
+    bidx = torch.arange(B, device=close.device)
+    trailing = final_start > -1
+    tail = torch.stack([final_start, torch.full_like(final_start, L)], -1)
     idx = nseg.long()
     segs[bidx, idx] = torch.where(trailing[:, None], tail, segs[bidx, idx])
     return segs, nseg + trailing.to(torch.int32), mids, nmid
@@ -159,7 +192,7 @@ def _pass2(states, norms, P, segs, nseg, mids, nmid, merge_threshold):
     alive = torch.ones(B, MS, dtype=torch.bool, device=dev)
     zero = torch.zeros(B, 1, dtype=torch.float32, device=dev)
     segs = segs.clone()
-    for j in range(int(nmid.max()) if B else 0):  # the one host sync
+    for j in range(int(nmid.max()) if B else 0):  # a host sync off the CPU
         bd = mids[:, j, 0].long()
         gi = mids[:, j, 1].long().clamp(0, MS - 2)
         active = (j < nmid) & (mids[:, j, 1] < nseg - 1)
@@ -206,6 +239,58 @@ def _compact(segs, nseg, alive):
     return _scatter_rows(segs, valid, MS), valid.sum(dim=1).to(torch.int32)
 
 
+def segment_pass2_plain(states, norms, P, segs, nseg, mids, nmid, merge_threshold):
+    """Reference refinement and compaction: ``_pass2`` then ``_compact``."""
+    segs, alive = _pass2(states, norms, P, segs, nseg, mids, nmid, merge_threshold)
+    return _compact(segs, nseg, alive)
+
+
+def segment_pass2(states: torch.Tensor, norms: torch.Tensor, P: torch.Tensor,
+                  segs: torch.Tensor, nseg: torch.Tensor, mids: torch.Tensor,
+                  nmid: torch.Tensor, merge_threshold: float):
+    """Refine the pass-1 segments at their mid boundaries and compact them.
+
+    ``states`` (B, L, d) and ``norms`` (B, L) float32, ``P`` (B, L + 1, d) the
+    prefix sums of ``states``; ``segs``, ``nseg``, ``mids``, ``nmid`` as
+    :func:`segment_pass1` returns them (they are left as they are). Returns
+    ``(segments, num_segments)``: (B, L + 1, 2) int32, zero past the count,
+    and (B,) int32.
+    """
+    if states.device.type == "cpu":
+        return segment_pass2_plain(states, norms, P, segs, nseg, mids, nmid,
+                                   merge_threshold)
+    B, L, d = states.shape
+    _check_states("segment_pass2", states)
+    for name, t, shape, dtype in (
+            ("norms", norms, (B, L), torch.float32), ("P", P, (B, L + 1, d), torch.float32),
+            ("segs", segs, (B, L + 1, 2), torch.int32), ("nseg", nseg, (B,), torch.int32),
+            ("mids", mids, (B, L + 1, 2), torch.int32), ("nmid", nmid, (B,), torch.int32)):
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"segment_pass2: {name} must be {dtype} {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    require_cuda("segment_pass2", states, norms, P, segs, nseg, mids, nmid)
+    return _launch_pass2(states, norms, P, segs, nseg, mids, nmid, merge_threshold)
+
+
+def _launch_pass2(states, norms, P, segs, nseg, mids, nmid, merge_threshold):
+    B, L, d = states.shape
+    dev = states.device
+    work = torch.empty_like(segs)  # the row's segments while they are refined
+    win = torch.empty(B, 2, L, dtype=torch.float32, device=dev)  # a sweep's cosines
+    out = torch.empty_like(segs)
+    nout = torch.empty_like(nseg)
+    check(lib().sylber_segment_pass2(
+        states.data_ptr(), norms.data_ptr(), P.data_ptr(), segs.data_ptr(),
+        nseg.data_ptr(), mids.data_ptr(), nmid.data_ptr(), work.data_ptr(),
+        win.data_ptr(), out.data_ptr(), nout.data_ptr(), B, L, d,
+        float(merge_threshold), stream_of(states)), "segment_pass2")
+    segment_pass2.launches += 1
+    return out, nout
+
+
+segment_pass2.launches = 0
+
+
 def _segment_means(P: torch.Tensor, segments: torch.Tensor) -> torch.Tensor:
     """Mean of states over each [s, e) from prefix sums, (B, MS, d)."""
     bidx = torch.arange(P.shape[0], device=P.device)[:, None]
@@ -231,9 +316,9 @@ def segment_batch(states: torch.Tensor, norm_threshold: float,
     if frame_valid is not None:
         voiced = voiced & frame_valid
     P = _prefix_sums(states)
-    segs, nseg, mids, nmid = _pass1(states, voiced.contiguous(), merge_threshold)
-    segs, alive = _pass2(states, norms, P, segs, nseg, mids, nmid, merge_threshold)
-    segs, n = _compact(segs, nseg, alive)
+    p1 = segment_pass1(states, voiced.contiguous(), merge_threshold)
+    segs, n = segment_pass2(states, norms.contiguous(), P, p1.segs, p1.nseg,
+                            p1.mids, p1.nmid, merge_threshold)
 
     # mean-pool hidden states over each [s, e)
     MS = segs.shape[1]

@@ -1,10 +1,10 @@
-// A host stand-in for the part of the CUDA runtime that the attention kernels
-// of sylber_tpu_torch/csrc use, so that the kernel sources can be compiled
-// with g++ and run on the CPU by tests/test_torch_cuda_emu.py. Every CUDA
-// thread of a block is a host thread; blocks run one after the other.
-// __syncthreads, __syncwarp and the warp shuffles are barriers with an
-// exchange buffer. It checks indexing, masking and pipeline order; it cannot
-// check PTX, timing or anything asynchronous (copies complete at once).
+// A host stand-in for the part of the CUDA runtime that the kernels of
+// sylber_tpu_torch/csrc use, so that the kernel sources can be compiled with
+// g++ and run on the CPU by tests/test_torch_cuda_emu.py. Every CUDA thread
+// of a block is a host thread; blocks run one after the other.
+// __syncthreads, __syncwarp, the warp shuffles and the ballot are barriers
+// with an exchange buffer. It checks indexing, masking and pipeline order; it
+// cannot check PTX, timing or anything asynchronous (copies complete at once).
 #pragma once
 #include <algorithm>
 #include <cmath>
@@ -32,6 +32,9 @@ struct dim3 {
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
 struct float2 { float x, y; };
+struct alignas(8) int2 { int x, y; };
+inline int2 make_int2(int a, int b) { return {a, b}; }
+inline float2 make_float2(float a, float b) { return {a, b}; }
 struct alignas(16) float4 { float x, y, z, w; };
 struct alignas(16) uint4 { uint32_t x, y, z, w; };
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
@@ -73,23 +76,41 @@ struct BlockCtx {
   Barrier* bar;
   std::vector<WarpCtx*> warps;
 };
-extern thread_local dim3 threadIdx, blockIdx;
+extern thread_local dim3 threadIdx, blockIdx, blockDim;
 extern thread_local BlockCtx* emu_block;
 inline WarpCtx& emu_warp() { return *emu_block->warps[threadIdx.x / 32]; }
 inline int emu_lane() { return threadIdx.x % 32; }
 
 inline void __syncthreads() { emu_block->bar->wait(); }
 inline void __syncwarp() { emu_warp().bar.wait(); }
-inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
+template <typename V>  // float or double
+inline V __shfl_xor_sync(unsigned, V v, int lane_mask) {
   WarpCtx& w = emu_warp();
   const int lane = emu_lane();
-  memcpy(&w.buf[lane][0], &v, 4);
+  memcpy(&w.buf[lane][0], &v, sizeof(V));
   w.bar.wait();
-  float r;
-  memcpy(&r, &w.buf[lane ^ lane_mask][0], 4);
+  V r;
+  memcpy(&r, &w.buf[lane ^ lane_mask][0], sizeof(V));
   w.bar.wait();
   return r;
 }
+inline unsigned __ballot_sync(unsigned, int pred) {
+  WarpCtx& w = emu_warp();
+  w.buf[emu_lane()][0] = pred != 0;
+  w.bar.wait();
+  unsigned r = 0;
+  for (int l = 0; l < 32; ++l) r |= (unsigned)w.buf[l][0] << l;
+  w.bar.wait();
+  return r;
+}
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __clz(int x) { return x ? __builtin_clz((unsigned)x) : 32; }
+// round-to-nearest single operations that the compiler may not contract
+inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
+inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
+inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
+inline float __fdiv_rn(float a, float b) { volatile float r = a / b; return r; }
+
 inline float __int_as_float(unsigned x) {
   float f;
   memcpy(&f, &x, 4);

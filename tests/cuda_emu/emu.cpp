@@ -2,7 +2,7 @@
 // after the PTX ISA's fragment layouts (ldmatrix, mma.m16n8k16).
 #include "cuda_bf16.h"
 
-thread_local dim3 threadIdx, blockIdx;
+thread_local dim3 threadIdx, blockIdx, blockDim;
 thread_local BlockCtx* emu_block;
 namespace sylber { namespace attn {
 alignas(16) unsigned char smem_raw[256 * 1024];  // the kernels' extern __shared__ array
@@ -14,6 +14,7 @@ void emu_launch(const std::function<void()>& body, dim3 grid, int threads, size_
     fprintf(stderr, "launch asks for %zu bytes of shared memory\n", smem);
     abort();
   }
+  for (unsigned bz = 0; bz < grid.z; ++bz)
   for (unsigned by = 0; by < grid.y; ++by)
     for (unsigned bx = 0; bx < grid.x; ++bx) {
       memset(sylber::attn::smem_raw, 0xff, smem);  // NaNs: nothing is zero by luck
@@ -25,7 +26,8 @@ void emu_launch(const std::function<void()>& body, dim3 grid, int threads, size_
       for (int t = 0; t < threads; ++t)
         pool.emplace_back([&, t] {
           threadIdx = dim3(t);
-          blockIdx = dim3(bx, by);
+          blockIdx = dim3(bx, by, bz);
+          blockDim = dim3(threads);
           emu_block = &ctx;
           body();
         });

@@ -1,21 +1,26 @@
-"""The attention kernels' CUDA sources, run on the CPU.
+"""The kernels' CUDA sources, run on the CPU.
 
 A CUDA kernel has no interpret mode, so the tests of ``test_torch_kernels.py``
-reach only the plain versions. Here ``sylber_tpu_torch/csrc/smallattn.cu``
-and ``flash.cu`` (with ``attn_tile.cuh``) are compiled by g++ against the
-host stand-in of ``tests/cuda_emu``: every CUDA thread is a host thread, and
-the PTX helpers of the header (cp.async, ldmatrix, mma.sync) are replaced by
-emulations written after the PTX ISA's fragment layouts. The wrappers' own
-launch code (``ops/_attn_launch.py``: checks, strides, output layout) then
-drives the emulated kernels on CPU tensors. The same numpy inputs go through
-the JAX package's Pallas kernels in interpret mode, and the emulated kernels
-are held against those and against the port's plain versions at the
-tolerances the card is held to (fp32 2e-5, bf16 2e-2).
+reach only the plain versions. Here every source of
+``sylber_tpu_torch/csrc`` (``smallattn.cu`` and ``flash.cu`` with
+``attn_tile.cuh``, ``segment_scan.cu``, ``frontend.cu``) is compiled by g++
+against the host stand-in of ``tests/cuda_emu``: every CUDA thread is a host
+thread, and the PTX helpers of the headers (cp.async, ldmatrix, mma.sync, the
+bulk copy with its mbarrier, the approximate reciprocal and square root) are
+replaced by emulations written after the PTX ISA. The wrappers' own launch
+code (``ops/_attn_launch.py``, ``ops/segment.py``, ``ops/frontend.py``:
+scratch, strides, output layout) then drives the emulated kernels on CPU
+tensors. The same numpy inputs go through the JAX package (Pallas kernels in
+interpret mode, ``segment_batch``, the numpy oracle), and the emulated
+kernels are held against those and against the port's plain versions at the
+tolerances the card is held to (attention fp32 2e-5, bf16 2e-2; conv0 2e-4;
+segments exactly equal).
 
-This finds faults of indexing, masking, strides, padding and pipeline order
-in both kernels (mma.sync in bf16, register-tiled in fp32). It cannot find a
-PTX fault or a race of asynchronous copies; ``chip_smoke.py`` holds the real
-kernels on the card.
+This finds faults of indexing, masking, strides, padding and pipeline order.
+It cannot find a PTX fault, a race (of asynchronous copies, or between
+threads where a barrier is missing: the host threads of a block rarely
+interleave as a GPU's warps do) or what the GPU's compiler makes of the
+fast-math intrinsics; ``chip_smoke.py`` holds the real kernels on the card.
 """
 
 import ctypes
@@ -30,42 +35,95 @@ import numpy as np
 import pytest
 import torch
 
+from sylber_tpu.ops import segment as jax_segment
 from sylber_tpu.ops.pallas import flash as jax_flash
+from sylber_tpu.ops.pallas.frontend import fused_conv0_gn_gelu
 from sylber_tpu.ops.pallas.smallattn import fused_attention_small
+from sylber_tpu.ops.segment_np import segment_oracle
 from sylber_tpu_torch.kernels import _build
 from sylber_tpu_torch.ops import _attn_launch
+from sylber_tpu_torch.ops import frontend as port_frontend
+from sylber_tpu_torch.ops import segment as port_segment
 from sylber_tpu_torch.ops.flash import flash_attention_plain
 from sylber_tpu_torch.ops.smallattn import _dtype_scale, small_attention_plain
 
 EMU = Path(__file__).parent / "cuda_emu"
-# helpers of attn_tile.cuh whose bodies are PTX: emu.cpp defines them instead
-_PTX_HELPERS = ["cp_async16", "cp_async_commit", "cp_async_wait", "ldmatrix_x4_trans",
-                "ldmatrix_x4", "mma_bf16", "fast_exp2"]
-_DECLARATIONS = """
+# helpers whose bodies are PTX: emu.cpp defines them instead
+_PTX_HELPERS = {
+    "attn_tile.cuh": ["cp_async16", "cp_async_commit", "cp_async_wait", "ldmatrix_x4_trans",
+                      "ldmatrix_x4", "mma_bf16", "fast_exp2"],
+    "common.cuh": ["ex2_approx", "rcp_approx", "mbar_init", "fence_mbar_init", "mbar_expect_tx",
+                   "bulk_copy_to_shared", "mbar_wait", "rsqrt_approx"],
+}
+_DECLARATIONS = {
+    "attn_tile.cuh": ("struct Args {", """
 void cp_async16(void* dst, const void* src, int bytes); void cp_async_commit();
 template <int N> void cp_async_wait() {}
 void ldmatrix_x4(uint32_t (&r)[4], const void* p);
 void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p);
 void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1);
 float fast_exp2(float x);
-"""
+"""),
+    "common.cuh": ("constexpr int MAX_COUNT", """
+inline float ex2_approx(float x) { return exp2f(x); }
+inline float rcp_approx(float x) { return 1.f / x; }
+inline float rsqrt_approx(float x) { return 1.f / sqrtf(x); }
+// A barrier word on the host: bytes still expected below, completed phases above.
+// A copy lands at once; a wait spins until another host thread has made it.
+inline void mbar_init(uint64_t* bar, int) { __atomic_store_n(bar, 0, __ATOMIC_SEQ_CST); }
+inline void fence_mbar_init() {}
+inline void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  __atomic_fetch_add(bar, (uint64_t)bytes, __ATOMIC_SEQ_CST);
+}
+inline void bulk_copy_to_shared(void* dst, const void* src, unsigned bytes, uint64_t* bar) {
+  if (bytes % 16 || (uintptr_t)dst % 16 || (uintptr_t)src % 16) {
+    fprintf(stderr, "bulk copy of %u bytes: size or an address is not a multiple of 16\\n", bytes);
+    abort();
+  }
+  memcpy(dst, src, bytes);
+  const uint64_t left = __atomic_sub_fetch(bar, (uint64_t)bytes, __ATOMIC_SEQ_CST);
+  if ((uint32_t)left == 0) __atomic_fetch_add(bar, 1ull << 32, __ATOMIC_SEQ_CST);
+}
+inline void mbar_wait(uint64_t* bar, int parity) {
+  for (long spins = 0; (int)((__atomic_load_n(bar, __ATOMIC_SEQ_CST) >> 32) & 1) == parity;) {
+    std::this_thread::yield();
+    if (++spins > 20000000) {
+      fprintf(stderr, "a wait for a copy that nobody asked for\\n");
+      abort();
+    }
+  }
+}
+"""),
+}
+_ENTRY_POINTS = ["sylber_small_attention", "sylber_flash_attention", "sylber_segment_pass1",
+                 "sylber_segment_pass2", "sylber_shared_divisor", "sylber_conv0_partials_size", "sylber_conv0_gn_gelu"]
 
 
 def _host_sources(out: Path) -> list:
-    """Copies of the attention sources that g++ takes: the PTX helpers renamed
-    away, ``<<<...>>>`` launches turned into calls of ``emu_launch``."""
+    """Copies of the kernel sources that g++ takes: the PTX helpers renamed
+    away, ``<<<...>>>`` launches turned into calls of ``emu_launch``, and the
+    ``__shared__`` arrays inside kernels made static (one copy for the block's
+    host threads; the attention kernels' dynamic array is defined in emu.cpp)."""
     sources = []
-    for src in (_build.CSRC / n for n in ("common.cuh", "attn_tile.cuh", "smallattn.cu",
-                                          "flash.cu")):
+    names = ("common.cuh", "attn_tile.cuh", "smallattn.cu", "flash.cu", "segment_scan.cu",
+             "frontend.cu")
+    for src in (_build.CSRC / n for n in names):
         text = src.read_text()
-        if src.name == "attn_tile.cuh":
-            for name in _PTX_HELPERS:
-                text, n = re.subn(r"(__device__ __forceinline__ \w+ )" + name + r"\(",
-                                  r"\1ptx_" + name + "(", text, count=1)
-                assert n == 1, f"helper {name} not found in attn_tile.cuh"
-            text = text.replace("struct Args {", _DECLARATIONS + "struct Args {", 1)
-        text = re.sub(r"^(\s*)(\w+<[^;]*?>)<<<(.*?)>>>\((.*)\);",
-                      r"\1emu_launch([&] { \2(\4); }, \3);", text, flags=re.M)
+        for name in _PTX_HELPERS.get(src.name, ()):
+            text, n = re.subn(r"(__device__ __forceinline__ \w+ )" + name + r"\(",
+                              r"\1ptx_" + name + "(", text, count=1)
+            assert n == 1, f"helper {name} not found in {src.name}"
+        if src.name in _DECLARATIONS:
+            anchor, decl = _DECLARATIONS[src.name]
+            assert anchor in text, f"{anchor!r} not found in {src.name}"
+            text = text.replace(anchor, decl + anchor, 1)
+        if src.name in ("segment_scan.cu", "frontend.cu"):
+            text = text.replace("extern __shared__ __align__(128) float ring[];",
+                                "static __align__(128) float ring[RING * MAX_DIM];")
+            text = text.replace("__shared__", "static")
+        text = re.sub(r"\b(\w+(?:<[^<>;()]*>)?)\s*<<<(.*?)>>>\s*\((.*?)\);",
+                      r"emu_launch([&] { \1(\3); }, \2);", text, flags=re.S)
+        assert "<<<" not in text, f"a launch of {src.name} was not rewritten"
         dst = out / (src.stem + ".cpp" if src.suffix == ".cu" else src.name)
         dst.write_text(text)
         if src.suffix == ".cu":
@@ -80,29 +138,30 @@ def emulated(tmp_path_factory):
     if gxx is None:
         pytest.skip("no g++ to build the host stand-in of the CUDA kernels")
     out = tmp_path_factory.mktemp("cuda_emu")
-    lib = out / "libattn_host.so"
+    lib = out / "libkernels_host.so"
     cmd = [gxx, "-std=c++17", "-O1", "-fPIC", "-shared", "-pthread", f"-I{EMU}", f"-I{out}",
            "-Wno-unknown-pragmas", "-o", str(lib), str(EMU / "emu.cpp"),
            *map(str, _host_sources(out))]
     done = subprocess.run(cmd, capture_output=True, text=True)
     assert done.returncode == 0, done.stderr[-4000:]
     handle = ctypes.CDLL(str(lib))
-    for name in ("sylber_small_attention", "sylber_flash_attention"):
+    for name in _ENTRY_POINTS:
         fn = getattr(handle, name)
         fn.argtypes, fn.restype = _build._SIGNATURES[name]
     return handle
 
 
+def _check(code, name):
+    assert code == 0, f"{name}: the entry point returned {code}"
+
+
 @pytest.fixture
 def launch(emulated, monkeypatch):
     """``launch_attention`` as the wrappers call it, bound to the host library."""
-    def check(code, name):
-        assert code == 0, f"{name}: the entry point returned {code}"
-
     monkeypatch.setattr(_attn_launch, "lib", lambda: emulated)
     monkeypatch.setattr(_attn_launch, "require_cuda", lambda *a, **k: None)
     monkeypatch.setattr(_attn_launch, "stream_of", lambda t: 0)
-    monkeypatch.setattr(_attn_launch, "check", check)
+    monkeypatch.setattr(_attn_launch, "check", _check)
     return _attn_launch.launch_attention
 
 
@@ -177,3 +236,197 @@ def test_emulated_kernel_matches_plain(launch, flash_interpret, kind, L, D, dtyp
     np.testing.assert_allclose(got.float().numpy(), np.asarray(jax_out, np.float32),
                                rtol=tol, atol=tol)
     torch.testing.assert_close(got.float(), plain.float(), rtol=tol, atol=tol)
+
+
+# ---------------------------------------------------------------- segmentation
+
+@pytest.mark.parametrize("divisors", ["frame counts"])
+def test_shared_divisor_division_is_the_ieee_division(emulated, divisors):
+    """``Divisor`` of ``common.cuh`` (one reciprocal, then estimate, remainder
+    and correction per numerator) gives the bits of ``x / c`` for the frame
+    counts the scan divides by, as ``(curr * cnt + x) / (cnt + 1)`` needs.
+    The GPU's reciprocal seed is emulated by a rounded ``1 / c``, so this holds
+    the steps after the seed; ``chip_smoke.py`` checks the real one."""
+    rng = np.random.RandomState(0)
+    c = np.concatenate([np.arange(1, 4002), rng.randint(1, 4002, 40000)]).astype(np.float32)
+    x = (rng.randn(c.size) * np.exp(rng.uniform(-12, 8, c.size))).astype(np.float32)
+    q, r = np.empty_like(x), np.empty_like(x)
+    _check(emulated.sylber_shared_divisor(x.ctypes.data, c.ctypes.data, q.ctypes.data,
+                                          r.ctypes.data, c.size, 0), "shared_divisor")
+    np.testing.assert_array_equal(r.view(np.int32), (np.float32(1) / c).view(np.int32))
+    np.testing.assert_array_equal(q.view(np.int32), (x / c).view(np.int32))
+
+
+@pytest.fixture
+def segment_launch(emulated, monkeypatch):
+    """The launch halves of ``ops/segment.py``'s wrappers on the host library."""
+    monkeypatch.setattr(port_segment, "lib", lambda: emulated)
+    monkeypatch.setattr(port_segment, "stream_of", lambda t: 0)
+    monkeypatch.setattr(port_segment, "check", _check)
+    return port_segment._launch_pass1, port_segment._launch_pass2
+
+
+def _plateaus(rng, L, d):
+    """Syllable-like plateaus separated by low-norm gaps, (L, d)."""
+    out = np.zeros((L, d), np.float32)
+    i = 0
+    while i < L:
+        span = min(int(rng.randint(2, 14)), L - i)
+        if rng.rand() < 0.25:
+            out[i:i + span] = rng.randn(span, d) * 0.05
+        else:
+            proto = rng.randn(d)
+            proto *= rng.uniform(4.0, 9.0) / np.linalg.norm(proto)
+            out[i:i + span] = proto + rng.randn(span, d) * 0.15
+        i += span
+    return out
+
+
+def _quirk_rows(rng):
+    """The count-carry quirk row, an all-silent row, and a row whose every
+    frame is a boundary (independent directions), (3, 12, 16)."""
+    d = 16
+    a, b = rng.randn(d), rng.randn(d)
+    a, b = a / np.linalg.norm(a) * 5, b / np.linalg.norm(b) * 5
+    quirk = np.stack([a] * 6 + [b] + [0.7 * a + 0.3 * b] * 5)
+    every = np.eye(12, d) * 5 + 0.01 * rng.randn(12, d)
+    return np.stack([quirk, np.zeros_like(quirk), every]).astype(np.float32)
+
+
+SEGMENT_CASES = [
+    # name, seed, L, d, valid lengths
+    ("d144", 0, 150, 144, [150, 97, 5]),
+    ("d144-ring-wraps", 9, 260, 144, [260, 131]),       # 8 blocks of 32 frames, 8 ring turns
+    ("d768-L50", 1, 50, 768, [50, 19]),
+    ("d768-L90", 1, 90, 768, [90, 61]),
+    ("d768-padded", 2, 90, 768, [90, 33]),
+    ("d768-L70", 5, 70, 768, [70, 70]),
+    ("d50-scalar-copies", 3, 100, 50, [100, 100, 42]),
+    ("d1024", 4, 40, 1024, [40]),                       # three chunks a thread
+    ("d384-one-chunk-a-thread", 6, 40, 384, [40, 40]),  # the widest frame of one chunk
+    ("d388-two-chunks-a-thread", 6, 40, 388, [40, 23]),
+    ("quirk-empty-every-frame", 7, 12, 16, [12, 12, 12]),
+    ("one-frame", 8, 1, 144, [1, 0]),
+    ("one-long-plateau", 10, 200, 144, [200, 200]),     # the merged mean at counts up to 200
+]
+
+
+@pytest.mark.parametrize("name,seed,L,d,lens", SEGMENT_CASES,
+                         ids=[c[0] for c in SEGMENT_CASES])
+def test_emulated_segmentation_matches_oracle_and_jax(segment_launch, name, seed, L, d, lens):
+    """Both segmentation kernels against their plain versions (events, buffers,
+    segments and counts exactly), the numpy oracle and the JAX ``segment_batch``."""
+    launch_pass1, launch_pass2 = segment_launch
+    rng = np.random.RandomState(seed)
+    if name.startswith("quirk"):
+        states, nt, mt = _quirk_rows(rng), 1.0, 0.8
+    elif name == "one-long-plateau":  # every frame voiced, nearly all merge
+        proto = rng.randn(len(lens), 1, d) * 0.5
+        states = (proto + rng.randn(len(lens), L, d) * 0.15).astype(np.float32)
+        nt, mt = 1.0, 0.85
+    else:
+        states = np.stack([_plateaus(rng, L, d) for _ in lens])
+        nt, mt = float(rng.uniform(1.5, 3.5)), float(rng.uniform(0.6, 0.95))
+    valid = np.arange(L)[None, :] < np.asarray(lens)[:, None]
+
+    x = torch.from_numpy(states)
+    norms = port_segment.frame_norms(x)
+    voiced = ((norms >= nt) & torch.from_numpy(valid)).contiguous()
+    P = port_segment._prefix_sums(x)
+    got1 = launch_pass1(x, voiced, mt)
+    want1 = port_segment.segment_pass1_plain(x, voiced, mt)
+    for field, g, w in zip(got1._fields, got1, want1):
+        assert g.shape == w.shape, field
+        np.testing.assert_array_equal(g.int().numpy(), w.int().numpy(), err_msg=field)
+    if name.startswith("quirk"):
+        assert got1.nseg.tolist()[1:] == [0, 12] and got1.nmid.tolist()[1:] == [0, 11]
+
+    segs, n = launch_pass2(x, norms, P, got1.segs, got1.nseg, got1.mids, got1.nmid, mt)
+    want_segs, want_n = port_segment.segment_pass2_plain(
+        x, norms, P, want1.segs, want1.nseg, want1.mids, want1.nmid, mt)
+    np.testing.assert_array_equal(n.numpy(), want_n.numpy())
+    np.testing.assert_array_equal(segs.numpy(), want_segs.numpy())
+    ref = jax_segment.segment_batch(jnp.asarray(states), nt, mt, frame_valid=jnp.asarray(valid))
+    np.testing.assert_array_equal(n.numpy(), np.asarray(ref.num_segments))
+    np.testing.assert_array_equal(segs.numpy(), np.asarray(ref.segments))
+    for b, length in enumerate(lens):
+        oracle = segment_oracle(states[b, :length], nt, mt)
+        assert segs[b, :int(n[b])].numpy().tolist() == oracle.tolist()
+
+
+@pytest.mark.parametrize("second,above", [((1, 2), False), ((1, 4), True)],
+                         ids=["on-the-threshold", "one-ulp-above"])
+def test_emulated_pass1_decides_a_cosine_at_the_threshold_exactly(segment_launch, second, above):
+    """The scan kernel decides from an estimate of the cosine unless the
+    estimate is within 1e-5 of the threshold; there the IEEE quotient must
+    decide. Frames of small integers make every sum exact in any order, so
+    the cosine of frames 0 and 1 is the same float everywhere: with the
+    threshold on it the frames merge (``>=``), one ulp above they do not.
+    With (1, 1) and (1, 2) the estimate lies below the quotient, with (1, 1)
+    and (1, 4) an ulp above it, so the estimate alone would decide wrongly."""
+    launch_pass1, _ = segment_launch
+    states = np.zeros((1, 6, 8), np.float32)
+    states[0, :, :2] = [(1, 1), second] * 3
+    eps = np.float32(1e-8)
+    dot, xx = np.float32(1 + second[1]), np.float32(1 + second[1] ** 2)
+    cosine = dot / np.sqrt(np.float32(2) + eps) / np.sqrt(xx + eps)
+    estimate = (dot * (np.float32(1) / np.sqrt(xx + eps))) * (
+        np.float32(1) / np.sqrt(np.float32(2) + eps))
+    thr = np.nextafter(cosine, np.float32(2)) if above else cosine
+    assert (estimate >= thr) != (cosine >= thr)  # the estimate alone is wrong here
+    x = torch.from_numpy(states)
+    voiced = torch.ones(1, 6, dtype=torch.bool)
+    got = launch_pass1(x, voiced, float(thr))
+    want = port_segment.segment_pass1_plain(x, voiced, float(thr))
+    for field, g, w in zip(got._fields, got, want):
+        np.testing.assert_array_equal(g.int().numpy(), w.int().numpy(), err_msg=field)
+    assert bool(got.boundary[0, 1]) == above
+
+
+# ---------------------------------------------------------------- conv0
+
+@pytest.fixture
+def conv0_launch(emulated, monkeypatch):
+    """The launch half of ``ops/frontend.py``'s wrapper on the host library."""
+    monkeypatch.setattr(port_frontend, "lib", lambda: emulated)
+    monkeypatch.setattr(port_frontend, "stream_of", lambda t: 0)
+    monkeypatch.setattr(port_frontend, "check", _check)
+    return port_frontend._launch
+
+
+CONV0_CASES = [
+    # name, samples, channels, first zero-padded sample of item 1, DC offset, output dtype
+    ("plain", 22000, 72, None, 0.0, F32),       # 3 time tiles, 2 moment chunks, 64 + 8 channels
+    ("padded-item", 6400, 32, 3000, 0.0, F32),
+    ("dc-offset", 6400, 32, None, 0.5, F32),
+    ("padded-dc-bf16", 6400, 32, 3000, 0.5, BF16),
+    ("one-frame", 13, 8, None, 0.0, F32),
+]
+
+
+@pytest.mark.parametrize("name,L,D,pad_from,dc,dtype", CONV0_CASES,
+                         ids=[c[0] for c in CONV0_CASES])
+def test_emulated_conv0_matches_pallas(conv0_launch, name, L, D, pad_from, dc, dtype):
+    """The three conv0 kernels (moments from the waveform, fold, normalise)
+    against the JAX kernel in interpret mode and the plain version."""
+    rng = np.random.RandomState(L + D)
+    x = (rng.randn(2, L) + dc).astype(np.float32)
+    if pad_from is not None:
+        x[1, pad_from:] = 0.0
+    w = (rng.randn(10, 1, D) / np.sqrt(10)).astype(np.float32)  # flax layout
+    gamma = rng.uniform(0.5, 1.5, D).astype(np.float32)
+    beta = (0.1 * rng.randn(D)).astype(np.float32)
+    tw = torch.from_numpy(np.ascontiguousarray(np.transpose(w, (2, 1, 0))))
+    T0 = (L - 10) // 5 + 1
+    got = conv0_launch(torch.from_numpy(x), tw, torch.from_numpy(gamma),
+                       torch.from_numpy(beta), T0, 1e-5, dtype)
+    assert got.shape == (2, D, T0) and got.dtype == dtype
+    tol = 2e-4 if dtype == F32 else 2e-2
+    plain = port_frontend.conv0_gn_gelu_plain(torch.from_numpy(x), tw, torch.from_numpy(gamma),
+                                              torch.from_numpy(beta), out_dtype=dtype)
+    torch.testing.assert_close(got.float(), plain.float(), rtol=tol, atol=tol)
+    want = np.asarray(fused_conv0_gn_gelu(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(gamma), jnp.asarray(beta),
+        interpret=True))
+    np.testing.assert_allclose(got.float().numpy().transpose(0, 2, 1), want,
+                               rtol=tol, atol=tol)

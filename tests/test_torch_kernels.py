@@ -13,13 +13,14 @@ import numpy as np
 import pytest
 import torch
 
+from sylber_tpu.models.hubert import _analytic_l0_stats
 from sylber_tpu.ops.pallas import flash as jax_flash
 from sylber_tpu.ops.pallas.frontend import fused_conv0_gn_gelu
 from sylber_tpu.ops.pallas.smallattn import fused_attention_small
 from sylber_tpu_torch.ops.attention import attention
 from sylber_tpu_torch.ops.flash import flash_attention
-from sylber_tpu_torch.ops.frontend import conv0_gn_gelu
-from sylber_tpu_torch.ops.segment import segment_pass1
+from sylber_tpu_torch.ops.frontend import analytic_moments_plain, conv0_gn_gelu
+from sylber_tpu_torch.ops.segment import segment_pass1, segment_pass2
 from sylber_tpu_torch.ops.smallattn import small_attention
 
 
@@ -60,6 +61,34 @@ def test_conv0_gn_gelu_matches_pallas(pad_from):
     assert got.shape == (B, D, want.shape[1])
     np.testing.assert_allclose(_np(got).transpose(0, 2, 1), want,
                                rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("case", ["plain", "padded-item", "dc-offset"])
+def test_analytic_moments_match_group_norm_and_jax(case):
+    """The moments the CUDA kernel takes from the waveform (10 + 55 sums per
+    item, fp64) against the moments of the conv's output, which is what
+    ``F.group_norm`` normalises with, and against the JAX package's
+    ``_analytic_l0_stats`` (mean, and 1 / sqrt(var + eps)), rtol 1e-5."""
+    rng = np.random.RandomState(3)
+    B, L, D, eps = 3, 6400, 24, 1e-5
+    x = rng.randn(B, L).astype(np.float32)
+    if case == "padded-item":
+        x[1, 2500:] = 0.0
+    if case == "dc-offset":
+        x += 0.5
+    w = (rng.randn(D, 1, 10) / np.sqrt(10)).astype(np.float32)
+    mean, var = analytic_moments_plain(_t(x), _t(w))
+    assert mean.dtype == torch.float64 and mean.shape == (B, D)
+
+    y = torch.nn.functional.conv1d(_t(x).double()[:, None, :], _t(w).double(), stride=5)
+    torch.testing.assert_close(mean, y.mean(-1), rtol=1e-5, atol=1e-7)
+    torch.testing.assert_close(var, y.var(-1, unbiased=False), rtol=1e-5, atol=1e-9)
+
+    T0 = (L - 10) // 5 + 1
+    jmean, jinv = _analytic_l0_stats(jnp.asarray(x), jnp.asarray(w.reshape(D, 10).T),
+                                     10, 5, T0, eps)
+    np.testing.assert_allclose(mean.numpy(), np.asarray(jmean), rtol=1e-5, atol=2e-6)
+    np.testing.assert_allclose((var + eps).rsqrt().numpy(), np.asarray(jinv), rtol=1e-5)
 
 
 def _qkv(rng, B, H, L, D):
@@ -211,6 +240,10 @@ def test_wrappers_never_fall_back_off_the_cpu():
                                 meta(2, 2, 16, 8), lens),
         lambda: segment_pass1(meta(2, 16, 8),
                               torch.empty(2, 16, dtype=torch.bool, device="meta"), 0.8),
+        lambda: segment_pass2(
+            meta(2, 16, 8), meta(2, 16), meta(2, 17, 8),
+            torch.empty(2, 17, 2, dtype=torch.int32, device="meta"), lens,
+            torch.empty(2, 17, 2, dtype=torch.int32, device="meta"), lens, 0.8),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="CUDA"):

@@ -88,3 +88,41 @@ def test_averaged_target_fill_matches_jax():
                                     torch.from_numpy(np.array(res.segments)),
                                     torch.from_numpy(np.array(res.num_segments)))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+UNEVEN_ROWS = {
+    # name: per-row (silence probability, plateau noise): very different nmid per row
+    "one-busy-row": [(0.0, 0.15), (1.0, 0.15), (0.25, 0.15), (1.0, 0.15)],
+    "boundary-every-frame": [(0.0, 8.0), (0.25, 0.15), (1.0, 0.15), (0.0, 0.15)],
+    "all-silent-but-one": [(1.0, 0.15), (1.0, 0.15), (0.0, 0.3), (1.0, 0.15)],
+}
+
+
+@pytest.mark.parametrize("name", list(UNEVEN_ROWS))
+def test_rows_with_uneven_mid_boundaries_equal_per_row_results(name):
+    """A batch whose rows have very different numbers of mid boundaries gives
+    what each row gives alone, and what the JAX ``segment_batch`` gives: the
+    refinement of a row loops over that row's own boundaries (the batch-wide
+    bound of the vectorised loop changes nothing), which is what the CUDA
+    kernel relies on when it gives every row its own loop."""
+    rng = np.random.RandomState(len(name))
+    L, d, nt, mt = 160, 32, 2.6, 0.8
+    states = np.stack([synthetic_states(rng, L, d, silence_prob=p, noise=s)
+                       for p, s in UNEVEN_ROWS[name]])
+    x = torch.from_numpy(states)
+    got = port.segment_batch(x, nt, mt)
+    voiced = port.frame_norms(x) >= nt
+    nmid = port.segment_pass1(x, voiced, mt).nmid.tolist()
+    assert max(nmid) >= 10 * max(min(nmid), 1) or min(nmid) == 0, nmid
+
+    want = jax_segment.segment_batch(jnp.asarray(states), nt, mt)
+    np.testing.assert_array_equal(got.num_segments.numpy(), np.asarray(want.num_segments))
+    np.testing.assert_array_equal(got.segments.numpy(), np.asarray(want.segments))
+    for b in range(len(states)):
+        alone = port.segment_batch(x[b:b + 1], nt, mt)
+        assert int(alone.num_segments[0]) == int(got.num_segments[b])
+        np.testing.assert_array_equal(alone.segments[0].numpy(), got.segments[b].numpy())
+        np.testing.assert_allclose(alone.features[0].numpy(), got.features[b].numpy(),
+                                   rtol=1e-5, atol=1e-5)
+        oracle = segment_oracle(states[b], nt, mt)
+        assert got.segments[b, :int(got.num_segments[b])].numpy().tolist() == oracle.tolist()
