@@ -8,15 +8,19 @@ Phases, each of which fails the script when it fails:
 1. build the CUDA kernels of ``sylber_tpu_torch/csrc`` with nvcc (sm_90a);
 2. hold every kernel against its plain PyTorch version on the card at the
    main path's shapes and layout, fp32 and bf16, with ragged key lengths and
-   a fully padded item; time the kernel, the plain version and, as a
+   a fully padded item (flash attention also at the long-form windows'
+   shape, B8 L1549); time the kernel, the plain version and, as a
    yardstick only, one PyTorch library call computing the same function
    (all three on the same tensors); then hold the two
    attention kernels against their plain versions at the awkward shapes
    (sequence lengths off the tile, head widths 12 to 128, key lengths at the
    tile edges, a scale override, contiguous and strided ``(B, L, H, D)`` views),
    conv0 on a DC offset, an all-zero item and the 20 s bucket, the whole
-   segmentation at awkward lengths, widths and rows, and the division of
-   pass 1's merged mean against the IEEE division for every frame count;
+   segmentation at awkward lengths, widths and rows, conv0, small attention
+   and the segmentation at the consumers' shapes (a long-form window batch
+   of 8 x 496,000 samples, L 1549; a streaming hop of 64,000, L 199), and
+   the division of pass 1's merged mean against the IEEE division for
+   every frame count;
 3. run the ``Segmenter`` at full hubert-base width (768 wide, 9 layers,
    seeded random weights) in fp32 parity mode and bf16 fast mode on a
    32 x 5 s batch (small-attention path) and a 32 x 12-20 s batch (flash
@@ -27,7 +31,23 @@ Phases, each of which fails the script when it fails:
 4. run the trained ``tests/fixtures/mini_ckpt.npz`` Segmenter on the card
    and on the CPU; the segments must be identical; then its bf16 fast mode
    against its fp32 parity mode, both on the card: boundary F1 at tolerance
-   0 must reach 0.995.
+   0 must reach 0.995; then long-form (40 s, both transfers), streaming
+   (30 s) and the tokenizer (``mini_codebook_1024.npy``) on the card and on
+   the CPU: segments, commits and tokens identical, and the int16 long-form
+   path against the float32 one at F1 >= 0.995;
+5. the Segmenter's consumers at full width, seeded random weights, bf16 fast
+   mode: long-form over a 10-minute recording (22 windows of 30 s; real-time
+   factor of 3 calls, an fp32 call, the float32-window and return_hidden
+   paths; its window dispatch and segment_batch under
+   ``set_sync_debug_mode("error")``; under 1,000 launches a window batch),
+   streaming (60 s in 0.05-0.4 s pushes; wall time a hop), the tokenizer
+   (a seeded 10,000-unit codebook, card against CPU), the server
+   (``scripts/serving_probe.py``'s traffic at pipeline depth 0 and 1;
+   latency percentiles, throughput, a lone request against ``process``,
+   the speculative copy, whose event must be what orders the reads) and
+   the HTTP shim
+   (``python -m sylber_tpu_torch.serve_http``); each run counts the kernel
+   launches, which the ``{"kernels": [...]}`` line adds to phase 3's.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit
 (``nvidia-smi``), and as its last line
@@ -42,6 +62,7 @@ import argparse
 import json
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -58,6 +79,8 @@ H100_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}  # fp32 CUDA cores; bf16
 # the square root of |curr|^2 (40), two divisions (80), compare and select
 # (8), the update of the mean (4 + 4 + 40).
 PASS1_CHAIN_CYCLES = 4 + 5 * (24 + 4) + 40 + 80 + 8 + 48
+# phase 2's record of flash attention at the long-form windows' shape
+LONGFORM_FLASH = "flash_attention_B8_L1549"
 
 
 def log(*parts):
@@ -163,13 +186,17 @@ def check_kernels(torch, ops):
         del got, want
     results["conv0_gn_gelu"] = rec
 
-    # attention: small path at L=250, flash path at L=1000
-    for name, L, fn, plain_fn in (
-            ("small_attention", 250, ops.smallattn.small_attention,
+    # attention: small path at L=250, flash path at L=1000, and flash at the
+    # long-form windows' shape (8 windows of 31 s, L=1549, not a multiple of
+    # the 64-key tile)
+    for name, B, L, fn, plain_fn in (
+            ("small_attention", 32, 250, ops.smallattn.small_attention,
              ops.smallattn.small_attention_plain),
-            ("flash_attention", 1000, ops.flash.flash_attention,
+            ("flash_attention", 32, 1000, ops.flash.flash_attention,
+             ops.flash.flash_attention_plain),
+            (LONGFORM_FLASH, 8, 1549, ops.flash.flash_attention,
              ops.flash.flash_attention_plain)):
-        B, H, Dh = 32, 12, 64
+        H, Dh = 12, 64
         lens = torch.randint(L // 2, L + 1, (B,), device=dev, generator=gen).to(torch.int32)
         lens[0], lens[1] = L, 0  # a full item and a fully padded one
         keep = (torch.arange(L, device=dev)[None, :] < lens[:, None])[:, None, None, :]
@@ -303,7 +330,10 @@ def segment_batch_plain(torch, seg, states, norm_threshold, merge_threshold, fra
 
 def check_conv0_edges(torch, ops):
     """conv0 against its plain version on a DC offset, a batch with an all-zero
-    item, and the 20 s bucket; correctness only (fp32 2e-4, bf16 2e-2)."""
+    item, the 20 s bucket, and the consumers' shapes: long-form's window
+    batch (8 x 496,000 samples, a short last window zeroed past its end)
+    and a streaming hop (1 x 64,000); correctness only (fp32 2e-4, bf16
+    2e-2)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(5)
     randn = lambda *s: torch.randn(*s, device=dev, generator=gen)  # noqa: E731
@@ -311,9 +341,11 @@ def check_conv0_edges(torch, ops):
     w = randn(D, 1, 10) / 10 ** 0.5
     gamma, beta = 1 + 0.1 * randn(D), 0.1 * randn(D)
     inputs = {"dc_offset_0.5": randn(8, 80000) + 0.5, "all_zero_item": randn(8, 80000),
-              "bucket_20s": randn(8, 320000)}
+              "bucket_20s": randn(8, 320000), "longform_window_batch": randn(8, 496000),
+              "streaming_hop": randn(1, 64000)}
     inputs["all_zero_item"][2] = 0.0
     inputs["bucket_20s"][1, 200000:] = 0.0
+    inputs["longform_window_batch"][7, 120000:] = 0.0
     records = []
     for name, x in inputs.items():
         for dt, tol in (("float32", 2e-4), ("bfloat16", 2e-2)):
@@ -334,7 +366,9 @@ def check_segmentation_edges(torch, ops):
     exactly, features to 1e-5. Also counts the launches of each call, which
     must not depend on the number of segments (two cases share a shape: one
     of ordinary rows, one with an unvoiced row and a row that closes a segment
-    at every frame)."""
+    at every frame). The last two cases are the consumers' shapes: a
+    long-form window batch (B8 L1549, a short last window) and a streaming
+    hop (B1 L199)."""
     seg = ops.segment
     dev = torch.device("cuda")
     rng = np.random.RandomState(11)
@@ -351,6 +385,10 @@ def check_segmentation_edges(torch, ops):
              ("L249_plateaus", rows(4, 249, 768), valid),
              ("L4000", rows(2, 4000, 768), None), ("d144", rows(4, 300, 144), None),
              ("d1024", rows(2, 300, 1024), None), ("d50", rows(3, 300, 50), None)]
+    longform_valid = np.ones((8, 1549), bool)
+    longform_valid[7, 374:] = False
+    cases += [("longform_B8_L1549", rows(8, 1549, 768), longform_valid),
+              ("streaming_B1_L199", rows(1, 199, 768), None)]
     records = []
     for name, states, frame_valid in cases:
         x = torch.from_numpy(states).to(dev)
@@ -420,40 +458,49 @@ def check_shared_divisor(torch, kernels, max_count):
                 quotient_mismatches=bad_q, ok=bad_r == 0 and bad_q == 0)
 
 
-def count_launches(torch, fn):
-    """``fn()`` and the number of device kernels and copies it enqueued."""
+def count_launches(torch, fn, tries: int = 3):
+    """``fn()`` and the number of device kernels and copies it enqueued: the
+    most that any of ``tries`` profiled calls saw. The profiler can lose a
+    call's device events (the same call has read 18, 19, 26 and 27 across
+    runs) and never adds one, so the largest count is the call's."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
-    torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
-        out = fn()
+    counts = []
+    for _ in range(tries):
         torch.cuda.synchronize()
-    return out, sum(1 for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        counts.append(sum(1 for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA))
+    return out, max(counts)
 
 
 def check_attention_edges(torch, ops):
     """Both attention kernels against their plain versions where tiles, head
     widths and key lengths are awkward; correctness only. Returns one record
     per call; ``ok`` is False where the tolerance (fp32 2e-5, bf16 2e-2) is
-    missed or a value is not finite."""
+    missed or a value is not finite. The last case is a streaming hop's
+    shape, B1 H12 L199 D64, every key valid."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
     small = (ops.smallattn.small_attention, ops.smallattn.small_attention_plain)
     flash = (ops.flash.flash_attention, ops.flash.flash_attention_plain)
-    cases = []  # (name, (kernel, plain), L, D, scale, strided)
+    cases = []  # (name, (kernel, plain), L, D, scale, strided, heads, kv_len)
     for L in (1, 77, 512):
-        cases += [("small_attention", small, L, D, None, D == 64) for D in (12, 32, 64, 128)]
+        cases += [("small_attention", small, L, D, None, D == 64, 3, None)
+                  for D in (12, 32, 64, 128)]
     for L in (513, 1999):
-        cases += [("flash_attention", flash, L, D, 0.3 if D != 32 else None, strided)
+        cases += [("flash_attention", flash, L, D, 0.3 if D != 32 else None, strided, 3, None)
                   for D, strided in ((12, False), (32, True), (64, False), (64, True),
                                      (128, True))]
+    cases.append(("small_attention", small, 199, 64, None, True, 12, [199]))
     records = []
-    for name, (fn, plain_fn), L, D, scale, strided in cases:
+    for name, (fn, plain_fn), L, D, scale, strided, H, lens in cases:
         # nothing valid, one key, around a 64-key tile edge, one short of L, L
-        lens = sorted({0, 1, min(63, L), min(64, L), min(65, L), L - 1, L})
-        B, H = len(lens), 3
+        lens = lens or sorted({0, 1, min(63, L), min(64, L), min(65, L), L - 1, L})
+        B = len(lens)
         kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
         for dt, tol in (("float32", 2e-5), ("bfloat16", 2e-2)):
             tdt = getattr(torch, dt)
@@ -468,8 +515,8 @@ def check_attention_edges(torch, ops):
             got, want = got.float(), want.float()
             ok = bool(torch.isfinite(got).all()
                       and torch.allclose(got, want, rtol=tol, atol=tol))
-            records.append(dict(kernel=name, L=L, D=D, dtype=dt, kv_len=lens, scale=scale,
-                                strided=strided, tol=tol, ok=ok,
+            records.append(dict(kernel=name, shape=[B, H, L, D], dtype=dt, kv_len=lens,
+                                scale=scale, strided=strided, tol=tol, ok=ok,
                                 max_abs_err=(got - want).abs().max().item()))
     return records
 
@@ -626,7 +673,514 @@ def mini_ckpt_agreement(torch, Segmenter, HubertConfig):
                        segments=nseg))
     if f1 < 0.995 or nseg == 0:
         raise AssertionError(f"bf16 fast mode boundary F1 {f1} < 0.995 against fp32")
+    return report + mini_consumers(gpu, cpu)
+
+
+def stream_commits(StreamingSegmenter, seg, wav):
+    """Push ``wav`` in 0.05-0.4 s chunks (rng seed 1) through a streaming
+    segmenter (window 4 s, hop 1 s, guard 0.5 s); the committed frames."""
+    stream = StreamingSegmenter(seg, window_seconds=4.0, hop_seconds=1.0,
+                                commit_guard_seconds=0.5)
+    rng = np.random.RandomState(1)
+    committed, pos = [], 0
+    while pos < len(wav):
+        n = int(rng.uniform(0.05, 0.4) * 16000)
+        committed.extend(stream.push(wav[pos: pos + n], in_second=False))
+        pos += n
+    committed += stream.flush(in_second=False)
+    arr = np.asarray(committed, np.int64).reshape(-1, 2)
+    if not (len(arr) and (arr[:, 1] > arr[:, 0]).all() and (arr[1:, 0] >= arr[:-1, 1]).all()
+            and arr[-1, 1] <= len(wav) // 320):
+        raise AssertionError("streaming commits are not exactly once and in order")
+    return committed
+
+
+def token_differences(got, want, feats, centroids, rtol=1e-6):
+    """(ties, others) among the token ids that differ: a tie is an id whose
+    two nearest centroids (float64 distances from ``feats``) are the two ids
+    and lie within ``rtol`` relative of each other."""
+    ties = others = 0
+    x, c = feats.astype(np.float64), centroids.astype(np.float64)
+    for i in np.nonzero(got != want)[0]:
+        dist = ((x[i][None, :] - c) ** 2).sum(-1)
+        two = np.argsort(dist)[:2]
+        if ({int(got[i]), int(want[i])} == set(two.tolist())
+                and dist[two[1]] - dist[two[0]] <= rtol * dist[two[1]]):
+            ties += 1
+        else:
+            others += 1
+    return ties, others
+
+
+def mini_consumers(gpu, cpu):
+    """Long-form (both transfers), streaming and the tokenizer on the trained
+    mini checkpoint, on the card against the CPU."""
+    from sylber_tpu_torch.longform import LongFormSegmenter
+    from sylber_tpu_torch.streaming import StreamingSegmenter
+    from sylber_tpu_torch.tokenizer import SylberTokenizer
+    from sylber_tpu_torch.utils.metrics import boundary_f1
+
+    report = []
+    wav = speechlike(np.random.RandomState(40), 40 * 16000)
+    on_card = {}
+    for transfer in ("float32", "int16"):
+        g, c = (LongFormSegmenter(s, chunk_seconds=10.0, overlap_seconds=2.0, transfer=transfer)(
+            wav=wav, in_second=False, return_hidden=False) for s in (gpu, cpu))
+        same = g["segments"].tolist() == c["segments"].tolist()
+        err = float(np.abs(g["segment_features"] - c["segment_features"]).max()) if same else None
+        log(f"mini_ckpt long-form 40 s, transfer={transfer}: segments identical card vs CPU "
+            f"{same} ({len(g['segments'])}), max |feature diff| {err}")
+        report.append(dict(input=f"long-form 40 s {transfer}", identical=same,
+                           segments=len(g["segments"]), max_feature_diff=err))
+        if not same or not len(g["segments"]):
+            raise AssertionError(f"mini_ckpt long-form ({transfer}) differs between GPU and CPU")
+        on_card[transfer] = g
+    f1 = boundary_f1(on_card["int16"]["segments"], on_card["float32"]["segments"], tol_frames=0)
+    log(f"mini_ckpt long-form int16 vs float32 on the card: boundary F1 (tol 0) {f1:.5f}")
+    report.append(dict(input="long-form int16 vs float32 on the card", boundary_f1_tol0=f1))
+    if f1 < 0.995:
+        raise AssertionError(f"long-form int16 vs float32 boundary F1 {f1} < 0.995")
+
+    wav = speechlike(np.random.RandomState(30), 30 * 16000)
+    g, c = (stream_commits(StreamingSegmenter, s, wav) for s in (gpu, cpu))
+    log(f"mini_ckpt streaming 30 s: {len(g)} commits, identical card vs CPU {g == c}")
+    report.append(dict(input="streaming 30 s", identical=g == c, commits=len(g)))
+    if g != c:
+        raise AssertionError("mini_ckpt streaming commits differ between GPU and CPU")
+
+    codebook = str(FIXTURES / "mini_codebook_1024.npy")
+    wavs = [speechlike(np.random.RandomState(s), int(l * 16000)) for s, l in ((41, 3.5), (42, 6.0))]
+    g, c = (SylberTokenizer(s, centroids=codebook)(wav=wavs, in_second=False) for s in (gpu, cpu))
+    got, want = (np.concatenate([o["tokens"] for o in x]) for x in (g, c))
+    same = got.shape == want.shape and bool((got == want).all())
+    log(f"mini_ckpt tokenizer (mini_codebook_1024): {len(got)} tokens, identical card vs CPU "
+        f"{same}")
+    report.append(dict(input="tokenizer mini_codebook_1024", identical=same, tokens=len(got)))
+    if not same:
+        raise AssertionError("mini_ckpt tokens differ between GPU and CPU")
     return report
+
+
+# ---------------------------------------------------------------- phase 5
+
+def percentile_ms(xs, q):
+    return float(np.percentile(np.asarray(xs) * 1e3, q))
+
+
+def consumers_full_width(torch, Segmenter, HubertConfig, counters, smi):
+    """Long-form, streaming, the tokenizer, the server and the HTTP shim at
+    full hubert-base width on seeded random weights, in bf16 fast mode (the
+    serving configuration). Returns the report and the kernel launches of
+    its runs (each counted with the counters set to 0 just before it)."""
+    import sylber_tpu_torch.api as api
+    from sylber_tpu_torch.longform import LongFormSegmenter
+    from sylber_tpu_torch.quantizer import KMQuantizer
+    from sylber_tpu_torch.serve import SegmenterServer
+    from sylber_tpu_torch.streaming import StreamingSegmenter
+    from sylber_tpu_torch.tokenizer import SylberTokenizer, encode
+    from sylber_tpu_torch.utils.metrics import boundary_f1
+
+    launches = {fn.__name__: 0 for fn in counters}
+
+    def counted(label, fn):
+        for c in counters:
+            c.launches = 0
+        out = fn()
+        got = {c.__name__: c.launches for c in counters}
+        for k, v in got.items():
+            launches[k] += v
+        log(f"phase 5 {label}: kernel launches {got}")
+        return out, got
+
+    report = {}
+    fast = Segmenter(hubert_config=HubertConfig(dtype="bfloat16", frontend_dtype="bfloat16",
+                                                precision="default"))
+
+    # ---- long-form: 10 minutes, 30 s windows, 2 s overlap, 8 windows a batch
+    wav = speechlike(np.random.RandomState(600), 600 * 16000)
+    audio_s = len(wav) / 16000.0
+    frames = fast.config.feat_extract_output_length(len(wav))
+
+    width = fast.config.hidden_size
+
+    def check(out):
+        seg, feats = out["segments"], out["segment_features"]
+        assert len(seg) and (seg[:, 1] > seg[:, 0]).all() and (seg[1:, 0] >= seg[:-1, 1]).all()
+        assert seg[-1, 1] <= frames and feats.shape == (len(seg), width)
+        assert np.isfinite(feats).all()
+
+    segment_batch, enqueue = api.segment_batch, LongFormSegmenter._enqueue_windows
+    api.segment_batch = forbid_host_syncs(torch, segment_batch)
+    LongFormSegmenter._enqueue_windows = forbid_host_syncs(torch, enqueue)
+    try:
+        lf = LongFormSegmenter(fast, chunk_seconds=30.0, overlap_seconds=2.0, batch_windows=8)
+        call = lambda: lf(wav=wav, in_second=False, return_hidden=False)  # noqa: E731
+        call()  # warm-up: cuDNN plans at the window shape
+        walls = []
+
+        def timed_calls():
+            for _ in range(3):
+                t0 = time.perf_counter()
+                out = call()
+                walls.append(time.perf_counter() - t0)
+            return out
+
+        i16, lf_launches = counted("long-form int16 bf16 x3", timed_calls)
+        check(i16)
+        nwin = len(lf._starts(len(wav)))
+        nbatch = -(-nwin // lf.batch_windows)
+        prof = profile(torch, call)
+        per_call = prof["launches"]
+        rtfx = sorted(audio_s / w for w in walls)
+        steps = longform_steps_ms(lf, wav)
+
+        f32, _ = counted("long-form float32 windows bf16", lambda: LongFormSegmenter(
+            fast, chunk_seconds=30.0, overlap_seconds=2.0, batch_windows=8,
+            transfer="float32")(wav=wav, in_second=False, return_hidden=False))
+        check(f32)
+        t0 = time.perf_counter()
+        hid, _ = counted("long-form return_hidden=True bf16", lambda: lf(
+            wav=wav, in_second=False, return_hidden=True))
+        hid_wall = time.perf_counter() - t0
+        check(hid)
+        if (hid["hidden_states"].shape != (frames, width)
+                or not np.isfinite(hid["hidden_states"]).all()):
+            raise AssertionError(f"stitched hidden track {hid['hidden_states'].shape}, "
+                                 f"expected ({frames}, {width})")
+        parity = Segmenter(hubert_config=HubertConfig())
+        lf32 = LongFormSegmenter(parity, chunk_seconds=30.0, overlap_seconds=2.0, batch_windows=8)
+        lf32(wav=wav, in_second=False, return_hidden=False)  # warm-up
+        t0 = time.perf_counter()
+        p32, _ = counted("long-form int16 fp32", lambda: lf32(
+            wav=wav, in_second=False, return_hidden=False))
+        fp32_rtfx = audio_s / (time.perf_counter() - t0)
+        check(p32)
+        del parity, lf32
+    finally:
+        api.segment_batch, LongFormSegmenter._enqueue_windows = segment_batch, enqueue
+    torch.cuda.empty_cache()
+    f1 = boundary_f1(i16["segments"], f32["segments"], tol_frames=0)
+    report["longform"] = dict(audio_s=audio_s, windows=nwin, window_batches=nbatch,
+                              rtfx_bf16_int16=rtfx[1], rtfx_bf16_int16_min=rtfx[0],
+                              rtfx_bf16_int16_max=rtfx[-1], rtfx_fp32_int16=fp32_rtfx,
+                              rtfx_bf16_return_hidden=audio_s / hid_wall,
+                              segments=len(i16["segments"]), launches_per_call=per_call,
+                              profile=prof, steps_ms=steps,
+                              launches_per_window_batch=per_call / nbatch,
+                              int16_vs_float32_f1_tol0=f1, kernel_launches=lf_launches)
+    log(f"phase 5 long-form {audio_s:.0f} s, {nwin} windows of 30 s in {nbatch} batches: "
+        f"RTFx bf16 int16 median {rtfx[1]:.1f} (min {rtfx[0]:.1f}, max {rtfx[-1]:.1f}) of 3 "
+        f"calls; fp32 int16 {fp32_rtfx:.1f} (1 call); bf16 return_hidden=True "
+        f"{audio_s / hid_wall:.1f} (1 call, hidden track {hid['hidden_states'].shape}); "
+        f"{len(i16['segments'])} segments; int16 vs float32 windows F1 (tol 0) {f1:.5f}; "
+        f"{per_call} launches a call, {per_call / nbatch:.0f} a window batch; the dispatch of "
+        f"the window batches and segment_batch ran under set_sync_debug_mode('error'); "
+        f"profiled call: device busy {prof['device_ms']:.1f} of {prof['wall_ms']:.1f} ms; top: "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in prof["top_ms"][:6]) + "; one call in steps: "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in steps.items()) + f"  [{smi}]")
+    idle = [n for n in ("conv0_gn_gelu", "flash_attention", "segment_pass1", "segment_pass2")
+            if lf_launches[n] == 0]
+    if idle:
+        raise AssertionError(f"long-form never launched {idle}")
+    if per_call / nbatch >= 1000:
+        raise AssertionError(f"long-form: {per_call / nbatch:.0f} launches a window batch")
+
+    # ---- streaming: 60 s in 0.05-0.4 s pushes; each hop is process([4 s])
+    for sec in (1, 2, 3, 4):  # the first hops' shorter windows, then the 4 s one
+        fast.process([speechlike(np.random.RandomState(sec), sec * 16000)], return_hidden=False)
+    hop_s = []
+    process = fast.process
+
+    def timed_process(*a, **k):
+        t0 = time.perf_counter()
+        out = process(*a, **k)
+        hop_s.append(time.perf_counter() - t0)
+        return out
+
+    fast.process = timed_process
+    try:
+        stream_wav = speechlike(np.random.RandomState(60), 60 * 16000)
+        commits, _ = counted("streaming 60 s", lambda: stream_commits(
+            StreamingSegmenter, fast, stream_wav))
+    finally:
+        del fast.process
+    hop = profile(torch, lambda: fast.process([stream_wav[-64000:]], return_hidden=False))
+    report["streaming"] = dict(audio_s=60.0, hops=len(hop_s), commits=len(commits), profile=hop,
+                               hop_ms_p50=percentile_ms(hop_s, 50),
+                               hop_ms_p95=percentile_ms(hop_s, 95),
+                               hop_ms_max=percentile_ms(hop_s, 100))
+    r = report["streaming"]
+    log(f"phase 5 streaming 60 s, window 4 s, hop 1 s: {r['hops']} hops, wall time a hop p50 "
+        f"{r['hop_ms_p50']:.2f} ms, p95 {r['hop_ms_p95']:.2f} ms, max {r['hop_ms_max']:.2f} ms; "
+        f"{len(commits)} commits, exactly once and in order; a profiled hop: device busy "
+        f"{hop['device_ms']:.2f} of {hop['wall_ms']:.2f} ms, {hop['launches']} launches  [{smi}]")
+
+    # ---- tokenizer: a seeded 10,000 x 768 codebook on the long-form features
+    feats = i16["segment_features"].astype(np.float32)
+    rng = np.random.RandomState(10000)
+    codebook = (feats[rng.randint(0, len(feats), 10000)]
+                + 0.5 * feats.std() * rng.randn(10000, width)).astype(np.float32)
+    card_q, cpu_q = KMQuantizer(codebook, device="cuda"), KMQuantizer(codebook, device="cpu")
+    x = torch.from_numpy(feats).cuda()
+    tok_ms = time_ms(torch, lambda: card_q.get_indices(x), 5)
+    card, cpu = encode(card_q, feats), encode(cpu_q, feats)
+    ties, others = token_differences(card, cpu, feats, codebook)
+    toks, _ = counted("tokenizer 2 utterances", lambda: SylberTokenizer(fast, quantizer=card_q)(
+        wav=[speechlike(np.random.RandomState(s), 5 * 16000) for s in (7, 8)]))
+    if not all(len(t["tokens"]) == len(t["segments"]) for t in toks):
+        raise AssertionError("tokenizer: one token a segment")
+    report["tokenizer"] = dict(features=len(feats), codebook=list(codebook.shape), ties=ties,
+                               other_differences=others, distinct=len(set(card.tolist())),
+                               nearest_ms=tok_ms)
+    log(f"phase 5 tokenizer, 10000 x {width} codebook on {len(feats)} long-form features: tokens on "
+        f"the card vs the CPU differ at {ties} ties and {others} other places; "
+        f"{len(set(card.tolist()))} distinct ids; nearest-centroid search {tok_ms:.3f} ms on "
+        f"the card  [{smi}]")
+    if others:
+        raise AssertionError(f"tokenizer: {others} tokens differ between card and CPU, not ties")
+
+    # ---- server: the traffic of scripts/serving_probe.py
+    rng = np.random.RandomState(0)
+    pool = [speechlike(rng, int(rng.uniform(1.0, 8.0) * 16000)) for _ in range(64)]
+    report["server"] = {}
+
+    def serve_runs():
+        for depth in (0, 1, 1, 0):  # in turns: the spread shows beside the difference
+            server = SegmenterServer(fast, max_batch=32, max_wait_ms=10.0, pipeline_depth=depth)
+            try:
+                if not report["server"]:
+                    server.warmup(lengths_s=(2.0, 4.0, 8.0))
+                lat, audio, failures = [], [0.0], []
+                lock = threading.Lock()
+
+                def client(cid, record):
+                    r = np.random.RandomState(cid)
+                    for _ in range(16):
+                        wav = pool[r.randint(len(pool))]
+                        t0 = time.perf_counter()
+                        try:
+                            out = server.segment(wav)
+                        except Exception as e:  # counted, and fails the phase below
+                            with lock:
+                                failures.append(repr(e))
+                            continue
+                        dt = time.perf_counter() - t0
+                        assert "segments" in out
+                        if record:
+                            with lock:
+                                lat.append(dt)
+                                audio[0] += len(wav) / 16000.0
+
+                def run_pass(record):
+                    threads = [threading.Thread(target=client, args=(c, record))
+                               for c in range(16)]
+                    t0 = time.perf_counter()
+                    for t in threads:
+                        t.start()
+                    for t in threads:
+                        t.join(timeout=600)
+                    if any(t.is_alive() for t in threads):
+                        raise AssertionError("server: a client did not finish in 600 s")
+                    return time.perf_counter() - t0
+
+                run_pass(False)  # first use of every bucket of this traffic
+                before = server.stats()
+                wall = run_pass(True)
+                after = server.stats()
+            finally:
+                server.stop()
+            batches = after.batches - before.batches
+            rec = dict(requests=len(lat), failures=len(failures) + after.failed,
+                       latency_ms_p50=percentile_ms(lat, 50),
+                       latency_ms_p95=percentile_ms(lat, 95),
+                       latency_ms_p99=percentile_ms(lat, 99), throughput_rtfx=audio[0] / wall,
+                       requests_per_s=len(lat) / wall, batches=batches,
+                       mean_batch_size=(after.batched_items - before.batched_items) / batches)
+            report["server"].setdefault(f"depth{depth}", []).append(rec)
+            log(f"phase 5 server, 16 clients x 16 requests of 1-8 s, max_batch 32, max_wait 10 ms, "
+                f"pipeline_depth {depth}: latency p50 {rec['latency_ms_p50']:.1f} ms, p95 "
+                f"{rec['latency_ms_p95']:.1f} ms, p99 {rec['latency_ms_p99']:.1f} ms; throughput "
+                f"{rec['throughput_rtfx']:.1f}x real time ({rec['requests_per_s']:.1f} req/s); "
+                f"mean batch {rec['mean_batch_size']:.2f} over {batches} batches; "
+                f"{rec['requests']} resolved, {rec['failures']} failed  [{smi}]")
+            if rec["failures"] or rec["requests"] != 256:
+                raise AssertionError(f"server depth {depth}: {failures[:3]}")
+
+    counted("server depth 0, 1, 1, 0", serve_runs)
+
+    # one request at a time equals process([wav]) bit for bit
+    with SegmenterServer(fast, max_batch=32, max_wait_ms=1.0) as server:
+        served = [server.segment(w) for w in pool[:8]]
+    direct = [fast.process([w], return_hidden=False)[0] for w in pool[:8]]
+    same = all(a["segments"].tolist() == b["segments"].tolist()
+               and np.array_equal(a["segment_features"], b["segment_features"])
+               for a, b in zip(served, direct))
+    log(f"phase 5 server: 8 requests one at a time bit-identical to process([wav]): {same}")
+    if not same:
+        raise AssertionError("server: a lone request differs from process([wav])")
+
+    # the speculative copy changes no output; 64 tokens a second holds every
+    # segment of these random-weight utterances (one a frame). Its event is
+    # what orders finalize's reads: a 100 ms sleep queued before the
+    # segmentation holds the copy back while the host marks the pinned
+    # buffers (-1, NaN), so a read without the wait sees the marks; one call
+    # drops the event and must come out wrong, or the check could not fail
+    batch = pool[:32]
+    want = fast.process(batch, return_hidden=False)
+    kmax = max(len(o["segments"]) for o in want)
+    bucket_s = -(-max(len(w) for w in batch) // 16000)
+    hold_cycles = int(0.1 * sm_clock_hz())
+    start_host_copy, segment_batch = api.start_host_copy, api.segment_batch
+    marked_at_dispatch, drop_wait = [], [False]
+
+    def held(*a, **k):
+        torch.cuda._sleep(hold_cycles)
+        return segment_batch(*a, **k)
+
+    def marked(*tensors):
+        hosts, done = start_host_copy(*tensors)
+        for h in hosts:
+            h.fill_(float("nan") if h.is_floating_point() else -1)
+        marked_at_dispatch.append(all(
+            bool(h.isnan().all() if h.is_floating_point() else (h == -1).all()) for h in hosts))
+        return hosts, (None if drop_wait[0] else done)
+
+    def same(got):
+        return all(a["segments"].tolist() == b["segments"].tolist()
+                   and np.array_equal(a["segment_features"], b["segment_features"])
+                   and np.array_equal(a["frame_norms"], b["frame_norms"])
+                   for a, b in zip(got, want))
+
+    api.start_host_copy, api.segment_batch = marked, held
+    try:
+        spec = {}
+        for rate in (6.0, 0.01, 64.0):
+            fast.speculative_tokens_per_s = rate
+            k = int(np.ceil(bucket_s * rate)) + 8
+            spec[rate] = dict(prefix_rows=k, prefix_used=kmax <= k,
+                              identical=same(fast.process(batch, return_hidden=False)))
+        drop_wait[0] = True
+        without_wait = same(fast.process(batch, return_hidden=False))
+        torch.cuda.synchronize()
+    finally:
+        api.start_host_copy, api.segment_batch = start_host_copy, segment_batch
+        fast.speculative_tokens_per_s = None
+    # what the option saves when the prefix holds every segment: process()
+    # of the same batch without and with it, in turns
+    walls = {None: [], 64.0: []}
+    for _ in range(5):
+        for rate in walls:
+            fast.speculative_tokens_per_s = rate
+            t0 = time.perf_counter()
+            fast.process(batch, return_hidden=False)
+            walls[rate].append(time.perf_counter() - t0)
+    fast.speculative_tokens_per_s = None
+    wall_ms = {str(r): percentile_ms(w, 50) for r, w in walls.items()}
+    report["speculative"] = dict(max_segments=kmax, rates=spec,
+                                 marked_at_dispatch=marked_at_dispatch,
+                                 identical_without_wait=without_wait,
+                                 process_ms_p50=wall_ms)
+    log(f"phase 5 speculative_tokens_per_s on 32 requests (most segments {kmax}): "
+        + "; ".join(f"{rate}/s: {v['prefix_rows']} rows, prefix used {v['prefix_used']}, "
+                    f"identical {v['identical']}" for rate, v in spec.items())
+        + f"; pinned buffers still marked when dispatch returned: {marked_at_dispatch}; "
+        f"read without the event's wait identical: {without_wait}; process() p50 of 5 "
+        f"without the option {wall_ms['None']:.2f} ms, at 64/s {wall_ms['64.0']:.2f} ms  [{smi}]")
+    if not all(v["identical"] for v in spec.values()):
+        raise AssertionError(f"speculative copy changed an output: {spec}")
+    if not all(marked_at_dispatch) or without_wait:
+        raise AssertionError("the speculative check cannot see a read without the event's wait: "
+                             f"marked {marked_at_dispatch}, identical without it {without_wait}")
+
+    # ---- the HTTP shim, as its users start it
+    report["http"] = http_shim(codebook, str(fast.device))
+    return report, launches
+
+
+def longform_steps_ms(lf, wav):
+    """One resident long-form call (``LongFormSegmenter.__call__`` with
+    ``return_hidden=False``, the same calls in the same order) cut into its
+    steps, wall ms each: preparing and uploading the int16 PCM and enqueuing
+    every window batch; the fetch, the first host wait, so it also holds the
+    device work still queued; the cuts and the stitching; the features,
+    with the batched re-pool."""
+    marks = [time.perf_counter()]
+    starts = lf._starts(len(wav))
+    raw = lf._dispatch_resident(wav, starts, None, None)
+    marks.append(time.perf_counter())
+    results = lf._collect_resident(raw)
+    marks.append(time.perf_counter())
+    stitched = lf._stitch_segments(starts, results, lf._cuts(starts, results))
+    marks.append(time.perf_counter())
+    lf._features_fast(starts, results, stitched)
+    marks.append(time.perf_counter())
+    return dict(zip(("dispatch", "fetch", "stitch", "features"),
+                    (float(x) for x in np.diff(marks) * 1e3)))
+
+
+def http_shim(codebook, device):
+    """Start ``python -m sylber_tpu_torch.serve_http`` on a free port (bf16,
+    seeded random weights, ``codebook`` for /tokenize), send it one int16
+    body on /segment, /tokenize and /resynthesize, read /stats, stop it."""
+    import urllib.error
+    import urllib.request
+
+    out_dir = ROOT / "build" / "smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    np.save(out_dir / "codebook_10000.npy", codebook)
+    proc = subprocess.Popen([sys.executable, "-m", "sylber_tpu_torch.serve_http", "--device",
+                             device, "--bf16", "--no-warmup", "--port", "0", "--centroids",
+                             str(out_dir / "codebook_10000.npy")],
+                            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines = []
+
+    def read():
+        for ln in proc.stdout:
+            lines.append(ln)
+
+    threading.Thread(target=read, daemon=True).start()
+    try:
+        t0 = time.perf_counter()
+        base = None
+        while base is None:
+            base = next((ln.split()[-1] for ln in list(lines) if ln.startswith("serving on")),
+                        None)
+            if proc.poll() is not None or time.perf_counter() - t0 > 180:
+                raise AssertionError("serve_http did not start: " + "".join(lines)[-2000:])
+            time.sleep(0.2)
+        started = time.perf_counter() - t0
+        pcm = np.clip(speechlike(np.random.RandomState(3), 3 * 16000) * 0.25 * 32767,
+                      -32768, 32767).astype("<i2").tobytes()
+
+        def post(path):
+            req = urllib.request.Request(base + path, data=pcm, headers={"X-Dtype": "int16"})
+            try:
+                with urllib.request.urlopen(req, timeout=120) as r:
+                    return r.status, json.loads(r.read())
+            except urllib.error.HTTPError as e:
+                return e.code, json.loads(e.read())
+
+        codes = {}
+        codes["segment"], seg = post("/segment")
+        codes["tokenize"], tok = post("/tokenize")
+        codes["resynthesize"], _ = post("/resynthesize")
+        with urllib.request.urlopen(base + "/stats", timeout=60) as r:
+            codes["stats"], stats = r.status, json.loads(r.read())
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    log(f"phase 5 HTTP shim (python -m sylber_tpu_torch.serve_http --device {device} --bf16, up in "
+        f"{started:.1f} s): /segment {codes['segment']} ({seg.get('num_segments')} segments), "
+        f"/tokenize {codes['tokenize']} ({len(tok.get('tokens', []))} tokens), /resynthesize "
+        f"{codes['resynthesize']}, /stats {codes['stats']} ({stats['completed']} completed)")
+    if (codes != {"segment": 200, "tokenize": 200, "resynthesize": 503, "stats": 200}
+            or seg["num_segments"] != len(tok["tokens"]) or not seg["num_segments"]):
+        raise AssertionError(f"HTTP shim answered {codes}")
+    return dict(codes=codes, segments=seg["num_segments"], startup_s=started)
 
 
 def main() -> int:
@@ -681,6 +1235,9 @@ def main() -> int:
             errs = [e["max_abs_err"] for e in edges if e["kernel"] == name and e["dtype"] == dt]
             log(f"phase 2: {name} {dt} edge shapes: {len(errs)} calls, "
                 f"worst max_abs_err {max(errs):.3g}")
+    for e in edges[-2:]:  # the streaming hop's shape
+        log(f"phase 2: {e['kernel']} {e['dtype']} {e['shape']} (a streaming hop): max_abs_err "
+            f"{e['max_abs_err']:.3g} (tol {e['tol']}) ok={e['ok']}")
     for e in conv0_edges:
         log(f"phase 2: conv0_gn_gelu {e['dtype']} {e['input']} {e['shape']}: max_abs_err "
             f"{e['max_abs_err']:.3g} (tol {e['tol']}) ok={e['ok']}")
@@ -723,6 +1280,11 @@ def main() -> int:
 
     mini = mini_ckpt_agreement(torch, Segmenter, HubertConfig)
 
+    consumers, consumer_launches = consumers_full_width(torch, Segmenter, HubertConfig,
+                                                        counters, smi)
+    log(f"phase 5: launches over the consumers' runs: {consumer_launches}  [{smi}]")
+    launches = {k: v + consumer_launches[k] for k, v in launches.items()}
+
     sources = {"conv0_gn_gelu": ("frontend.cu", "sylber_tpu/ops/pallas/frontend.py:122"),
                "small_attention": ("smallattn.cu", "sylber_tpu/ops/pallas/smallattn.py:78"),
                "flash_attention": ("flash.cu", "sylber_tpu/ops/pallas/flash.py:125"),
@@ -730,6 +1292,8 @@ def main() -> int:
                "segment_pass2": ("segment_scan.cu", "sylber_tpu/ops/segment.py:129")}
     line = []
     for name, rec in checks.items():
+        if name not in sources:  # another shape of a kernel, kept in that kernel's entry
+            continue
         r = rec["float32"]
         entry = dict(name=name, route="cuda",
                      source=f"sylber_tpu_torch/csrc/{sources[name][0]}",
@@ -745,6 +1309,21 @@ def main() -> int:
                                  ("max_abs_err", "ms", "plain_ms", "library_ms",
                                   "bound_ms", "bound_by") + extra}
         line.append(entry)
+    entries = {e["name"]: e for e in line}
+    entries["flash_attention"]["longform_shape"] = {
+        dt: {k: r[k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "library_ms",
+                               "eager_ms", "bound_ms", "bound_by")}
+        for dt, r in checks[LONGFORM_FLASH].items()}
+    # the consumers' shapes that phase 2 held against the plain versions
+    entries["small_attention"]["consumer_shapes"] = [
+        {k: e[k] for k in ("shape", "dtype", "max_abs_err", "tol", "ok")} for e in edges[-2:]]
+    entries["conv0_gn_gelu"]["consumer_shapes"] = [
+        {k: e[k] for k in ("input", "shape", "dtype", "max_abs_err", "tol", "ok")}
+        for e in conv0_edges if e["input"] in ("longform_window_batch", "streaming_hop")]
+    for name in ("segment_pass1", "segment_pass2"):  # both run in each segment_batch call
+        entries[name]["consumer_shapes"] = [
+            {k: e[k] for k in ("case", "shape", "mismatches", "feature_err", "ok")}
+            for e in seg_edges if e["case"] in ("longform_B8_L1549", "streaming_B1_L199")]
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         build_log = kernels.BUILD_DIR / "build.log"  # registers, shared memory, spills
@@ -756,7 +1335,7 @@ def main() -> int:
                                                   segmentation_edges=seg_edges,
                                                   pass1_ties=ties,
                                                   shared_divisor=division,
-                                                  mini_ckpt=mini),
+                                                  mini_ckpt=mini, consumers=consumers),
                                              indent=1))
     log(json.dumps({"kernels": line}))
     log(smi)

@@ -54,8 +54,18 @@ class Segmenter:
     ``model_ckpt``: a PyTorch ``sylber.ckpt``-style state dict file, a
     ``.npz`` parameter file of the JAX package, or ``None`` for seeded random
     weights (tests and benchmarks). ``params`` takes a JAX parameter tree of
-    numpy arrays directly. ``mesh`` and ``speculative_tokens_per_s`` are not
-    ported yet and raise.
+    numpy arrays directly. ``mesh`` data parallelism is not ported yet: a mesh
+    raises, and ``self.mesh`` is always ``None``.
+
+    ``speculative_tokens_per_s`` (serving): right after the forward is
+    enqueued, start one copy to pinned host memory of the segment counts,
+    the frame norms and the first K segments and segment features, with K
+    sized from this assumed largest token rate (tokens per second of the
+    padded batch, plus 8). ``finalize`` waits for that copy's event, its
+    only wait for those bytes; when the batch's largest segment count fits
+    in K it fetches nothing more (but the hidden states, if asked for),
+    and when it does not, the segments and features are fetched as without
+    the option. The outputs are the same either way.
     """
 
     def __init__(
@@ -76,8 +86,9 @@ class Segmenter:
     ) -> None:
         if mesh is not None:
             raise NotImplementedError("mesh data parallelism is not ported yet")
-        if speculative_tokens_per_s is not None:
-            raise NotImplementedError("speculative_tokens_per_s is not ported yet")
+        self.mesh = None
+        self.speculative_tokens_per_s = (float(speculative_tokens_per_s)
+                                         if speculative_tokens_per_s else None)
         self.device = resolve_device(device)
         self.config = hubert_config or HubertConfig(
             num_hidden_layers=encoding_layer, dtype=as_dtype(dtype),
@@ -188,13 +199,16 @@ class Segmenter:
         merge_threshold: Optional[float] = None,
         return_hidden=True,
     ):
-        """Upload and run the batch; return a zero-argument ``finalize()``
-        producing exactly what :meth:`process` returns.
+        """Upload the batch and enqueue its forward and segmentation; return a
+        zero-argument ``finalize()`` producing exactly what :meth:`process`
+        returns.
 
-        Segmentation pass 2 reads its loop bound on the host, so the forward
-        has finished when this returns; ``finalize`` does the copies to the
-        host. Oversize inputs split into biggest-bucket sub-batches that run
-        at finalize time, at most two in flight."""
+        Nothing here waits for the device: on a GPU the call returns while
+        the forward is still running (time ``finalize()`` with it). The first
+        host wait is in ``finalize``, which holds every copy to the host that
+        waits; a server overlaps one batch's ``finalize`` with the next
+        batch's dispatch. Oversize inputs split into biggest-bucket
+        sub-batches that run at finalize time, at most two in flight."""
         nt = self.norm_threshold if norm_threshold is None else float(norm_threshold)
         mt = self.merge_threshold if merge_threshold is None else float(merge_threshold)
 
@@ -227,31 +241,74 @@ class Segmenter:
         hidden, res = self._forward_segment(
             torch.from_numpy(batch).to(self.device),
             torch.from_numpy(mask).to(self.device), nt, mt)
+        prefix = None
+        if self.speculative_tokens_per_s:
+            k = min(int(np.ceil(max_len / 16000.0 * self.speculative_tokens_per_s)) + 8,
+                    res.features.shape[1])
+            prefix = start_host_copy(res.num_segments[:n], res.norms[:n],
+                                     res.segments[:n, :k], res.features[:n, :k])
 
         def finalize() -> List[Dict[str, np.ndarray]]:
-            nseg = res.num_segments.cpu().numpy()
-            max_k = max(int(nseg.max()), 1)
-            feats = res.features[:, :max_k].cpu().numpy()
-            segs = res.segments[:, :max_k].cpu().numpy()
-            norms = res.norms.cpu().numpy()
-            hidden_host = hidden.cpu().numpy() if return_hidden is True else None
-
-            outputs = []
-            for i in range(n):
-                k = int(nseg[i])
-                seg_i = segs[i, :k].astype(np.int64)
-                t_valid = self.config.feat_extract_output_length(lengths[i])
-                out = {
-                    "segments": seg_i / FRAME_RATE if in_second else seg_i,
-                    "segment_features": feats[i, :k].copy() if k else np.array([]),
-                    "frame_norms": norms[i, :t_valid],
-                }
-                if return_hidden is True:
-                    out["hidden_states"] = hidden_host[i, :t_valid]
-                elif return_hidden == "device":
-                    out["hidden_states_device"] = hidden[i]
-                    out["num_frames"] = t_valid
-                outputs.append(out)
-            return outputs
+            return self._collect(hidden, res, lengths, in_second, return_hidden, prefix)
 
         return finalize
+
+    def _collect(self, hidden: torch.Tensor, res, lengths: Sequence[int],
+                 in_second: bool, return_hidden, prefix=None) -> List[Dict[str, Any]]:
+        """Copy the results of the first ``len(lengths)`` rows of a batch to
+        the host and cut them to each row's length (in samples). The segments
+        and their features are fetched as the prefix ``[:, :max(num_segments)]``,
+        or read from ``prefix``, the copy of the speculative option started by
+        :func:`start_host_copy`, when it holds that many."""
+        n = len(lengths)
+        held = 0
+        if prefix is None:
+            nseg = res.num_segments[:n].cpu().numpy()
+            norms = res.norms[:n].cpu().numpy()
+        else:
+            (nseg_h, norms_h, segs_h, feats_h), done = prefix
+            if done is not None:
+                done.synchronize()  # nothing else orders these reads: stale bytes until then
+            nseg, norms, held = nseg_h.numpy(), norms_h.numpy().copy(), feats_h.shape[1]
+        max_k = max(int(nseg.max()), 1)
+        if max_k <= held:
+            segs, feats = segs_h[:, :max_k].numpy(), feats_h[:, :max_k].numpy()
+        else:
+            segs = res.segments[:n, :max_k].cpu().numpy()
+            feats = res.features[:n, :max_k].cpu().numpy()
+        hidden_host = hidden[:n].cpu().numpy() if return_hidden is True else None
+
+        outputs = []
+        for i in range(n):
+            k = int(nseg[i])
+            seg_i = segs[i, :k].astype(np.int64)
+            t_valid = self.config.feat_extract_output_length(int(lengths[i]))
+            out = {
+                "segments": seg_i / FRAME_RATE if in_second else seg_i,
+                "segment_features": feats[i, :k].copy() if k else np.array([]),
+                "frame_norms": norms[i, :t_valid],
+            }
+            if return_hidden is True:
+                out["hidden_states"] = hidden_host[i, :t_valid]
+            elif return_hidden == "device":
+                out["hidden_states_device"] = hidden[i]
+                out["num_frames"] = t_valid
+            outputs.append(out)
+        return outputs
+
+
+def start_host_copy(*tensors: torch.Tensor):
+    """Start copying ``tensors`` to the host: ``(host tensors, event)``. From
+    CUDA tensors the copies go to pinned memory without waiting; their bytes
+    may be read only after ``event.synchronize()``. From CPU tensors they are
+    plain copies and the event is ``None``."""
+    if tensors[0].device.type != "cuda":
+        return tuple(t.clone() for t in tensors), None
+    hosts = []
+    for t in tensors:
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        hosts.append(host)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(tensors[0].device))
+    return tuple(hosts), done

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
 from typing import Optional, Sequence, Union
 
 import torch
@@ -125,16 +126,22 @@ def matmul_precision(precision: str):
     ``"highest"`` turns TF32 off for both (cuDNN convolutions default to it),
     the counterpart of JAX ``precision="highest"``; ``"default"`` turns it on,
     the counterpart of the TPU's reduced-precision passes. The flags are
-    process-wide and are restored on exit.
+    process-wide and are restored on exit; one thread at a time holds them
+    (a server's dispatcher runs the encoder while its request threads run
+    the quantizer's distance matmul).
     """
     tf32 = precision != "highest"
-    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = tf32
-    torch.backends.cudnn.allow_tf32 = tf32
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    with _TF32_FLAGS:
+        saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            yield
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+_TF32_FLAGS = threading.RLock()
 
 
 def feature_vector_attention_mask(config: HubertConfig,

@@ -1,0 +1,52 @@
+"""The port imports torch, never JAX, and nothing of ``sylber_tpu``.
+
+A fresh interpreter imports every module of ``sylber_tpu_torch`` (walked
+with ``pkgutil``) and checks ``sys.modules``; then, with no GPU, the entry
+points refuse to run unless the caller asks for the CPU.
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+SCRIPT = r"""
+import importlib, pkgutil, sys
+import torch
+import sylber_tpu_torch
+
+names = ["sylber_tpu_torch"] + [m.name for m in pkgutil.walk_packages(
+    sylber_tpu_torch.__path__, "sylber_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "sylber_tpu" or m.startswith("sylber_tpu."))
+assert not bad, bad
+print(len(names), "modules")
+
+torch.cuda.is_available = lambda: False  # as on a machine with no GPU
+from sylber_tpu_torch import Segmenter
+from sylber_tpu_torch.longform import LongFormSegmenter
+from sylber_tpu_torch.quantizer import KMQuantizer
+for make in (lambda: LongFormSegmenter(Segmenter()), lambda: KMQuantizer([[0.0, 1.0]])):
+    try:
+        make()
+    except RuntimeError as e:
+        assert "device='cpu'" in str(e), e
+    else:
+        raise AssertionError("an entry point ran without a GPU and without device='cpu'")
+print("ok")
+"""
+
+
+def test_port_imports_no_jax_and_needs_a_gpu_or_cpu_choice():
+    run = subprocess.run([sys.executable, "-c", SCRIPT], capture_output=True, text=True,
+                         cwd=ROOT, env={"PYTHONPATH": str(ROOT), "PATH": "/usr/bin:/bin"},
+                         timeout=300)
+    assert run.returncode == 0, run.stderr[-3000:]
+    count, ok = run.stdout.split("\n")[:2]
+    assert ok == "ok"
+    # the modules this test must reach, whatever else the package holds
+    assert int(count.split()[0]) >= 20, count
