@@ -47,7 +47,21 @@ Phases, each of which fails the script when it fails:
    the speculative copy, whose event must be what orders the reads) and
    the HTTP shim
    (``python -m sylber_tpu_torch.serve_http``); each run counts the kernel
-   launches, which the ``{"kernels": [...]}`` line adds to phase 3's.
+   launches, which the ``{"kernels": [...]}`` line adds to phase 3's;
+6. distillation training (``sylber_tpu_torch.train.loop.train``) at full
+   width on the synthetic corpus, stage 2 as ``configs/sylber_base_stage2_tpu.yaml``
+   sets it (online segmentation, ``use_train_thrupdate``, noise mixing, int16
+   transfer): the kernels against their plain versions at the trainer's
+   shapes (conv0 at 100 x 80,320, small attention at B100 H12 L250 D64,
+   ``segment_batch`` at B100 L250 d768 with a device-tensor norm threshold);
+   a bf16 / default run at B100 x 5 s and an fp32 / highest run (batch
+   ``FP32_BATCH``), 3 warm-up and 10 timed steps each, with every launch
+   counter from 0 (conv0, small attention and both segmentation passes must
+   launch), step time, audio seconds a second, MFU, peak memory, one step
+   under ``set_sync_debug_mode("error")``, a profiled step and the step in
+   parts; one stage-2 step of ``mini_ckpt.npz`` on the card against the CPU;
+   a run resumed from its step-3 checkpoint against an uninterrupted one;
+   and ``remat`` against no remat with dropout on.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit
 (``nvidia-smi``), and as its last line
@@ -62,6 +76,7 @@ import argparse
 import json
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -81,6 +96,9 @@ H100_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}  # fp32 CUDA cores; bf16
 PASS1_CHAIN_CYCLES = 4 + 5 * (24 + 4) + 40 + 80 + 8 + 48
 # phase 2's record of flash attention at the long-form windows' shape
 LONGFORM_FLASH = "flash_attention_B8_L1549"
+# phase 6's fp32 training run: the batch, and whether the encoder layers are
+# recomputed in the backward pass
+FP32_BATCH, FP32_REMAT = 100, False
 
 
 def log(*parts):
@@ -152,19 +170,11 @@ def synthetic_states(rng, B, L, d):
 
 # ---------------------------------------------------------------- phase 2
 
-def check_kernels(torch, ops):
+def conv0_record(torch, ops, x, w, gamma, beta):
+    """conv0 + GroupNorm + GELU on ``x`` (B, L) in both output dtypes: the
+    kernel against its plain version, times and bound."""
     F = torch.nn.functional
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
-    randn = lambda *s: torch.randn(*s, device=dev, generator=gen)  # noqa: E731
-    results = {}
-
-    # conv0 + GroupNorm + GELU at B=32 x 5 s
-    B, L, D = 32, 80000, 512
-    x = randn(B, L)
-    x[5, 40000:] = 0.0  # a padded item: padding enters the moments
-    w = randn(D, 1, 10) / 10 ** 0.5
-    gamma, beta = 1 + 0.1 * randn(D), 0.1 * randn(D)
+    (B, L), D = x.shape, w.shape[0]
     T0 = (L - 10) // 5 + 1
     rec = {}
     for dt, tol in (("float32", 2e-4), ("bfloat16", 2e-2)):
@@ -178,13 +188,112 @@ def check_kernels(torch, ops):
         err = (got.float() - want.float()).abs().max().item()
         ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
         nbytes = 4 * (B * L + D * 12) + B * T0 * D * got.element_size()
+        del got, want
         b_ms, b_by = bound_ms(nbytes, B * T0 * D * (2 * 10 + 4), "float32")
         rec[dt] = dict(max_abs_err=err, tol=tol, ok=bool(ok),
                        ms=graph_time_ms(torch, run, 5), plain_ms=time_ms(torch, plain, 5),
                        library_ms=time_ms(torch, library, 5), eager_ms=time_ms(torch, run, 10),
                        bound_ms=b_ms, bound_by=b_by, shape=[B, L, D])
-        del got, want
-    results["conv0_gn_gelu"] = rec
+        torch.cuda.empty_cache()
+    return rec
+
+
+def attention_record(torch, fn, plain_fn, B, L, gen, small: bool):
+    """One attention kernel at (B, H12, L, D64) in both dtypes, on (B, H, L, D)
+    views of (B, L, H, D) memory with ragged key lengths, a full item and a
+    fully padded one: against its plain version, times, bound and SDPA."""
+    F = torch.nn.functional
+    dev = torch.device("cuda")
+    randn = lambda *s: torch.randn(*s, device=dev, generator=gen)  # noqa: E731
+    H, Dh = 12, 64
+    lens = torch.randint(L // 2, L + 1, (B,), device=dev, generator=gen).to(torch.int32)
+    lens[0], lens[1] = L, 0
+    keep = (torch.arange(L, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+    rec = {}
+    for dt, tol in (("float32", 2e-5), ("bfloat16", 2e-2)):
+        tdt = getattr(torch, dt)
+        q, k, v = (randn(B, L, H, Dh).to(tdt).transpose(1, 2) for _ in range(3))
+        run = lambda: fn(q, k, v, lens)  # noqa: E731
+        plain = lambda: plain_fn(q, k, v, lens)  # noqa: E731
+        library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep)  # noqa: E731
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+        # q read and o written in full; K and V only up to kv_len[b], which
+        # is where the key loop ends. An item with no valid key needs all
+        # of V in the small kernel (the mean of V) and nothing in flash.
+        kv_rows = 2 * int(lens.sum().item())
+        if small:
+            kv_rows += L * int((lens == 0).sum().item())
+        nbytes = (2 * B * L + kv_rows) * H * Dh * q.element_size() + 4 * B
+        ops_n = 4.0 * H * Dh * L * float(lens.sum().item())
+        b_ms, b_by = bound_ms(nbytes, ops_n, dt)
+        # device times by graph replay: the small kernel is shorter than
+        # the host's work to enqueue it; eager_ms is the wrapper as called
+        rec[dt] = dict(max_abs_err=err, tol=tol, ok=bool(ok),
+                       ms=graph_time_ms(torch, run, 20),
+                       plain_ms=graph_time_ms(torch, plain, 5),
+                       library_ms=graph_time_ms(torch, library, 20),
+                       eager_ms=time_ms(torch, run, 20),
+                       library_eager_ms=time_ms(torch, library, 20),
+                       bound_ms=b_ms, bound_by=b_by, shape=[B, H, L, Dh])
+        del got, want, q, k, v
+    return rec
+
+
+def segmentation_records(torch, seg, states, voiced, norms, thr=0.8):
+    """Pass 1 and pass 2 + compaction on ``states``: events and segments
+    against the plain versions (0 mismatches), times and bounds."""
+    B, L, d = states.shape
+    plain = lambda: seg.segment_pass1_plain(states, voiced, thr)  # noqa: E731
+    want = plain()
+    run = lambda: seg.segment_pass1(states, voiced, thr)  # noqa: E731
+    mism = sum(int((a.int() != b.int()).sum().item()) for a, b in zip(run(), want))
+    nbytes = 4 * B * L * d + B * L * (1 + 1 + 1 + 4) + 2 * 8 * B * (L + 1) + 3 * 4 * B
+    b_ms, b_by = bound_ms(nbytes, 9.0 * B * L * d, "float32")
+    p1 = {"float32": dict(
+        max_abs_err=float(mism), tol=0, ok=mism == 0, ms=graph_time_ms(torch, run, 10),
+        plain_ms=time_ms(torch, plain, 1, warmup=0), library_ms=None,
+        bound_ms=b_ms, bound_by=b_by, shape=[B, L, d],
+        eager_ms=time_ms(torch, run, 10),
+        chain_bound_ms=L * PASS1_CHAIN_CYCLES / sm_clock_hz() * 1e3)}
+
+    P = seg._prefix_sums(states)
+    p1e = seg.segment_pass1(states, voiced, thr)  # equal to the plain version's, see above
+    args = (states, norms, P, p1e.segs, p1e.nseg, p1e.mids, p1e.nmid, thr)
+    run = lambda: seg.segment_pass2(*args)  # noqa: E731
+    plain = lambda: seg.segment_pass2_plain(*args)  # noqa: E731
+    (got_segs, got_n), (want_segs, want_n) = run(), plain()
+    mism = int((got_segs != want_segs).sum().item() + (got_n != want_n).sum().item())
+    p_rows, win_frames = pass2_traffic(*(a.cpu().numpy() for a in args[:1] + args[3:7]), thr)
+    nbytes = (4 * d * (p_rows + win_frames) + 4 * win_frames       # rows of P and states, norms
+              + 2 * 8 * B * (L + 1) + 2 * 4 * B                   # segs, mids, nseg, nmid
+              + 8 * B * (L + 1) + 4 * B)                          # segments, counts
+    b_ms, b_by = bound_ms(nbytes, 2.5 * d * p_rows + 4.0 * d * win_frames, "float32")
+    p2 = {"float32": dict(
+        max_abs_err=float(mism), tol=0, ok=mism == 0, ms=graph_time_ms(torch, run, 5),
+        eager_ms=time_ms(torch, run, 10),
+        plain_ms=time_ms(torch, plain, 1, warmup=0), library_ms=None,
+        bound_ms=b_ms, bound_by=b_by, shape=[B, L, d],
+        mid_boundaries=int(p1e.nmid.sum().item()), segments=int(got_n.sum().item()),
+        p_rows_read=p_rows, window_frames=win_frames)}
+    return p1, p2
+
+
+def check_kernels(torch, ops):
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    randn = lambda *s: torch.randn(*s, device=dev, generator=gen)  # noqa: E731
+    results = {}
+
+    # conv0 + GroupNorm + GELU at B=32 x 5 s
+    B, L, D = 32, 80000, 512
+    x = randn(B, L)
+    x[5, 40000:] = 0.0  # a padded item: padding enters the moments
+    w = randn(D, 1, 10) / 10 ** 0.5
+    gamma, beta = 1 + 0.1 * randn(D), 0.1 * randn(D)
+    results["conv0_gn_gelu"] = conv0_record(torch, ops, x, w, gamma, beta)
 
     # attention: small path at L=250, flash path at L=1000, and flash at the
     # long-form windows' shape (8 windows of 31 s, L=1549, not a multiple of
@@ -196,42 +305,8 @@ def check_kernels(torch, ops):
              ops.flash.flash_attention_plain),
             (LONGFORM_FLASH, 8, 1549, ops.flash.flash_attention,
              ops.flash.flash_attention_plain)):
-        H, Dh = 12, 64
-        lens = torch.randint(L // 2, L + 1, (B,), device=dev, generator=gen).to(torch.int32)
-        lens[0], lens[1] = L, 0  # a full item and a fully padded one
-        keep = (torch.arange(L, device=dev)[None, :] < lens[:, None])[:, None, None, :]
-        rec = {}
-        for dt, tol in (("float32", 2e-5), ("bfloat16", 2e-2)):
-            tdt = getattr(torch, dt)
-            # (B, H, L, D) views of (B, L, H, D) memory, as the encoder layer
-            # hands its projections to the kernels
-            q, k, v = (randn(B, L, H, Dh).to(tdt).transpose(1, 2) for _ in range(3))
-            run = lambda: fn(q, k, v, lens)  # noqa: E731
-            plain = lambda: plain_fn(q, k, v, lens)  # noqa: E731
-            library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep)  # noqa: E731
-            got, want = run(), plain()
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
-            # q read and o written in full; K and V only up to kv_len[b], which
-            # is where the key loop ends. An item with no valid key needs all
-            # of V in the small kernel (the mean of V) and nothing in flash.
-            kv_rows = 2 * int(lens.sum().item())
-            if name == "small_attention":
-                kv_rows += L * int((lens == 0).sum().item())
-            nbytes = (2 * B * L + kv_rows) * H * Dh * q.element_size() + 4 * B
-            ops_n = 4.0 * H * Dh * L * float(lens.sum().item())
-            b_ms, b_by = bound_ms(nbytes, ops_n, dt)
-            # device times by graph replay: the small kernel is shorter than
-            # the host's work to enqueue it; eager_ms is the wrapper as called
-            rec[dt] = dict(max_abs_err=err, tol=tol, ok=bool(ok),
-                           ms=graph_time_ms(torch, run, 20),
-                           plain_ms=graph_time_ms(torch, plain, 5),
-                           library_ms=graph_time_ms(torch, library, 20),
-                           eager_ms=time_ms(torch, run, 20),
-                           library_eager_ms=time_ms(torch, library, 20),
-                           bound_ms=b_ms, bound_by=b_by, shape=[B, H, L, Dh])
-        results[name] = rec
+        results[name] = attention_record(torch, fn, plain_fn, B, L, gen,
+                                         small=name == "small_attention")
 
     # segmentation at B=32 x 1000 frames x 768: pass 1, then pass 2 +
     # compaction on pass 1's buffers
@@ -241,38 +316,8 @@ def check_kernels(torch, ops):
     norms = seg.frame_norms(states)
     voiced = norms >= 2.6
     voiced[3, 700:] = False
-    plain = lambda: seg.segment_pass1_plain(states, voiced, 0.8)  # noqa: E731
-    want = plain()
-    run = lambda: seg.segment_pass1(states, voiced, 0.8)  # noqa: E731
-    mism = sum(int((a.int() != b.int()).sum().item()) for a, b in zip(run(), want))
-    nbytes = 4 * B * L * d + B * L * (1 + 1 + 1 + 4) + 2 * 8 * B * (L + 1) + 3 * 4 * B
-    b_ms, b_by = bound_ms(nbytes, 9.0 * B * L * d, "float32")
-    results["segment_pass1"] = {"float32": dict(
-        max_abs_err=float(mism), tol=0, ok=mism == 0, ms=graph_time_ms(torch, run, 10),
-        plain_ms=time_ms(torch, plain, 1, warmup=0), library_ms=None,
-        bound_ms=b_ms, bound_by=b_by, shape=[B, L, d],
-        eager_ms=time_ms(torch, run, 10),
-        chain_bound_ms=L * PASS1_CHAIN_CYCLES / sm_clock_hz() * 1e3)}
-
-    P = seg._prefix_sums(states)
-    p1 = seg.segment_pass1(states, voiced, 0.8)  # equal to the plain version's, see above
-    args = (states, norms, P, p1.segs, p1.nseg, p1.mids, p1.nmid, 0.8)
-    run = lambda: seg.segment_pass2(*args)  # noqa: E731
-    plain = lambda: seg.segment_pass2_plain(*args)  # noqa: E731
-    (got_segs, got_n), (want_segs, want_n) = run(), plain()
-    mism = int((got_segs != want_segs).sum().item() + (got_n != want_n).sum().item())
-    p_rows, win_frames = pass2_traffic(*(a.cpu().numpy() for a in args[:1] + args[3:7]), 0.8)
-    nbytes = (4 * d * (p_rows + win_frames) + 4 * win_frames       # rows of P and states, norms
-              + 2 * 8 * B * (L + 1) + 2 * 4 * B                   # segs, mids, nseg, nmid
-              + 8 * B * (L + 1) + 4 * B)                          # segments, counts
-    b_ms, b_by = bound_ms(nbytes, 2.5 * d * p_rows + 4.0 * d * win_frames, "float32")
-    results["segment_pass2"] = {"float32": dict(
-        max_abs_err=float(mism), tol=0, ok=mism == 0, ms=graph_time_ms(torch, run, 5),
-        eager_ms=time_ms(torch, run, 10),
-        plain_ms=time_ms(torch, plain, 1, warmup=0), library_ms=None,
-        bound_ms=b_ms, bound_by=b_by, shape=[B, L, d],
-        mid_boundaries=int(p1.nmid.sum().item()), segments=int(got_n.sum().item()),
-        p_rows_read=p_rows, window_frames=win_frames)}
+    results["segment_pass1"], results["segment_pass2"] = segmentation_records(
+        torch, seg, states, voiced, norms)
     return results
 
 
@@ -525,7 +570,13 @@ def check_attention_edges(torch, ops):
 
 def profile(torch, fn, top: int = 12):
     """Device time by kernel over one call of ``fn`` (torch.profiler), with the
-    wall time of the profiled call; the profiler itself slows the host."""
+    wall time of the profiled call; the profiler itself slows the host.
+
+    ``device_ms`` is the time the device was busy: the union of the device
+    events' intervals, so events that overlap (on other streams) count once.
+    ``device_sum_ms`` is the plain sum of their durations, ``overlap_ms`` the
+    difference, and ``duplicate_events`` the events that share a name and a
+    start with another (events the profiler reported twice)."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -539,10 +590,19 @@ def profile(torch, fn, top: int = 12):
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
+    busy_us, reach = 0.0, float("-inf")
+    for start, end in sorted((e.time_range.start, e.time_range.end) for e in kernels):
+        if end > reach:
+            busy_us += end - max(start, reach)
+            reach = end
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
     ours = {k[:70]: v for k, v in ranked
             if any(tag in k for tag in ("sylber", "conv0_", "segment_pass"))}
-    return dict(wall_ms=wall * 1e3, device_ms=sum(by_name.values()),
+    total = sum(by_name.values())
+    return dict(wall_ms=wall * 1e3, device_ms=busy_us / 1e3, device_sum_ms=total,
+                overlap_ms=total - busy_us / 1e3,
+                duplicate_events=len(kernels) - len({(e.name, e.time_range.start)
+                                                     for e in kernels}),
                 launches=len(kernels), top_ms=[(k[:60], v) for k, v in ranked[:top]],
                 port_kernels_ms=ours)
 
@@ -1183,6 +1243,356 @@ def http_shim(codebook, device):
     return dict(codes=codes, segments=seg["num_segments"], startup_s=started)
 
 
+# ---------------------------------------------------------------- phase 6
+
+def stage2_recipe(dtype: str, precision: str, batch: int, remat: bool = False):
+    """The semantics of ``configs/sylber_base_stage2_tpu.yaml`` (its model
+    keys; the synthetic corpus in place of LibriSpeech and DNS noise, which
+    the repository does not hold) at ``dtype`` / ``precision``."""
+    model = {"encoding_layer": 9, "ema_decay": 1.0, "segment_online": True,
+             "merge_threshold_range": [0.8, 0.9],
+             "thresholder_configs": {"signal_mean": 6.10, "signal_var": 0.87,
+                                     "noise_mean": 0.34, "noise_var": 0.34},
+             "use_train_thrupdate": True, "mask_prob": 0.0, "min_mask_n": 0,
+             "do_noise_augment": True,
+             "noise_mixer_configs": {"augment_prob": 0.2, "utterance_mix_ratio": 0.25,
+                                     "shift_range": [0.0, 0.7],
+                                     "magnitude_range": [0.05, 0.7],
+                                     "utterance_magnitude_max_scale": 0.2},
+             "lr": 0.00005, "warmup_steps": 0, "hold_steps": 0, "total_steps": 50000,
+             "min_factor": 1, "loss_coefs": {"distillation_loss": 1},
+             "dtype": dtype, "frontend_dtype": dtype, "precision": precision}
+    if remat:
+        model["hubert"] = {"remat": True}
+    data = {"synthetic": True, "segment_online_data": True, "n_utts": batch,
+            "max_len": 80000, "batch_size": batch, "transfer": "int16",
+            "device_resident": True}
+    return {"name": f"stage2_{dtype}", "seed": 0, "model": model, "data": data,
+            "accumulate_grad_batches": 1}
+
+
+def step_parts_ms(torch, state, batch, dcfg, seed=0):
+    """One step in its parts, each between two CUDA events: the teacher's
+    forward, the online segmentation, the student's forward and backward,
+    the optimizer (the functions ``make_train_step`` runs, in its order)."""
+    from sylber_tpu_torch.models.hubert import matmul_precision
+    from sylber_tpu_torch.train import distill as D
+
+    gens = D.step_generators(seed, state.step, "cuda")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    params = list(state.student.parameters())
+    for p in params:
+        p.grad = None
+    precision = matmul_precision(dcfg.model.precision)
+    precision.__enter__()
+    ev[0].record()
+    wav, am, target = D.teacher_targets(state.teacher, batch)
+    ev[1].record()
+    segs, nseg, thr, norm_mask = D.online_segments(target, am, state.thresholder, gens, dcfg)
+    ev[2].record()
+    loss, aux = D.student_loss(state.student, wav, am, batch.get("noise"), target, segs, nseg,
+                               thr, norm_mask, gens, dcfg)
+    loss.backward()
+    ev[3].record()
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+    schedule = D.cosine_warmup_schedule(dcfg.lr, dcfg.warmup_steps, dcfg.total_steps,
+                                        dcfg.min_factor, dcfg.hold_steps)
+    D.apply_gradients(params, grads, state.optimizer, state.acc_grads, state.step, dcfg,
+                      schedule)
+    ev[4].record()
+    precision.__exit__(None, None, None)
+    torch.cuda.synchronize()
+    names = ("teacher", "segmentation", "student_fwd_bwd", "optimizer")
+    return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+
+
+def training_run(torch, counters, label, recipe, out_dir, smi, steps=13, warm=3):
+    """``train()`` for ``steps`` steps (every launch counter from 0, metrics
+    fetched every step), then on the state it returns: one step under
+    ``set_sync_debug_mode("error")`` with its launches, one profiled step and
+    one step in parts."""
+    from sylber_tpu_torch.train.distill import make_train_step
+    from sylber_tpu_torch.train.loop import distill_config_from_dict, train, train_batches
+    from sylber_tpu_torch.utils.profiling import hubert_train_flops, mfu
+
+    B = recipe["data"]["batch_size"]
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = train(recipe, out_dir=str(out_dir), max_steps=steps, log_every=1, ckpt_every=0,
+                  device="cuda")
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    peak = torch.cuda.max_memory_allocated()
+    rows = [json.loads(ln) for ln in open(Path(out_dir) / "metrics.jsonl")]
+    rows = [r for r in rows if r["prefix"] == "train"]
+    bad = [r for r in rows if not (np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+                                   and np.isfinite(r["normthreshold"])
+                                   and r["num_segments"] > 0)]
+    if len(rows) != steps or bad:
+        raise AssertionError(f"{label}: {len(rows)} metric rows, not finite or no segments: "
+                             f"{bad[:2]}")
+    step_ms = [1e3 * (b["time"] - a["time"]) for a, b in zip(rows, rows[1:])][warm - 1:]
+    p50 = float(np.median(step_ms))
+
+    dcfg = distill_config_from_dict(dict(recipe["model"], accumulate_grad_batches=1))
+    step_fn = make_train_step(dcfg)
+    batch = next(train_batches(recipe["data"], B, recipe["seed"], steps, torch.device("cuda")))
+    attended_s = float(batch["attention_mask"].float().sum().item()) / 16000.0
+    crop = batch["input_values"].shape[1]
+    torch.cuda.synchronize()
+    for fn in counters:
+        fn.launches = 0
+    forbid_host_syncs(torch, step_fn)(state, batch, recipe["seed"])  # raises on a host sync
+    torch.cuda.synchronize()
+    per_step = {fn.__name__: fn.launches for fn in counters}
+    prof = profile(torch, lambda: step_fn(state, batch, recipe["seed"]), top=8)
+    parts = step_parts_ms(torch, state, batch, dcfg, recipe["seed"])
+    flops = hubert_train_flops(dcfg.model, B, crop)
+    dt = str(dcfg.model.dtype).replace("torch.", "")
+    rec = dict(label=label, batch=B, crop_samples=crop, remat=dcfg.model.remat,
+               step_ms=step_ms, step_ms_p50=p50, audio_s_per_s=B * crop / 16000.0 / (p50 / 1e3),
+               attended_audio_s_per_s=attended_s / (p50 / 1e3), step_tflop=flops / 1e12,
+               mfu=mfu(flops, p50 / 1e3, dt, dcfg.model.precision),
+               peak=f"{dt} {dcfg.model.precision}", max_memory_allocated_gb=peak / 1e9,
+               launches_over_run=launches, kernel_launches_per_step=per_step,
+               profile=prof, parts_ms=parts, losses=[r["loss"] for r in rows],
+               num_segments=[r["num_segments"] for r in rows])
+    log(f"phase 6 {label}: B{B} x {crop} samples, remat {rec['remat']}: step p50 "
+        f"{p50:.1f} ms (10 steps after 3 warm-up, min {min(step_ms):.1f}, max "
+        f"{max(step_ms):.1f}), {rec['audio_s_per_s']:.0f} audio s/s "
+        f"({rec['attended_audio_s_per_s']:.0f} attended), {flops / 1e12:.2f} TFLOP a step, "
+        f"MFU {100 * rec['mfu']:.1f} % of the {rec['peak']} peak, max_memory_allocated "
+        f"{peak / 1e9:.1f} GB; loss {rows[0]['loss']:.4g} -> {rows[-1]['loss']:.4g}, "
+        f"segments a step {rows[-1]['num_segments']:.0f}  [{smi}]")
+    log(f"phase 6 {label}: one step under set_sync_debug_mode('error'): no host sync; the "
+        f"port's kernels launched {per_step}; profiled step: device busy "
+        f"{prof['device_ms']:.1f} of {prof['wall_ms']:.1f} ms (events summed "
+        f"{prof['device_sum_ms']:.1f} ms, overlapping {prof['overlap_ms']:.1f} ms, "
+        f"{prof['duplicate_events']} reported twice), {prof['launches']} launches; "
+        f"top: " + ", ".join(f"{k} {v:.1f} ms" for k, v in prof["top_ms"]))
+    log(f"phase 6 {label}: step in parts (CUDA events): "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in parts.items()))
+    del state, batch
+    torch.cuda.empty_cache()
+    return rec
+
+
+def training_shape_kernels(torch, ops):
+    """The kernels at the trainer's shapes (B100 x 5 s crops): conv0 at
+    100 x 80,320, small attention at B100 H12 L250 D64, and the whole
+    segmentation at B100 L250 d768 with a 0-d device tensor as its norm
+    threshold, against the plain versions."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    randn = lambda *s: torch.randn(*s, device=dev, generator=gen)  # noqa: E731
+    out = {}
+    B, L, D = 100, 80320, 512
+    x = randn(B, L)
+    x[7, 50000:] = 0.0  # a shorter utterance padded to the crop
+    w = randn(D, 1, 10) / 10 ** 0.5
+    gamma, beta = 1 + 0.1 * randn(D), 0.1 * randn(D)
+    out["conv0_gn_gelu"] = conv0_record(torch, ops, x, w, gamma, beta)
+    del x
+    out["small_attention"] = attention_record(torch, ops.smallattn.small_attention,
+                                              ops.smallattn.small_attention_plain, 100, 250,
+                                              gen, small=True)
+    seg = ops.segment
+    states = torch.from_numpy(synthetic_states(np.random.RandomState(6), 100, 250, 768)).to(dev)
+    norms = seg.frame_norms(states)
+    thr = torch.tensor(2.6, device=dev)  # as the thresholder hands it over
+    fv = torch.ones(100, 250, dtype=torch.bool, device=dev)
+    fv[7, 156:] = False
+    got = forbid_host_syncs(torch, seg.segment_batch)(states, thr, 0.85, frame_valid=fv)
+    want = segment_batch_plain(torch, seg, states, thr, 0.85, frame_valid=fv)
+    mism = int((got.segments != want.segments).sum().item()
+               + (got.num_segments != want.num_segments).sum().item())
+    ferr = float((got.features - want.features).abs().max().item())
+    out["segment_batch"] = dict(shape=[100, 250, 768], mismatches=mism, feature_err=ferr,
+                                segments=int(got.num_segments.sum().item()),
+                                ok=mism == 0 and ferr <= 1e-5)
+    voiced = (norms >= thr) & fv
+    out["segment_pass1"], out["segment_pass2"] = segmentation_records(
+        torch, seg, states, voiced, norms, 0.85)
+    return out
+
+
+def card_against_cpu_step(torch):
+    """One stage-2 step of ``mini_ckpt.npz`` (9 layers, 144 wide; fp32,
+    highest, dropout 0) on the card and on the CPU from the same batch: loss
+    within rtol 1e-4, segments equal, gradients within 1e-4 of the largest."""
+    from sylber_tpu_torch.data.dataset import SyntheticSpeechDataset
+    from sylber_tpu_torch.io.checkpoint import load_state_dict
+    from sylber_tpu_torch.models.hubert import HubertConfig, matmul_precision
+    from sylber_tpu_torch.train import distill as D
+
+    meta = json.loads((FIXTURES / "mini_ckpt.json").read_text())
+    hub = {k: tuple(v) if isinstance(v, list) else v for k, v in meta["hubert"].items()}
+    model = HubertConfig(num_hidden_layers=meta["encoding_layer"], precision="highest",
+                         hidden_dropout=0.0, attention_dropout=0.0, activation_dropout=0.0,
+                         feat_proj_dropout=0.0, **hub)
+    dcfg = D.DistillConfig(model=model, segment_online=True, use_train_thrupdate=True,
+                           merge_threshold_range=(0.8, 0.8), warmup_steps=0, lr=1e-3)
+    sd = load_state_dict(str(FIXTURES / "mini_ckpt.npz"), meta["encoding_layer"])
+    ds = SyntheticSpeechDataset(n_utts=4, max_len=48000, with_segments=False, seed=11)
+    host = ds.collate([ds[i] for i in range(4)], transfer="int16")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        state = D.init_train_state(dcfg, dev, params=sd,
+                                   thresholder_kwargs=meta["thresholder_stats"])
+        batch = {k: (torch.from_numpy(v).to(dev) if v is not None else None)
+                 for k, v in host.items()}
+        gens = D.step_generators(0, 0, dev)
+        with matmul_precision("highest"):  # forward and backward without TF32
+            wav, am, target = D.teacher_targets(state.teacher, batch)
+            segs, nseg, thr, norm_mask = D.online_segments(target, am, state.thresholder, gens,
+                                                           dcfg)
+            loss, _ = D.student_loss(state.student, wav, am, batch["noise"], target, segs, nseg,
+                                     thr, norm_mask, gens, dcfg)
+            loss.backward()
+        out[dev] = dict(loss=float(loss.detach().cpu()), segments=segs.cpu().numpy(),
+                        num_segments=nseg.cpu().numpy(),
+                        grads={k: p.grad.detach().cpu() for k, p in
+                               state.student.named_parameters() if p.grad is not None})
+    g, c = out["cuda"], out["cpu"]
+    same = bool(np.array_equal(g["num_segments"], c["num_segments"])
+                and np.array_equal(g["segments"], c["segments"]))
+    largest = max(float(v.abs().max()) for v in c["grads"].values())
+    gerr = max(float((g["grads"][k] - v).abs().max()) for k, v in c["grads"].items())
+    rel = abs(g["loss"] - c["loss"]) / abs(c["loss"])
+    rec = dict(loss_cuda=g["loss"], loss_cpu=c["loss"], loss_rel_err=rel, segments_equal=same,
+               segments=int(c["num_segments"].sum()), grad_max_abs_err=gerr,
+               grad_largest=largest, ok=bool(rel <= 1e-4 and same and gerr <= 1e-4 * largest
+                                             and g["grads"].keys() == c["grads"].keys()))
+    log(f"phase 6 card vs CPU, one stage-2 step of mini_ckpt.npz (B4 x 3 s, fp32 highest): loss "
+        f"{g['loss']:.6g} vs {c['loss']:.6g} (rel {rel:.2g}, tol 1e-4), segments equal {same} "
+        f"({rec['segments']}), max |grad diff| {gerr:.3g} of largest {largest:.3g} (tol 1e-4 "
+        f"relative) ok={rec['ok']}")
+    return rec
+
+
+def remat_on_card(torch):
+    """The student with ``remat`` (each encoder layer recomputed in the
+    backward pass, its dropout masks drawn again from the layer's seed)
+    against the same student without it, on the card, dropout 0.1 (mini
+    width, 2 layers, fp32 highest, B4 x 2 s): the losses within 1e-6
+    relative, the gradients within 1e-5 of the largest (a cuDNN backward
+    may sum in another order from call to call)."""
+    import dataclasses
+
+    from sylber_tpu_torch.models.hubert import (HubertConfig, HubertModel, init_weights,
+                                                matmul_precision)
+
+    meta = json.loads((FIXTURES / "mini_ckpt.json").read_text())
+    hub = {k: tuple(v) if isinstance(v, list) else v for k, v in meta["hubert"].items()}
+    cfg = HubertConfig(num_hidden_layers=2, precision="highest", **hub)
+    gen = torch.Generator().manual_seed(4)
+    wav = torch.randn(4, 32320, generator=gen).cuda()
+    mask = torch.ones(4, 32320, dtype=torch.int32, device="cuda")
+    mask[3, 20000:] = 0
+    out = []
+    plain = init_weights(HubertModel(cfg), torch.Generator().manual_seed(4))
+    for remat in (False, True):
+        model = HubertModel(dataclasses.replace(cfg, remat=remat))
+        model.load_state_dict(plain.state_dict())
+        model = model.cuda().train()
+        with matmul_precision("highest"):
+            loss = model(wav, mask, generator=torch.Generator().manual_seed(9)).square().mean()
+            loss.backward()
+        out.append((float(loss.detach()), {k: p.grad.detach().cpu() for k, p in
+                                           model.named_parameters() if p.grad is not None}))
+    (l0, g0), (l1, g1) = out
+    largest = max(float(v.abs().max()) for v in g0.values())
+    err = max(float((g1[k] - v).abs().max()) for k, v in g0.items())
+    rec = dict(loss=l0, loss_remat=l1, grad_max_abs_err=err, grad_largest=largest,
+               ok=bool(abs(l0 - l1) <= 1e-6 * abs(l0) and g0.keys() == g1.keys()
+                       and err <= 1e-5 * largest))
+    log(f"phase 6 remat on the card (dropout 0.1): loss {l0:.7g} vs {l1:.7g} with remat, max "
+        f"|grad diff| {err:.3g} of largest {largest:.3g} (tols 1e-6, 1e-5 relative) ok={rec['ok']}")
+    return rec
+
+
+def resume_on_card(torch, tmp):
+    """``train()`` on the card at mini width (seeded random weights, stage 2,
+    synthetic B8 x 2 s): 4 steps at once, and 3 steps then a resumed fourth.
+    The fourth step's loss within rtol 1e-6 and every parameter within atol
+    1e-6 (cuDNN may pick a convolution backward whose sums are taken in
+    another order); bit equality is reported beside."""
+    from sylber_tpu_torch.train.loop import train
+
+    meta = json.loads((FIXTURES / "mini_ckpt.json").read_text())
+    recipe = {"seed": 3, "model": {
+        "encoding_layer": 2, "hubert": dict(meta["hubert"]), "precision": "highest",
+        "segment_online": True, "use_train_thrupdate": True,
+        "merge_threshold_range": [0.8, 0.9], "do_noise_augment": True,
+        "noise_mixer_configs": {"augment_prob": 0.5}, "lr": 1e-3, "warmup_steps": 1},
+        "data": {"synthetic": True, "segment_online_data": True, "n_utts": 16,
+                 "max_len": 32000, "batch_size": 8, "transfer": "int16"}}
+    kw = dict(log_every=1, ckpt_every=1, device="cuda")
+    train(recipe, out_dir=str(tmp / "whole"), max_steps=4, **kw)
+    train(recipe, out_dir=str(tmp / "resumed"), max_steps=3, **kw)
+    train(recipe, out_dir=str(tmp / "resumed"), max_steps=4, **kw)
+    a, b = (np.load(tmp / d / "params_final.npz") for d in ("whole", "resumed"))
+    err = max(float(np.abs(a[k] - b[k]).max()) for k in a.files)
+    bits = all(np.array_equal(a[k], b[k]) for k in a.files)
+    la, lb = ([json.loads(ln) for ln in open(tmp / d / "metrics.jsonl")][-1]["loss"]
+              for d in ("whole", "resumed"))
+    rows_b = [json.loads(ln) for ln in open(tmp / "resumed" / "metrics.jsonl")]
+    rel = abs(la - lb) / abs(la)
+    rec = dict(loss_step4=la, loss_step4_resumed=lb, loss_rel_err=rel, param_max_abs_err=err,
+               bit_equal=bits, steps_logged=[r["step"] for r in rows_b],
+               ok=bool(rel <= 1e-6 and err <= 1e-6 and a.files == b.files
+                       and [r["step"] for r in rows_b] == [1, 2, 3, 4]))
+    log(f"phase 6 resume on the card: step 4 loss {la:.7g} uninterrupted vs {lb:.7g} resumed "
+        f"from the step-3 checkpoint (rel {rel:.2g}, tol 1e-6), parameters max |diff| {err:.3g} "
+        f"(tol 1e-6), bit-equal {bits} ok={rec['ok']}")
+    return rec
+
+
+def training_phase(torch, ops, counters, smi, tmp):
+    """Phase 6: the trainer on the card. Any failed check raises."""
+    from sylber_tpu_torch.models.hubert import matmul_precision
+
+    with matmul_precision("highest"):  # the plain versions' convs without TF32
+        shapes = training_shape_kernels(torch, ops)
+    for name in ("conv0_gn_gelu", "small_attention", "segment_pass1", "segment_pass2"):
+        for dt, r in shapes[name].items():
+            log(f"phase 6: {name} {dt} at the trainer's shape {r['shape']}: max_abs_err "
+                f"{r['max_abs_err']:.3g} (tol {r['tol']}) ok={r['ok']}  kernel_ms "
+                f"{r['ms']:.4f}  plain_ms {r['plain_ms']:.4f}  library_ms {r['library_ms']}  "
+                f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})  [{smi}]")
+    sb = shapes["segment_batch"]
+    log(f"phase 6: segment_batch at {sb['shape']} with a device-tensor norm threshold, under "
+        f"set_sync_debug_mode('error'): {sb['mismatches']} mismatches, feature err "
+        f"{sb['feature_err']:.3g}, {sb['segments']} segments ok={sb['ok']}")
+    bad = [n for n, r in shapes.items()
+           if not (r["ok"] if "ok" in r else all(x["ok"] for x in r.values()))]
+    if bad:
+        raise AssertionError(f"kernels disagree with their plain versions at the trainer's "
+                             f"shapes: {bad}")
+    runs = [training_run(torch, counters, "bf16_default_B100",
+                         stage2_recipe("bfloat16", "default", 100), tmp / "bf16", smi),
+            training_run(torch, counters, f"fp32_highest_B{FP32_BATCH}",
+                         stage2_recipe("float32", "highest", FP32_BATCH, FP32_REMAT),
+                         tmp / "fp32", smi)]
+    launches = {}
+    for r in runs:
+        idle = [k for k in ("conv0_gn_gelu", "small_attention", "segment_pass1",
+                            "segment_pass2") if r["launches_over_run"][k] == 0]
+        if idle:
+            raise AssertionError(f"{r['label']}: kernels of the training path never "
+                                 f"launched: {idle}")
+        for k, v in r["launches_over_run"].items():
+            launches[k] = launches.get(k, 0) + v
+    checks = [card_against_cpu_step(torch), resume_on_card(torch, tmp / "resume"),
+              remat_on_card(torch)]
+    if not all(c["ok"] for c in checks):
+        raise AssertionError(f"phase 6 checks failed: {checks}")
+    return dict(kernels=shapes, runs=runs, launches=launches, card_vs_cpu=checks[0],
+                resume=checks[1], remat=checks[2])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the full report as JSON to this path")
@@ -1285,6 +1695,11 @@ def main() -> int:
     log(f"phase 5: launches over the consumers' runs: {consumer_launches}  [{smi}]")
     launches = {k: v + consumer_launches[k] for k, v in launches.items()}
 
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        training = training_phase(torch, ops, counters, smi, Path(tmp))
+    log(f"phase 6: launches over the two training runs: {training['launches']}  [{smi}]")
+    launches = {k: v + training["launches"][k] for k, v in launches.items()}
+
     sources = {"conv0_gn_gelu": ("frontend.cu", "sylber_tpu/ops/pallas/frontend.py:122"),
                "small_attention": ("smallattn.cu", "sylber_tpu/ops/pallas/smallattn.py:78"),
                "flash_attention": ("flash.cu", "sylber_tpu/ops/pallas/flash.py:125"),
@@ -1324,6 +1739,17 @@ def main() -> int:
         entries[name]["consumer_shapes"] = [
             {k: e[k] for k in ("case", "shape", "mismatches", "feature_err", "ok")}
             for e in seg_edges if e["case"] in ("longform_B8_L1549", "streaming_B1_L199")]
+    # the trainer's shapes (phase 6): times, bounds and the plain versions there
+    keys = ("shape", "max_abs_err", "ms", "plain_ms", "library_ms", "eager_ms", "bound_ms",
+            "bound_by")
+    for name in ("conv0_gn_gelu", "small_attention", "segment_pass1", "segment_pass2"):
+        entries[name]["training_shapes"] = {
+            dt: {k: r[k] for k in keys if k in r} for dt, r in training["kernels"][name].items()}
+        entries[name]["training_launches"] = training["launches"][name]
+    entries["segment_pass1"]["training_shapes"]["segment_batch"] = training["kernels"][
+        "segment_batch"]
+    entries["flash_attention"]["training_shapes"] = None  # 5 s crops: L 250, small attention
+    entries["flash_attention"]["training_launches"] = training["launches"]["flash_attention"]
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         build_log = kernels.BUILD_DIR / "build.log"  # registers, shared memory, spills
@@ -1335,7 +1761,8 @@ def main() -> int:
                                                   segmentation_edges=seg_edges,
                                                   pass1_ties=ties,
                                                   shared_divisor=division,
-                                                  mini_ckpt=mini, consumers=consumers),
+                                                  mini_ckpt=mini, consumers=consumers,
+                                                  training=training),
                                              indent=1))
     log(json.dumps({"kernels": line}))
     log(smi)

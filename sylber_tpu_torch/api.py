@@ -24,7 +24,8 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from .io.checkpoint import load_params_npz, state_dict_from_jax_params
+from .data.device import pcm_normalize
+from .io.checkpoint import load_state_dict, state_dict_from_jax_params
 from .models.hubert import (HubertConfig, HubertModel, as_dtype,
                             feature_vector_attention_mask, init_weights,
                             matmul_precision)
@@ -103,29 +104,13 @@ class Segmenter:
             init_weights(model, torch.Generator().manual_seed(0))
         else:
             sd = (state_dict_from_jax_params(params) if params is not None
-                  else self._load_state_dict(model_ckpt, self.config.num_hidden_layers))
+                  else load_state_dict(model_ckpt, self.config.num_hidden_layers))
             # layers past num_hidden_layers are ignored, as the reference's
             # strict=False load does; a missing weight is an error
             missing = model.load_state_dict(sd, strict=False).missing_keys
             if missing:
                 raise KeyError(f"checkpoint lacks {missing}")
         self.model = model.to(self.device).eval()
-
-    @staticmethod
-    def _load_state_dict(model_ckpt: str, num_layers: int) -> Dict[str, torch.Tensor]:
-        path = Path(model_ckpt)
-        if path.is_dir():
-            raise NotImplementedError(
-                f"{model_ckpt}: Orbax checkpoint directories need JAX; save the "
-                "parameters with sylber_tpu.io.checkpoint.save_params_npz and "
-                "pass the .npz file")
-        if not path.exists():
-            raise FileNotFoundError(f"checkpoint {model_ckpt!r} not found")
-        if path.suffix == ".npz":
-            return state_dict_from_jax_params(load_params_npz(str(path)))
-        from .io.torch_convert import load_torch_checkpoint
-
-        return load_torch_checkpoint(str(path), num_hidden_layers=num_layers)
 
     @torch.inference_mode()
     def _forward_segment(self, wavs: torch.Tensor, attention_mask: torch.Tensor,
@@ -135,12 +120,7 @@ class Segmenter:
         ``wavs`` may be int16 PCM: it is then normalised on the device to
         zero mean and unit variance over the attended samples."""
         if wavs.dtype == torch.int16:
-            x = wavs.float()
-            m = attention_mask.float()
-            n = m.sum(-1, keepdim=True).clamp_min(1.0)
-            mean = (x * m).sum(-1, keepdim=True) / n
-            var = (((x - mean) * m) ** 2).sum(-1, keepdim=True) / n
-            wavs = (x - mean) / torch.sqrt(var + 1e-7) * m
+            wavs = pcm_normalize(wavs, attention_mask)
         hidden = self.model(wavs, attention_mask).float()
         frame_valid = feature_vector_attention_mask(
             self.config, attention_mask, hidden.shape[1]).bool()

@@ -1,15 +1,24 @@
-"""Weight bridge from the JAX package's parameter trees.
+"""Weight bridge to and from the JAX package's parameter trees, and the
+trainer's checkpoints.
 
 ``load_params_npz`` reads the single-file ``.npz`` format of
 ``sylber_tpu.io.checkpoint.save_params_npz`` (keys are '/'-joined tree
 paths); ``state_dict_from_jax_params`` turns such a tree into the state dict
-of :class:`sylber_tpu_torch.models.hubert.HubertModel`.
+of :class:`sylber_tpu_torch.models.hubert.HubertModel`, and
+``jax_params_from_state_dict`` / ``save_params_npz`` go the other way, so a
+model the port trains loads into either package's ``Segmenter``.
+:class:`TrainCheckpointManager` keeps the trainer's rolling step
+directories (``torch.save``), the port's counterpart of the JAX package's
+Orbax manager.
 """
 
 from __future__ import annotations
 
+import os
 import re
-from typing import Any, Dict, Mapping
+import shutil
+from pathlib import Path
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -67,3 +76,108 @@ def state_dict_from_jax_params(tree: Mapping[str, Any]) -> Dict[str, torch.Tenso
 
     walk(tree, "")
     return sd
+
+
+def jax_params_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The JAX ``HubertModel`` tree (nested dicts of float32 numpy arrays,
+    flax layouts) from the port's state dict: the inverse of
+    :func:`state_dict_from_jax_params`."""
+    tree: Dict[str, Any] = {}
+    for key, t in sd.items():
+        a = t.detach().float().cpu().numpy()
+        key = re.sub(r"^feature_extractor\.convs\.(\d+)\.", r"feature_extractor.conv_\1.", key)
+        key = re.sub(r"^layers\.(\d+)\.", r"layer_\1.", key)
+        *path, leaf = key.split(".")
+        if leaf == "weight":
+            if a.ndim == 2:      # Linear (out, in) -> Dense (in, out)
+                leaf, a = "kernel", a.T
+            elif a.ndim == 3:    # Conv1d (out, in/groups, k) -> (k, in/groups, out)
+                leaf, a = "kernel", np.transpose(a, (2, 1, 0))
+            else:                # LayerNorm / GroupNorm
+                leaf = "scale"
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(a)
+    return tree
+
+
+def save_params_npz(path: str, sd: Mapping[str, torch.Tensor]) -> None:
+    """The port's state dict as a JAX-layout float32 ``.npz`` (keys '/'-joined
+    tree paths), which ``sylber_tpu.io.checkpoint.load_params_npz`` and
+    :func:`load_params_npz` read."""
+    flat: Dict[str, np.ndarray] = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            key = f"{prefix}/{k}" if prefix else k
+            if isinstance(v, dict):
+                walk(v, key)
+            else:
+                flat[key] = v
+
+    walk(jax_params_from_state_dict(sd), "")
+    np.savez(path, **flat)  # float weights hardly compress; zlib would take seconds
+
+
+def load_state_dict(path: str, num_layers: int) -> Dict[str, torch.Tensor]:
+    """A HubertModel state dict from a JAX-layout ``.npz`` or a PyTorch
+    HF / ``sylber.ckpt`` state dict file (layers past ``num_layers``
+    dropped). An Orbax directory raises: reading one needs JAX."""
+    p = Path(path)
+    if p.is_dir():
+        raise NotImplementedError(
+            f"{path}: Orbax checkpoint directories need JAX; save the parameters "
+            "with sylber_tpu.io.checkpoint.save_params_npz and pass the .npz file")
+    if not p.exists():
+        raise FileNotFoundError(f"checkpoint {path!r} not found")
+    if p.suffix == ".npz":
+        return state_dict_from_jax_params(load_params_npz(str(p)))
+    from .torch_convert import load_torch_checkpoint
+
+    return load_torch_checkpoint(str(p), num_hidden_layers=num_layers)
+
+
+class TrainCheckpointManager:
+    """Rolling train-state checkpoints with resume.
+
+    A save writes ``<directory>/<step>/state.pt`` (``torch.save`` of a dict
+    of tensors, numbers and containers) through a temporary directory that
+    is renamed when complete, so a run killed during a save leaves no step
+    that ``latest_step`` would pick up. The ``max_to_keep`` newest steps are
+    kept. Saves are synchronous; the caller decides when one is due, so the
+    state is copied to the host only then.
+    """
+
+    def __init__(self, directory: str, max_to_keep: int = 5):
+        self.directory = Path(directory)
+        self.max_to_keep = max_to_keep
+        self.directory.mkdir(parents=True, exist_ok=True)
+
+    def steps(self):
+        return sorted(int(d.name) for d in self.directory.iterdir()
+                      if d.name.isdigit() and (d / "state.pt").exists())
+
+    @property
+    def latest_step(self) -> Optional[int]:
+        steps = self.steps()
+        return steps[-1] if steps else None
+
+    def save(self, step: int, state: Mapping[str, Any]) -> None:
+        tmp = self.directory / f".{step}.tmp"
+        shutil.rmtree(tmp, ignore_errors=True)
+        tmp.mkdir()
+        torch.save(state, tmp / "state.pt")
+        final = self.directory / str(step)
+        shutil.rmtree(final, ignore_errors=True)
+        os.replace(tmp, final)
+        for old in self.steps()[:-self.max_to_keep]:
+            shutil.rmtree(self.directory / str(old), ignore_errors=True)
+
+    def restore(self, step: Optional[int] = None) -> Dict[str, Any]:
+        """The saved dict of ``step`` (default the latest), on the CPU."""
+        step = self.latest_step if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint under {self.directory}")
+        return torch.load(self.directory / str(step) / "state.pt", map_location="cpu",
+                          weights_only=True)

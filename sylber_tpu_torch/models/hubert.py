@@ -1,4 +1,4 @@
-"""HuBERT encoder in PyTorch, inference only.
+"""HuBERT encoder in PyTorch.
 
 Port of ``sylber_tpu/models/hubert.py`` (itself HF ``modeling_hubert`` with
 ``do_stable_layer_norm=False``):
@@ -15,6 +15,17 @@ Port of ``sylber_tpu/models/hubert.py`` (itself HF ``modeling_hubert`` with
 Key padding reaches attention as per-item frame counts (``kv_len``). Linear
 layers and convs compute in the configured dtype from fp32 parameters, as
 flax ``Dense(dtype=...)`` does; LayerNorm statistics are fp32.
+
+The hand-written kernels (layer 0, attention) have no backward pass, as
+their TPU counterparts have none. So the model runs them only when autograd
+records nothing and the model is in eval mode (the Segmenter, the trainer's
+teacher). Otherwise (the trainer's student) layer 0 and the attention core
+are the differentiable torch ops that mirror the JAX package's XLA training
+path (:func:`conv0_layer_xla`, ``ops/attention.py::attention_xla``). In
+train mode the dropouts sit where the JAX model puts them, their masks drawn
+from generators seeded per call (see :meth:`HubertModel.forward`), and
+``remat`` recomputes each encoder layer in the backward pass
+(``torch.utils.checkpoint``) with the same masks.
 """
 
 from __future__ import annotations
@@ -28,8 +39,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import MultiHeadSelfAttention, linear
-from ..ops.frontend import KERNEL_SIZE, STRIDE, conv0_gn_gelu
+from torch.utils.checkpoint import checkpoint
+
+from ..ops.attention import Dropout, MultiHeadSelfAttention, linear
+from ..ops.frontend import KERNEL_SIZE, STRIDE, analytic_moments_plain, conv0_gn_gelu
 
 DType = Union[torch.dtype, str]
 
@@ -46,10 +59,11 @@ class HubertConfig:
     """Architecture hyper-parameters (hubert-base-ls960 defaults, 9 layers).
 
     The fields are those of ``sylber_tpu.models.hubert.HubertConfig``.
-    Dropout rates are kept for configuration compatibility; this port runs
-    inference only. ``frontend_l0_analytic`` selects nothing here: layer 0
-    always runs the fused kernel, which takes its GroupNorm moments from the
-    waveform (the analytic form, summed in fp64) and keeps the erf GELU.
+    Dropout rates apply in train mode. ``frontend_l0_analytic`` selects the
+    form of the differentiable layer 0 (None: analytic moments exactly where
+    ``frontend_dtype`` is not float32, as in JAX); the fused kernel of the
+    inference path always takes its moments from the waveform (summed in
+    fp64) and keeps the erf GELU.
     """
 
     hidden_size: int = 768
@@ -85,9 +99,8 @@ class HubertConfig:
     def __post_init__(self):
         object.__setattr__(self, "dtype", as_dtype(self.dtype))
         object.__setattr__(self, "frontend_dtype", as_dtype(self.frontend_dtype))
-        if self.int8_encoder or self.remat or self.fused_qkv:
-            raise NotImplementedError(
-                "int8_encoder, remat and fused_qkv are not ported yet")
+        if self.int8_encoder or self.fused_qkv:
+            raise NotImplementedError("int8_encoder and fused_qkv are not ported yet")
         if self.conv_bias or (self.conv_kernel[0], self.conv_stride[0]) != (
                 KERNEL_SIZE, STRIDE):
             raise NotImplementedError(
@@ -163,6 +176,47 @@ def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype: torch.dtype) -> torch.
                         ln.eps).to(dtype)
 
 
+def _analytic_l0_stats(x: torch.Tensor, w: torch.Tensor, eps: float):
+    """GroupNorm mean and inverse std of ``conv1d(x, w, stride=5)`` from the
+    input (JAX ``_analytic_l0_stats``), by the fused kernel's own formula
+    ``ops/frontend.py::analytic_moments_plain`` in fp64, returned in fp32.
+    The gradient reaches ``w`` through it."""
+    mean, var = analytic_moments_plain(x, w)
+    return mean.float(), torch.rsqrt(var.float() + eps)
+
+
+def conv0_layer_xla(x: torch.Tensor, w: torch.Tensor, gamma: torch.Tensor,
+                    beta: torch.Tensor, cfg: HubertConfig) -> torch.Tensor:
+    """Frontend layer 0, differentiable, as the JAX package's XLA training
+    path computes it (``sylber_tpu/models/hubert.py::ConvFeatureEncoder``):
+
+    - float32 (``frontend_l0_analytic`` off): the conv in fp32, flax's
+      GroupNorm (``E[y^2] - E[y]^2`` moments over time, clipped at 0;
+      ``(y - mean) * (rsqrt(var + eps) * gamma) + beta``), then exact GELU;
+    - analytic (the default where ``frontend_dtype`` is bf16): moments from
+      the input in fp32, the conv in ``frontend_dtype``, the affine folded
+      into a per-channel scale and offset in that dtype, tanh GELU there.
+
+    ``x`` (B, L) float32, ``w`` (D, 1, 10). Returns (B, D, T0) in
+    ``frontend_dtype``. This is not the fused kernel's plain version: that
+    one is ``ops/frontend.py::conv0_gn_gelu_plain``."""
+    eps, dt = cfg.layer_norm_eps, cfg.frontend_dtype
+    analytic = cfg.frontend_l0_analytic
+    if analytic is None:
+        analytic = dt != torch.float32
+    if analytic and x.shape[1] >= KERNEL_SIZE + STRIDE:
+        mean, inv = _analytic_l0_stats(x, w, eps)
+        y = F.conv1d(x[:, None].to(dt), w.to(dt), stride=STRIDE)
+        scale = (inv * gamma).to(dt)[..., None]
+        off = (beta - mean * inv * gamma).to(dt)[..., None]
+        return _gelu(y * scale + off, dt != torch.float32)
+    y = F.conv1d(x[:, None].float(), w, stride=STRIDE)
+    mean = y.mean(-1, keepdim=True)
+    var = ((y * y).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
+    y = (y - mean) * (torch.rsqrt(var + eps) * gamma[:, None]) + beta[:, None]
+    return _gelu(y, False).to(dt)
+
+
 class ConvFeatureEncoder(nn.Module):
     """Waveform frontend: 7 strided Conv1d layers, GroupNorm on layer 0."""
 
@@ -177,12 +231,16 @@ class ConvFeatureEncoder(nn.Module):
         self.group_norm = nn.GroupNorm(cfg.conv_dim[0], cfg.conv_dim[0],
                                        eps=cfg.layer_norm_eps)
 
-    def forward(self, wav: torch.Tensor) -> torch.Tensor:
-        """(B, L) float32 -> (B, T, conv_dim[-1]) float32."""
+    def forward(self, wav: torch.Tensor, differentiable: bool = False) -> torch.Tensor:
+        """(B, L) float32 -> (B, T, conv_dim[-1]) float32; layer 0 through
+        the fused kernel unless ``differentiable``."""
         cfg, dt = self.cfg, self.cfg.frontend_dtype
-        x = conv0_gn_gelu(wav.float().contiguous(), self.convs[0].weight,
-                          self.group_norm.weight, self.group_norm.bias,
-                          eps=cfg.layer_norm_eps, out_dtype=dt)
+        args = (self.convs[0].weight, self.group_norm.weight, self.group_norm.bias)
+        if differentiable:
+            x = conv0_layer_xla(wav.float(), *args, cfg)
+        else:
+            x = conv0_gn_gelu(wav.float().contiguous(), *args,
+                              eps=cfg.layer_norm_eps, out_dtype=dt)
         approx = cfg.gelu_approx_for(dt)
         for conv in self.convs[1:]:
             x = _gelu(F.conv1d(x, conv.weight.to(dt), stride=conv.stride), approx)
@@ -203,6 +261,13 @@ class FeatureProjection(nn.Module):
         return linear(x, self.projection, self.cfg.dtype)
 
 
+# Frames (batch x length) from which the bf16 positional conv on CUDA runs as
+# an fp32 conv on rounded tensors also without autograd (PositionalConvEmbedding).
+# On an H100 with torch 2.11 cuDNN's bf16 kernel is about as fast or faster up to
+# 24,000 frames and 6-7x slower from 24,784 on (scripts/torch_posconv_probe.py).
+POS_CONV_FP32_FRAMES = 24_576
+
+
 class PositionalConvEmbedding(nn.Module):
     """Grouped Conv1d positional embedding (weight norm folded at load)."""
 
@@ -214,12 +279,30 @@ class PositionalConvEmbedding(nn.Module):
                               groups=cfg.num_conv_pos_embedding_groups)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, T, C) -> (B, T, C) in ``cfg.dtype``."""
-        dt = self.cfg.dtype
-        out = F.conv1d(x.transpose(1, 2).to(dt), self.conv.weight.to(dt),
-                       self.conv.bias.to(dt), padding=self.conv.padding,
-                       groups=self.conv.groups)
-        if self.conv.kernel_size[0] % 2 == 0:
+        """(B, T, C) -> (B, T, C) in ``cfg.dtype``.
+
+        In bf16 the conv takes one of two forms with the same rounding of
+        inputs, weight and bias: cuDNN's bf16 grouped conv, or an fp32 conv
+        on the bf16-rounded tensors (bf16 values are exact in TF32, so under
+        ``"default"`` precision this is the bf16 conv with fp32 sums). cuDNN's
+        form runs only on CUDA without autograd and below
+        ``POS_CONV_FP32_FRAMES`` frames (batch x length): past them, and in
+        its backward above all, it is far slower
+        (``scripts/torch_posconv_probe.py``; ``PERF.md``, section 6). On the
+        CPU the fp32 form always runs: oneDNN's bf16 grouped conv gives wrong
+        sums in torch 2.13's CPU build."""
+        dt, conv = self.cfg.dtype, self.conv
+        records = torch.is_grad_enabled() and (x.requires_grad or conv.weight.requires_grad)
+        if (dt != torch.float32 and x.is_cuda and not records
+                and x.shape[0] * x.shape[1] < POS_CONV_FP32_FRAMES):
+            out = F.conv1d(x.transpose(1, 2).to(dt), conv.weight.to(dt), conv.bias.to(dt),
+                           padding=conv.padding, groups=conv.groups)
+        else:
+            rounded = lambda t: t.to(dt).float()  # noqa: E731
+            out = F.conv1d(rounded(x.transpose(1, 2)), rounded(conv.weight),
+                           rounded(conv.bias), padding=conv.padding,
+                           groups=conv.groups).to(dt)
+        if conv.kernel_size[0] % 2 == 0:
             out = out[:, :, :-1]  # HF SamePadLayer: drop the trailing frame
         return _gelu(out, self.cfg.gelu_approximate).transpose(1, 2)
 
@@ -237,12 +320,20 @@ class EncoderLayer(nn.Module):
         self.output_dense = nn.Linear(cfg.intermediate_size, d)
         self.final_layer_norm = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
 
-    def forward(self, x: torch.Tensor, kv_len: torch.Tensor) -> torch.Tensor:
-        dt = self.cfg.dtype
-        x = x + self.attention(x, kv_len, dt)
+    def forward(self, x: torch.Tensor, kv_len: torch.Tensor, seed: Optional[int] = None,
+                differentiable: bool = False) -> torch.Tensor:
+        """``seed`` set: train mode, the dropout masks drawn from a generator
+        seeded with it (so a recomputation draws them again);
+        ``differentiable``: the attention core in torch ops, not the kernel."""
+        cfg, dt = self.cfg, self.cfg.dtype
+        drop = Dropout(seed, x.device) if seed is not None else Dropout.OFF
+        attn = self.attention(x, kv_len, dt, differentiable=differentiable,
+                              dropout=drop, dropout_rate=cfg.attention_dropout)
+        x = x + drop(attn, cfg.hidden_dropout)
         x = _layer_norm(x, self.layer_norm, dt)
-        h = _gelu(linear(x, self.intermediate_dense, dt), self.cfg.gelu_approximate)
-        x = x + linear(h, self.output_dense, dt)
+        h = _gelu(linear(x, self.intermediate_dense, dt), cfg.gelu_approximate)
+        h = drop(h, cfg.activation_dropout)
+        x = x + drop(linear(h, self.output_dense, dt), cfg.hidden_dropout)
         return _layer_norm(x, self.final_layer_norm, dt)
 
 
@@ -262,16 +353,28 @@ class HubertModel(nn.Module):
 
     def forward(self, input_values: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
-                mask_time_indices: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Returns the last hidden state (B, T, hidden) in ``cfg.dtype``."""
-        with matmul_precision(self.cfg.precision):
-            return self._forward(input_values, attention_mask, mask_time_indices)
+                mask_time_indices: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Returns the last hidden state (B, T, hidden) in ``cfg.dtype``.
 
-    def _forward(self, input_values, attention_mask, mask_time_indices):
+        In train mode the dropout masks come from device generators seeded
+        with one seed per encoder layer and one for the rest, drawn from
+        ``generator`` (a CPU generator, so drawing reads nothing from the
+        device; the default CPU generator when None)."""
+        with matmul_precision(self.cfg.precision):
+            return self._forward(input_values, attention_mask, mask_time_indices,
+                                 generator)
+
+    def _forward(self, input_values, attention_mask, mask_time_indices, generator):
         cfg = self.cfg
-        feats = self.feature_extractor(input_values)
+        differentiable = self.training or torch.is_grad_enabled()
+        seeds = [None] * (cfg.num_hidden_layers + 1)
+        if self.training:
+            seeds = torch.randint(0, 2 ** 62, (len(seeds),), generator=generator).tolist()
+        drop = Dropout(seeds[0], input_values.device) if self.training else Dropout.OFF
+        feats = self.feature_extractor(input_values, differentiable)
         B, T, _ = feats.shape
-        x = self.feature_projection(feats.to(cfg.dtype))
+        x = drop(self.feature_projection(feats.to(cfg.dtype)), cfg.feat_proj_dropout)
         if mask_time_indices is not None:
             x = torch.where(mask_time_indices[..., None],
                             self.masked_spec_embed.to(x.dtype), x)
@@ -282,9 +385,14 @@ class HubertModel(nn.Module):
         else:
             kv_len = torch.full((B,), T, dtype=torch.int32, device=x.device)
         x = x + self.pos_conv_embed(x)
-        x = _layer_norm(x, self.encoder_layer_norm, cfg.dtype)
-        for layer in self.layers:
-            x = layer(x, kv_len)
+        x = drop(_layer_norm(x, self.encoder_layer_norm, cfg.dtype), cfg.hidden_dropout)
+        remat = cfg.remat and torch.is_grad_enabled()
+        for layer, seed in zip(self.layers, seeds[1:]):
+            if remat:
+                x = checkpoint(layer, x, kv_len, seed, differentiable,
+                               use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = layer(x, kv_len, seed, differentiable)
         return x
 
 

@@ -24,6 +24,12 @@ a device-to-host sync; the kernel has none).
 The reference quirk is kept: on a mid boundary the frame count carries on
 instead of resetting (``segment_np.segment_oracle``). Shapes follow the JAX
 code: ``MAX_SEGS = L + 1``; all arithmetic is fp32 with 1e-8 inside each norm.
+
+The norm threshold may be a 0-d tensor on the states' device (the trainer's
+thresholder): it is only compared on the device. The merge threshold reaches
+the kernels as a launch argument, so on a CUDA tensor it must be a host
+number (a float or a CPU tensor); a device tensor raises instead of being
+read back, which would wait for the device.
 """
 
 from __future__ import annotations
@@ -59,6 +65,15 @@ class Pass1Events(NamedTuple):
 
 def frame_norms(states: torch.Tensor) -> torch.Tensor:
     return torch.sqrt((states.float() ** 2).sum(-1) + 1e-8)
+
+
+def host_threshold(name: str, value) -> float:
+    """``value`` as a float, refusing a tensor on a device: reading it would
+    wait for the device, and the kernels take the threshold as an argument."""
+    if isinstance(value, torch.Tensor) and value.device.type != "cpu":
+        raise ValueError(f"{name}: the merge threshold must be a host number, got a "
+                         f"tensor on {value.device} (reading it would sync the device)")
+    return float(value)
 
 
 def _vec_norm(x: torch.Tensor) -> torch.Tensor:
@@ -119,7 +134,7 @@ def segment_pass1(states: torch.Tensor, voiced: torch.Tensor,
         raise ValueError(f"segment_pass1: voiced must be bool {(B, L)}, got "
                          f"{voiced.dtype} {tuple(voiced.shape)}")
     require_cuda("segment_pass1", states, voiced)
-    return _launch_pass1(states, voiced, merge_threshold)
+    return _launch_pass1(states, voiced, host_threshold("segment_pass1", merge_threshold))
 
 
 def _launch_pass1(states, voiced, merge_threshold) -> Pass1Events:
@@ -136,7 +151,7 @@ def _launch_pass1(states, voiced, merge_threshold) -> Pass1Events:
         states.data_ptr(), voiced.data_ptr(), close.data_ptr(),
         boundary.data_ptr(), seg_start.data_ptr(), final_start.data_ptr(),
         segs.data_ptr(), nseg.data_ptr(), mids.data_ptr(), nmid.data_ptr(),
-        B, L, d, float(merge_threshold), stream_of(states)),
+        B, L, d, merge_threshold, stream_of(states)),
         "segment_pass1")
     segment_pass1.launches += 1
     return Pass1Events(close, boundary, seg_start, final_start, segs, nseg, mids, nmid)
@@ -269,7 +284,8 @@ def segment_pass2(states: torch.Tensor, norms: torch.Tensor, P: torch.Tensor,
             raise ValueError(f"segment_pass2: {name} must be {dtype} {shape}, got "
                              f"{t.dtype} {tuple(t.shape)}")
     require_cuda("segment_pass2", states, norms, P, segs, nseg, mids, nmid)
-    return _launch_pass2(states, norms, P, segs, nseg, mids, nmid, merge_threshold)
+    return _launch_pass2(states, norms, P, segs, nseg, mids, nmid,
+                         host_threshold("segment_pass2", merge_threshold))
 
 
 def _launch_pass2(states, norms, P, segs, nseg, mids, nmid, merge_threshold):
@@ -283,7 +299,7 @@ def _launch_pass2(states, norms, P, segs, nseg, mids, nmid, merge_threshold):
         states.data_ptr(), norms.data_ptr(), P.data_ptr(), segs.data_ptr(),
         nseg.data_ptr(), mids.data_ptr(), nmid.data_ptr(), work.data_ptr(),
         win.data_ptr(), out.data_ptr(), nout.data_ptr(), B, L, d,
-        float(merge_threshold), stream_of(states)), "segment_pass2")
+        merge_threshold, stream_of(states)), "segment_pass2")
     segment_pass2.launches += 1
     return out, nout
 
@@ -299,12 +315,13 @@ def _segment_means(P: torch.Tensor, segments: torch.Tensor) -> torch.Tensor:
     return (P[bidx, e] - P[bidx, s]) / length[..., None]
 
 
-def segment_batch(states: torch.Tensor, norm_threshold: float,
-                  merge_threshold: float,
+def segment_batch(states: torch.Tensor, norm_threshold, merge_threshold,
                   frame_valid: Optional[torch.Tensor] = None,
                   norms: Optional[torch.Tensor] = None) -> SegmentResult:
     """Segment a batch of frame features ``states`` (B, L, d).
 
+    ``norm_threshold``: a number or a 0-d tensor on the states' device;
+    ``merge_threshold``: a number (or, on the CPU, any scalar tensor).
     ``frame_valid`` (B, L) bool marks padded frames False; they count as
     silence, so batched results equal single-utterance results. Returns the
     compacted, order-preserved segments and their mean-pooled features.

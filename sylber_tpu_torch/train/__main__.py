@@ -1,0 +1,53 @@
+"""Training entry point of the port:
+
+    python -m sylber_tpu_torch.train --config configs/sylber_base.yaml \\
+        [--out-dir DIR] [--max-steps N] [--log-every N] [--ckpt-every N] \\
+        [--val-every N] [--device cpu]
+
+The same YAML recipes as the JAX package's ``train.py``. ``speech_model_ckpt``
+(encoder initialisation) or ``model_ckpt`` (the previous stage's parameters)
+take a PyTorch state dict (HF ``HubertModel`` or ``sylber.ckpt``) or a
+JAX-layout ``.npz``; an Orbax directory raises. Runs on the GPU unless
+``--device cpu`` is given, and refuses to start without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="python -m sylber_tpu_torch.train")
+    ap.add_argument("--config", required=True)
+    ap.add_argument("--out-dir", default=None)
+    ap.add_argument("--max-steps", type=int, default=None)
+    ap.add_argument("--log-every", type=int, default=50)
+    ap.add_argument("--ckpt-every", type=int, default=1000)
+    ap.add_argument("--val-every", type=int, default=None)
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    import yaml
+
+    from ..api import resolve_device
+    from ..io.checkpoint import load_state_dict
+    from .loop import train
+
+    device = resolve_device(args.device)
+    with open(args.config) as f:
+        cfg = yaml.safe_load(f)
+    path = cfg.get("speech_model_ckpt") or cfg.get("model_ckpt")
+    init = None
+    if path:
+        init = load_state_dict(path, cfg.get("model", {}).get("encoding_layer", 9))
+    train(cfg, out_dir=args.out_dir or f"runs/{cfg.get('name', 'sylber')}",
+          max_steps=args.max_steps or cfg.get("max_steps"), log_every=args.log_every,
+          ckpt_every=args.ckpt_every, val_every=args.val_every,
+          limit_val_batches=cfg.get("limit_val_batches", 100), init_params=init,
+          device=device)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,38 @@
+"""EMA teacher over a dict of parameter tensors.
+
+Port of ``sylber_tpu/train/ema.py``. The teacher starts as a copy of the
+student; ``fp32_shadow`` keeps it in float32 whatever the student's dtype,
+so that increments of ``(1 - decay) * param`` do not vanish in bf16. The
+update is done in place (``torch._foreach_*``), where JAX builds a new tree.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+Params = Dict[str, torch.Tensor]
+
+
+@torch.no_grad()
+def ema_init(params: Params, fp32_shadow: bool = False) -> Params:
+    """A detached copy of ``params`` (float leaves in float32 with the shadow)."""
+    return {k: (p.detach().float().clone() if fp32_shadow and p.is_floating_point()
+                else p.detach().clone()) for k, p in params.items()}
+
+
+@torch.no_grad()
+def ema_update(ema: Params, params: Params, decay: float) -> None:
+    """``ema = ema * decay + param * (1 - decay)``, in place, in each EMA
+    leaf's dtype."""
+    keys = [k for k, e in ema.items() if e.is_floating_point()]
+    e = [ema[k] for k in keys]
+    torch._foreach_mul_(e, decay)
+    torch._foreach_add_(e, [params[k].detach().to(ema[k].dtype) * (1.0 - decay)
+                            for k in keys])
+
+
+def ema_restore(ema: Params, params_like: Params) -> Params:
+    """The EMA leaves cast back to the student's dtypes."""
+    return {k: e.to(params_like[k].dtype) for k, e in ema.items()}

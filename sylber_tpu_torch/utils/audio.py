@@ -1,7 +1,10 @@
-"""Audio loading for inference: WAV read, resample to 16 kHz, normalise.
+"""Audio loading: WAV and FLAC read, resample to 16 kHz, normalise.
 
-Port of ``sylber_tpu/utils/audio.py`` for RIFF WAV files. FLAC and OGG
-decoding are not ported yet (see ROADMAP.md); such files raise ValueError.
+Port of ``sylber_tpu/utils/audio.py``. The container is told by its magic
+bytes: RIFF WAV through ``scipy.io.wavfile``, FLAC through the port's own
+pure-Python decoder (``utils/flac.py``). OGG/Vorbis and anything else
+raise ValueError: the JAX package reads them through libsndfile, which the
+port does not use yet (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -15,13 +18,29 @@ import numpy as np
 TARGET_SR = 16000
 
 
+def _load_flac(path: str | Path) -> Tuple[np.ndarray, int]:
+    from .flac import FlacError, decode_flac
+
+    with open(path, "rb") as f:
+        data = f.read()
+    try:
+        pcm, sr, bps = decode_flac(data)
+    except FlacError as e:
+        raise FlacError(f"{path}: {e}") from e
+    return pcm.astype(np.float32) / float(1 << (bps - 1)), sr
+
+
 def load_wav(path: str | Path) -> Tuple[np.ndarray, int]:
-    """Read a WAV file -> (float32 (C, L) in [-1, 1], sample_rate)."""
+    """Read a WAV or FLAC file -> (float32 (C, L) in [-1, 1], sample_rate)."""
     with open(path, "rb") as f:
         magic = f.read(4)
+    if magic == b"fLaC":
+        return _load_flac(path)
     if magic != b"RIFF":
-        raise ValueError(f"{path}: container {magic!r} is not supported by "
-                         "sylber_tpu_torch yet (WAV only)")
+        kind = "OGG" if magic == b"OggS" else f"container {magic!r}"
+        raise ValueError(f"{path}: {kind} is not supported by sylber_tpu_torch: it "
+                         "decodes WAV and FLAC; OGG/Vorbis needs libsndfile, which "
+                         "the port does not use yet")
     from scipy.io import wavfile
 
     sr, data = wavfile.read(str(path))

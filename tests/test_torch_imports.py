@@ -30,7 +30,11 @@ torch.cuda.is_available = lambda: False  # as on a machine with no GPU
 from sylber_tpu_torch import Segmenter
 from sylber_tpu_torch.longform import LongFormSegmenter
 from sylber_tpu_torch.quantizer import KMQuantizer
-for make in (lambda: LongFormSegmenter(Segmenter()), lambda: KMQuantizer([[0.0, 1.0]])):
+from sylber_tpu_torch.train.loop import train
+from sylber_tpu_torch.train.__main__ import main as train_cli
+for make in (lambda: LongFormSegmenter(Segmenter()), lambda: KMQuantizer([[0.0, 1.0]]),
+             lambda: train({"data": {"synthetic": True}}, out_dir="/nonexistent"),
+             lambda: train_cli(["--config", "/nonexistent.yaml"])):
     try:
         make()
     except RuntimeError as e:
@@ -49,4 +53,5 @@ def test_port_imports_no_jax_and_needs_a_gpu_or_cpu_choice():
     count, ok = run.stdout.split("\n")[:2]
     assert ok == "ok"
     # the modules this test must reach, whatever else the package holds
-    assert int(count.split()[0]) >= 20, count
+    # (the trainer's train/, data/ and utils/ modules included)
+    assert int(count.split()[0]) >= 36, count
