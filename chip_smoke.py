@@ -61,7 +61,24 @@ Phases, each of which fails the script when it fails:
    under ``set_sync_debug_mode("error")``, a profiled step and the step in
    parts; one stage-2 step of ``mini_ckpt.npz`` on the card against the CPU;
    a run resumed from its step-3 checkpoint against an uninterrupted one;
-   and ``remat`` against no remat with dropout on.
+   and ``remat`` against no remat with dropout on;
+7. the resynthesis chain (``SegmentSynthesis`` -> ``SparcDecoder``): both
+   attention kernels at the voicebox regressor's shapes and softmax scale
+   of 10 (small at B8 H8 L265 D64, flash at B1 H8 L1015 D64) against their
+   plain versions, with SDPA timed; then at full width on seeded random
+   weights (``configs/sylber_resynthesis.yaml``, ``SparcDecoderConfig()``)
+   ``resynthesize`` + ``decode_audio`` on 8 x 5 s and 1 x 20 s, midpoint
+   with 5 steps at ``cond_scale`` 1 and 1.5, fp32 under "highest" and
+   "default" precision: the wav -> wav real-time factor of five calls, the
+   milliseconds of encoder + segmentation, conditioning, sampler and
+   vocoder, the sampler's launches (and no host sync in it, under
+   ``set_sync_debug_mode("error")``), device busy and peak memory; every
+   launch counter from 0 and each kernel must launch; then the trained
+   mini fixtures on the card against the CPU (``mini_synth`` wav and
+   feature paths, midpoint and tsit5; the explicit-pitch
+   ``mini_synth_rich_pitch``; the token path of ``mini_vq_synth`` +
+   ``mini_vq_tokenizer``; ``mini_vocoder``'s waveform and its log-mel).
+   ``--only-resynthesis`` runs phases 1 and 7 alone and prints no result.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit
 (``nvidia-smi``), and as its last line
@@ -1593,9 +1610,396 @@ def training_phase(torch, ops, counters, smi, tmp):
                 resume=checks[1], remat=checks[2])
 
 
+# ---------------------------------------------------------------- phase 7
+
+# fp32 attention at the regressor's softmax scale of 10 after QK-RMSNorm
+# (|q| = |k| = 8): scores reach +-640, so their float32 rounding, and the
+# exponent's, is 80 times that of the encoder's unit-scale scores
+REGRESSOR_ATTN_TOL = 1e-4
+
+
+def regressor_attention_records(torch, ops):
+    """Both attention kernels at the regressor's shapes, fp32, scale 10,
+    every key valid (no mask at inference), on (B, H, L, D) views of
+    (B, L, H, D) memory with |q| = |k| = 8 as QK-RMSNorm leaves them: the
+    small kernel at B8 H8 L265 D64 (8 x 5 s: 249 frames + 16 registers) and
+    flash at B1 H8 L1015 D64 (20 s: 999 + 16); against the plain versions,
+    times, bounds and SDPA with the same scale."""
+    F = torch.nn.functional
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    out = {}
+    for name, B, L, fn, plain_fn in (
+            ("small_attention", 8, 265, ops.smallattn.small_attention,
+             ops.smallattn.small_attention_plain),
+            ("flash_attention", 1, 1015, ops.flash.flash_attention,
+             ops.flash.flash_attention_plain)):
+        H, D, scale = 8, 64, 10.0
+        q, k, v = (torch.randn(B, L, H, D, device=dev, generator=gen).transpose(1, 2)
+                   for _ in range(3))
+        q, k = (8.0 * t / t.norm(dim=-1, keepdim=True) for t in (q, k))
+        lens = torch.full((B,), L, dtype=torch.int32, device=dev)
+        run = lambda: fn(q, k, v, lens, scale)  # noqa: E731
+        plain = lambda: plain_fn(q, k, v, lens, scale)  # noqa: E731
+        library = lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)  # noqa: E731
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        ok = bool(torch.isfinite(got).all()) and torch.allclose(
+            got, want, rtol=REGRESSOR_ATTN_TOL, atol=REGRESSOR_ATTN_TOL)
+        nbytes = 4 * B * L * H * D * 4 + 4 * B
+        b_ms, b_by = bound_ms(nbytes, 4.0 * H * D * L * L * B, "float32")
+        out[name] = {"float32": dict(
+            max_abs_err=err, tol=REGRESSOR_ATTN_TOL, ok=bool(ok), scale=scale,
+            ms=graph_time_ms(torch, run, 20), plain_ms=graph_time_ms(torch, plain, 5),
+            library_ms=graph_time_ms(torch, library, 20), eager_ms=time_ms(torch, run, 20),
+            bound_ms=b_ms, bound_by=b_by, shape=[B, H, L, D])}
+    return out
+
+
+def resynthesis_parts_ms(torch, synth, vocoder, wav, mask, cond_scale, spk):
+    """One wav -> wav call in parts, timed by CUDA events: encoder +
+    segmentation, conditioning (fill + input MLP), sampler, vocoder."""
+    from sylber_tpu_torch.models.hubert import feature_vector_attention_mask, matmul_precision
+    from sylber_tpu_torch.ops.segment import averaged_target_fill, segment_batch
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    with torch.inference_mode():
+        ev[0].record()
+        hidden = synth.hubert(wav, mask).float()
+        fv = feature_vector_attention_mask(synth.config.hubert, mask, hidden.shape[1]).bool()
+        with matmul_precision("highest"):
+            res = segment_batch(hidden, synth.default_normthreshold, 0.8, frame_valid=fv)
+        ev[1].record()
+        cond = synth.cond_from_features(averaged_target_fill(hidden, res.segments,
+                                                             res.num_segments), quantize=False)
+        ev[2].record()
+        art = synth.sample(cond, 5, cond_scale=cond_scale)
+        ev[3].record()
+        vocoder.waveform(art, spk)
+        ev[4].record()
+    torch.cuda.synchronize()
+    names = ("encoder_segmentation", "conditioning", "sampler", "vocoder")
+    return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}, cond
+
+
+def check_resynthesis_outputs(art, segs, audio, wavs, cfg):
+    for i, w in enumerate(wavs):
+        t = cfg.hubert.feat_extract_output_length(len(w))
+        assert art.shape[1:] == (t, 14) and np.isfinite(art[i]).all(), art.shape
+        seg = segs[i]
+        assert len(seg) and (seg[:, 0] < seg[:, 1]).all() and seg.max() <= t
+        assert audio.shape[1] == t * 320 and np.isfinite(audio[i]).all()
+        assert np.abs(audio[i]).max() <= 1.0
+
+
+def resynthesis_full_width(torch, counters, smi):
+    """Full width, seeded random weights (``configs/sylber_resynthesis.yaml``
+    + ``SparcDecoderConfig()``): resynthesize + decode_audio on 8 x 5 s and
+    1 x 20 s, midpoint with 5 steps (8 regressor calls), cond_scale 1 and
+    1.5, fp32 under "highest" and "default" (TF32) precision. Every launch
+    counter from 0; each kernel of the path must launch."""
+    import dataclasses
+    import warnings
+
+    import yaml
+
+    from sylber_tpu_torch.synthesis import SegmentSynthesis, SynthesisConfig
+    from sylber_tpu_torch.vocoder import SparcDecoder
+
+    yaml_cfg = yaml.safe_load((ROOT / "configs" / "sylber_resynthesis.yaml").read_text())
+    base = SynthesisConfig.from_yaml_dict(yaml_cfg)
+    rng = np.random.RandomState(7)
+    batches = {"8x5s": [speechlike(rng, 5 * 16000) for _ in range(8)],
+               "1x20s": [speechlike(rng, 20 * 16000)]}
+    dev = torch.device("cuda")
+    runs = []
+    for fn in counters:
+        fn.launches = 0
+    for precision in ("highest", "default"):
+        cfg = dataclasses.replace(
+            base, hubert=dataclasses.replace(base.hubert, precision=precision),
+            regressor=dataclasses.replace(base.regressor, precision=precision))
+        synth = SegmentSynthesis(config=cfg, thresholder_configs=yaml_cfg["thresholder_configs"],
+                                 device=dev)
+        vocoder = SparcDecoder(device=dev, precision=precision)
+        for bname, wavs in batches.items():
+            wav_np = np.stack(wavs)
+            spk = np.zeros((len(wavs), 64), np.float32)
+            wav = torch.from_numpy(wav_np).to(dev)
+            mask = torch.ones(wav.shape, dtype=torch.int32, device=dev)
+            audio_s = wav_np.size / 16000.0
+            for cs in (1.0, 1.5):
+                def call():
+                    art, segs = synth.resynthesize(input_values=wav_np, steps=5, cond_scale=cs)
+                    with warnings.catch_warnings():
+                        warnings.simplefilter("ignore")  # random-init vocoder: noise, not speech
+                        return art, segs, synth.decode_audio(art, spk, vocoder=vocoder)
+                call()  # warm-up: cuDNN plans, cuBLAS handles
+                torch.cuda.synchronize()
+                walls = []
+                for _ in range(5):
+                    t0 = time.perf_counter()
+                    art, segs, audio = call()
+                    walls.append(time.perf_counter() - t0)
+                check_resynthesis_outputs(art, segs, audio, wavs, cfg)
+                rtfx = sorted(audio_s / w for w in walls)
+                parts, cond = resynthesis_parts_ms(torch, synth, vocoder, wav, mask, cs,
+                                                   torch.from_numpy(spk).to(dev))
+                sampler = lambda: synth.sample(cond, 5, cond_scale=cs)  # noqa: E731
+                forbid_host_syncs(torch, sampler)()
+                _, sampler_launches = count_launches(torch, sampler)
+                torch.cuda.reset_peak_memory_stats()
+                call()
+                peak = torch.cuda.max_memory_allocated()
+                prof = profile(torch, call)
+                runs.append(dict(precision=precision, batch=bname, cond_scale=cs,
+                                 audio_s=audio_s, wall_s=walls, rtfx=rtfx[2],
+                                 rtfx_min=rtfx[0], rtfx_max=rtfx[-1], parts_ms=parts,
+                                 sampler_launches=sampler_launches,
+                                 segments=int(sum(len(x) for x in segs)),
+                                 max_memory_allocated=peak, profile=prof))
+                log(f"phase 7 full width {precision} {bname} cond_scale {cs}: {audio_s:.0f} s "
+                    f"audio, wav -> wav RTFx median of 5 {rtfx[2]:.1f} (min {rtfx[0]:.1f}, max "
+                    f"{rtfx[-1]:.1f}); parts ms " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                                             parts.items())
+                    + f"; sampler (8 regressor calls{', 2B rows' if cs != 1.0 else ''}): "
+                    f"{sampler_launches} launches, no host sync; profiled call: device busy "
+                    f"{prof['device_ms']:.1f} of {prof['wall_ms']:.1f} ms, {prof['launches']} "
+                    f"launches; max_memory_allocated {peak / 2 ** 30:.2f} GiB; top: "
+                    + ", ".join(f"{k} {v:.1f} ms" for k, v in prof["top_ms"][:5])
+                    + f"  [{smi}]")
+        del synth, vocoder
+        torch.cuda.empty_cache()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    idle = [n for n, c in launches.items() if c == 0]
+    if idle:
+        raise AssertionError(f"kernels never launched on the resynthesis path: {idle}")
+    return runs, launches
+
+
+def _mini_synth(torch, name, device, quantizer=None):
+    """A SegmentSynthesis of a trained mini fixture on ``device``, fp32 at
+    "highest" precision on both sides, and its metadata's model block."""
+    import dataclasses
+
+    from sylber_tpu_torch.io.checkpoint import load_params_npz
+    from sylber_tpu_torch.synthesis import SegmentSynthesis, synthesis_config_from_dict
+
+    mc = json.loads((FIXTURES / f"{name}.json").read_text())["config"]["model"]
+    cfg = synthesis_config_from_dict(mc)
+    cfg = dataclasses.replace(cfg, regressor=dataclasses.replace(cfg.regressor,
+                                                                 precision="highest"))
+    params = {"hubert": load_params_npz(str(FIXTURES / "mini_ckpt.npz")),
+              **load_params_npz(str(FIXTURES / f"{name}.npz"))}
+    return SegmentSynthesis(config=cfg, params=params, quantizer=quantizer,
+                            device=device), mc
+
+
+def mini_corpus(n, seconds, seed, style="v1"):
+    """(wav, art) utterances as the JAX trainer's synthesis corpus builds
+    them: zero mean, unit variance, 160 samples of silence each side."""
+    from sylber_tpu_torch.data.dataset import _zero_mean_unit_var
+    from sylber_tpu_torch.data.synthetic import synth_utterance
+
+    rng = np.random.RandomState(seed)
+    n_samples = int(seconds * 16000) // 320 * 320
+    wavs, arts = [], []
+    for _ in range(n):
+        wav, _segs, art = synth_utterance(rng, n_samples, return_art=True, style=style)
+        pad = np.zeros(160, np.float32)
+        wavs.append(np.concatenate([pad, _zero_mean_unit_var(wav), pad]))
+        arts.append(art)
+    return np.stack(wavs), np.stack(arts)
+
+
+def rel_err(a, b):
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-12))
+
+
+def segment_tokens(torch, synth, wav, nt):
+    """The tokens and features of a wav batch's valid segments, (n, codes)
+    and (n, d) on the host, as the wav path computes them (the quantizer
+    takes the whole (B, MS, d) batch: the distance matmul's shape sets its
+    rounding)."""
+    from sylber_tpu_torch.models.hubert import feature_vector_attention_mask, matmul_precision
+    from sylber_tpu_torch.ops.segment import segment_batch
+
+    with torch.inference_mode():
+        w = torch.from_numpy(wav).to(synth.device)
+        mask = torch.ones(w.shape, dtype=torch.int32, device=synth.device)
+        hidden = synth.hubert(w, mask).float()
+        fv = feature_vector_attention_mask(synth.config.hubert, mask, hidden.shape[1]).bool()
+        with matmul_precision("highest"):
+            res = segment_batch(hidden, nt, 0.8, frame_valid=fv)
+        idx = synth.quantizer.get_indices(res.features).cpu().numpy()
+    n = res.num_segments.cpu().numpy()
+    feats = res.features.cpu().numpy()
+    return (np.concatenate([idx[b, :n[b]] for b in range(len(n))]),
+            np.concatenate([feats[b, :n[b]] for b in range(len(n))]))
+
+
+def vq_gaps(torch, tok, feats, got, want):
+    """For each segment whose token differs (``got`` against ``want``, rows
+    of (art, pitch) codes, one group and one quantizer each): the gap
+    between the squared distances of its two codes, on the CPU, relative to
+    the scale the search computes them at (|x|^2 + |c|^2: the distances
+    come from the expanded form |c|^2 - 2 x.c)."""
+    from sylber_tpu_torch.flow.quantizer import quantizer_forward
+
+    emb = quantizer_forward(tok.state, tok.cfg, torch.from_numpy(feats))["non_quantized"]
+    split = [emb[..., :-tok.cfg.pitch_emb_dim], emb[..., -tok.cfg.pitch_emb_dim:]]
+    books = [tok.state.art_vq.codebooks[0, 0], tok.state.pitch_vq.codebooks[0, 0]]
+    gaps = []
+    for i, j in zip(*np.nonzero(got != want)):
+        x, c = split[j][i], books[j][[int(got[i, j]), int(want[i, j])]]
+        d = ((x[None] - c) ** 2).sum(-1)
+        scale = (x ** 2).sum() + (c ** 2).sum(-1).max()
+        gaps.append(float((d[0] - d[1]).abs() / scale))
+    return gaps
+
+
+def resynthesis_mini_agreement(torch, device="cuda"):
+    """The trained mini fixtures on the card against the CPU, each check
+    with its tolerance: mini_synth (wav path midpoint: segments equal, art
+    within 1e-4 of the largest; feature path tsit5: both complete, counts
+    within 2, art within 1e-2: the controller reads its error estimate near
+    the float32 rounding of the field), mini_synth_rich_pitch (the pitch
+    path: segments equal, art within 1e-3, F0 frames that differ counted),
+    mini_vq_synth + mini_vq_tokenizer (the token path: segments equal, a
+    token differing only at a near-tie of its codes, art within 1e-4 where
+    no token differs), mini_vocoder (0.2 s waveform within 1e-4; 5 s
+    through log_mel, mean difference within 1e-2)."""
+    import dataclasses
+
+    from sylber_tpu_torch.flow.quantizer import GroupedResidualVQConfig, QuantizerConfig
+    from sylber_tpu_torch.io.checkpoint import load_params_npz
+    from sylber_tpu_torch.ops.pitch import frame_f0
+    from sylber_tpu_torch.vocoder import HiFiGANConfig, SparcDecoder, SparcDecoderConfig
+    from sylber_tpu_torch.vocoder.mel import log_mel
+    from sylber_tpu_torch.vq_tokenizer import TrainedVQTokenizer
+
+    checks = []
+
+    def add(name, ok, **kw):
+        checks.append(dict(check=name, ok=bool(ok), **kw))
+        log(f"phase 7 mini card vs CPU, {name}: "
+            + ", ".join(f"{k} {v}" for k, v in kw.items()) + f" ok={bool(ok)}")
+
+    wav, _ = mini_corpus(2, 3.0, 424242)
+    gpu, mc = _mini_synth(torch, "mini_synth", device)
+    cpu, _ = _mini_synth(torch, "mini_synth", "cpu")
+    nt = float(mc["norm_threshold"])
+    (ag, sg), (ac, sc) = (s.resynthesize(input_values=wav, steps=5, normthreshold=nt)
+                          for s in (gpu, cpu))
+    same = all(np.array_equal(a, b) for a, b in zip(sg, sc))
+    add("mini_synth wav path midpoint 5 steps", same and rel_err(ag, ac) <= 1e-4,
+        segments_equal=same, art_err_of_largest=rel_err(ag, ac), tol=1e-4)
+    feats = np.random.RandomState(5).randn(2, 40, 144).astype(np.float32)
+    feats[:, 17] = 0.0  # a blank frame
+    out = {}
+    for name, s in (("gpu", gpu), ("cpu", cpu)):
+        cond = s.cond_from_features(torch.from_numpy(feats).to(s.device))
+        art, st = s.sample(cond, method="tsit5", return_stats=True)
+        out[name] = (art.cpu().numpy(), {k: float(v) for k, v in st.items()})
+    (ag, stg), (ac, stc) = out["gpu"], out["cpu"]
+    dcount = abs(stg["accepted"] - stc["accepted"]) + abs(stg["rejected"] - stc["rejected"])
+    add("mini_synth feature path tsit5", stg["complete"] and stc["complete"] and dcount <= 2
+        and rel_err(ag, ac) <= 1e-2, card_stats=stg, cpu_stats=stc,
+        art_err_of_largest=rel_err(ag, ac), tol=1e-2)
+
+    wav, _ = mini_corpus(2, 3.0, 31337, style="rich")
+    gpu, mc = _mini_synth(torch, "mini_synth_rich_pitch", device)
+    cpu, _ = _mini_synth(torch, "mini_synth_rich_pitch", "cpu")
+    nt = float(mc["norm_threshold"])
+    (ag, sg), (ac, sc) = (s.resynthesize(input_values=wav, steps=5, normthreshold=nt)
+                          for s in (gpu, cpu))
+    f0g = frame_f0(torch.from_numpy(wav).to(device))[0].cpu().numpy()
+    f0c = frame_f0(torch.from_numpy(wav))[0].numpy()
+    same = all(np.array_equal(a, b) for a, b in zip(sg, sc))
+    add("mini_synth_rich_pitch wav path (explicit pitch)", same and rel_err(ag, ac) <= 1e-3,
+        segments_equal=same, f0_frames_differing=int((f0g != f0c).sum()),
+        f0_frames=int(f0c.size), art_err_of_largest=rel_err(ag, ac), tol=1e-3)
+
+    qd = json.loads((FIXTURES / "mini_vq_synth.json").read_text())["quantizer_config"]
+    qcfg = QuantizerConfig(
+        input_dim=qd["input_dim"], output_dim=qd["output_dim"],
+        hidden_dims=tuple(qd["hidden_dims"]), pitch_emb_dim=qd["pitch_emb_dim"],
+        art_vq=GroupedResidualVQConfig(**qd["art_vq"]),
+        pitch_vq=GroupedResidualVQConfig(**qd["pitch_vq"]))
+    tok = {d: TrainedVQTokenizer.load_npz(str(FIXTURES / "mini_vq_tokenizer.npz"), qcfg,
+                                          device=d) for d in (device, "cpu")}
+    wav, _ = mini_corpus(2, 3.0, 777001)
+    gpu, mc = _mini_synth(torch, "mini_vq_synth", device, tok[device])
+    cpu, _ = _mini_synth(torch, "mini_vq_synth", "cpu", tok["cpu"])
+    nt = float(mc["norm_threshold"])
+    (ag, sg), (ac, sc) = (s.resynthesize(input_values=wav, steps=5, normthreshold=nt)
+                          for s in (gpu, cpu))
+    same = all(np.array_equal(a, b) for a, b in zip(sg, sc))
+    # the tokens of the utterances' segments, from each side's features; a
+    # token may differ only where its two codes are within 1e-4 of each
+    # other in distance (then the art differs too, and is not compared)
+    (tg, _), (tc, fc) = (segment_tokens(torch, s, wav, nt) for s in (gpu, cpu))
+    gaps = vq_gaps(torch, tok["cpu"], fc, tg, tc)
+    add("mini_vq_synth token path", same and all(g <= 1e-4 for g in gaps)
+        and (bool(gaps) or rel_err(ag, ac) <= 1e-4), segments_equal=same,
+        tokens=int(len(tc)), token_differences=len(gaps),
+        relative_distance_gaps=[f"{g:.2g}" for g in gaps],
+        art_err_of_largest=rel_err(ag, ac), tol="1e-4 where no token differs")
+
+    meta = json.loads((FIXTURES / "mini_vocoder.json").read_text())
+    dcfg = SparcDecoderConfig(generator=HiFiGANConfig(**meta["generator"]))
+    tree = load_params_npz(str(FIXTURES / "mini_vocoder.npz"))
+    decs = {d: SparcDecoder(dcfg, params=tree, device=d, precision="highest")
+            for d in (device, "cpu")}
+    _, arts = mini_corpus(2, 5.0, 90909)
+    spk = np.zeros((2, 64), np.float32)
+    for n_frames, label in ((10, "0.2 s"), (arts.shape[1], "5 s")):
+        a = arts[:, :n_frames]
+        noise = torch.randn(2, n_frames * 320, generator=torch.Generator().manual_seed(0))
+        wg = decs[device].waveform(a, spk, meta["pitch_mean"], noise=noise.to(device)).cpu()
+        wc = decs["cpu"].waveform(a, spk, meta["pitch_mean"], noise=noise)
+        err = float((wg - wc).abs().max())
+        if n_frames == 10:
+            add(f"mini_vocoder waveform {label}", err <= 1e-4, max_abs_err=err, tol=1e-4)
+        else:
+            dm = (log_mel(wg) - log_mel(wc)).abs()
+            add(f"mini_vocoder {label} through log_mel", float(dm.mean()) <= 1e-2,
+                waveform_max_abs_err=err, log_mel_mean_abs_diff=float(dm.mean()),
+                log_mel_max_abs_diff=float(dm.max()), tol_mean=1e-2)
+    return checks
+
+
+def resynthesis_phase(torch, ops, counters, smi):
+    """Phase 7: the resynthesis chain on the card. Any failed check raises."""
+    from sylber_tpu_torch.models.hubert import matmul_precision
+
+    with matmul_precision("highest"):
+        shapes = regressor_attention_records(torch, ops)
+    for name, rec in shapes.items():
+        r = rec["float32"]
+        log(f"phase 7: {name} float32 at the regressor's shape {r['shape']}, scale "
+            f"{r['scale']}: max_abs_err {r['max_abs_err']:.3g} (tol {r['tol']}) ok={r['ok']}  "
+            f"kernel_ms {r['ms']:.4f}  plain_ms {r['plain_ms']:.4f}  library_ms (SDPA) "
+            f"{r['library_ms']:.4f}  bound_ms {r['bound_ms']:.4f} ({r['bound_by']})  [{smi}]")
+    bad = [n for n, rec in shapes.items() if not rec["float32"]["ok"]]
+    if bad:
+        raise AssertionError(f"kernels disagree with their plain versions at the regressor's "
+                             f"shapes: {bad}")
+    runs, launches = resynthesis_full_width(torch, counters, smi)
+    log(f"phase 7: launches over the full-width resynthesis runs: {launches}  [{smi}]")
+    mini = resynthesis_mini_agreement(torch)
+    if not all(c["ok"] for c in mini):
+        raise AssertionError(f"phase 7 card vs CPU failed: {[c for c in mini if not c['ok']]}")
+    return dict(kernels=shapes, runs=runs, launches=launches, mini=mini)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the full report as JSON to this path")
+    ap.add_argument("--only-resynthesis", action="store_true",
+                    help="build the kernels and run phase 7 alone (a quicker check while "
+                         "working on the resynthesis chain); prints no result line")
     args = ap.parse_args()
 
     import torch
@@ -1616,6 +2020,13 @@ def main() -> int:
     so = kernels.build()
     kernels.lib()
     log(f"phase 1: kernels built in {time.perf_counter() - t0:.1f} s -> {so.name}")
+
+    counters = [ops.frontend.conv0_gn_gelu, ops.smallattn.small_attention,
+                ops.flash.flash_attention, ops.segment.segment_pass1,
+                ops.segment.segment_pass2]
+    if args.only_resynthesis:
+        resynthesis_phase(torch, ops, counters, smi)
+        return 0
 
     with matmul_precision("highest"):
         checks = check_kernels(torch, ops)
@@ -1673,9 +2084,6 @@ def main() -> int:
 
     import sylber_tpu_torch.api as api
 
-    counters = [ops.frontend.conv0_gn_gelu, ops.smallattn.small_attention,
-                ops.flash.flash_attention, ops.segment.segment_pass1,
-                ops.segment.segment_pass2]
     segment_batch = api.segment_batch
     api.segment_batch = forbid_host_syncs(torch, segment_batch)
     try:
@@ -1699,6 +2107,9 @@ def main() -> int:
         training = training_phase(torch, ops, counters, smi, Path(tmp))
     log(f"phase 6: launches over the two training runs: {training['launches']}  [{smi}]")
     launches = {k: v + training["launches"][k] for k, v in launches.items()}
+
+    resynthesis = resynthesis_phase(torch, ops, counters, smi)
+    launches = {k: v + resynthesis["launches"][k] for k, v in launches.items()}
 
     sources = {"conv0_gn_gelu": ("frontend.cu", "sylber_tpu/ops/pallas/frontend.py:122"),
                "small_attention": ("smallattn.cu", "sylber_tpu/ops/pallas/smallattn.py:78"),
@@ -1750,6 +2161,11 @@ def main() -> int:
         "segment_batch"]
     entries["flash_attention"]["training_shapes"] = None  # 5 s crops: L 250, small attention
     entries["flash_attention"]["training_launches"] = training["launches"]["flash_attention"]
+    # the regressor's shapes (phase 7) and every kernel's launches over its runs
+    for name, rec in resynthesis["kernels"].items():
+        entries[name]["resynthesis_shape"] = rec["float32"]
+    for name, entry in entries.items():
+        entry["resynthesis_launches"] = resynthesis["launches"][name]
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         build_log = kernels.BUILD_DIR / "build.log"  # registers, shared memory, spills
@@ -1762,7 +2178,8 @@ def main() -> int:
                                                   pass1_ties=ties,
                                                   shared_divisor=division,
                                                   mini_ckpt=mini, consumers=consumers,
-                                                  training=training),
+                                                  training=training,
+                                                  resynthesis=resynthesis),
                                              indent=1))
     log(json.dumps({"kernels": line}))
     log(smi)

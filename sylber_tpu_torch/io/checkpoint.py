@@ -6,7 +6,10 @@ trainer's checkpoints.
 paths); ``state_dict_from_jax_params`` turns such a tree into the state dict
 of :class:`sylber_tpu_torch.models.hubert.HubertModel`, and
 ``jax_params_from_state_dict`` / ``save_params_npz`` go the other way, so a
-model the port trains loads into either package's ``Segmenter``.
+model the port trains loads into either package's ``Segmenter``. The same
+carry, :func:`state_dict_from_tree` / :func:`tree_from_state_dict`, serves
+the resynthesis modules, whose parameter names are the JAX tree's
+(``synthesis_state_dict_from_jax``, ``generator_state_dict_from_jax``).
 :class:`TrainCheckpointManager` keeps the trainer's rolling step
 directories (``torch.save``), the port's counterpart of the JAX package's
 Orbax manager.
@@ -41,16 +44,24 @@ def load_params_npz(path: str, dtype=np.float32) -> Dict[str, Any]:
     return out
 
 
-# JAX tree node name -> port module path
+# JAX tree node name -> port module path (HuBERT)
 _RENAMES = ((re.compile(r"^feature_extractor\.conv_(\d+)\."), r"feature_extractor.convs.\1."),
             (re.compile(r"^layer_(\d+)\."), r"layers.\1."))
+_INVERSE_RENAMES = ((re.compile(r"^feature_extractor\.convs\.(\d+)\."),
+                     r"feature_extractor.conv_\1."),
+                    (re.compile(r"^layers\.(\d+)\."), r"layer_\1."))
+# the vocoder generator's transposed convs (flax ``ConvTranspose``)
+_GENERATOR_TRANSPOSED = re.compile(r"^ups_\d+\.")
 
 
-def _leaf(name: str, a: np.ndarray):
-    """flax leaf -> (torch leaf name, tensor in torch layout)."""
+def _leaf(name: str, a: np.ndarray, transposed: bool = False):
+    """flax leaf -> (torch leaf name, array in torch layout)."""
     if name == "kernel":
         if a.ndim == 2:    # Dense (in, out) -> Linear (out, in)
             a = a.T
+        elif transposed:   # ConvTranspose (k, in, out), kernel not flipped ->
+            # conv_transpose1d (in, out, k), which flips it
+            a = np.transpose(a[::-1], (1, 2, 0))
         elif a.ndim == 3:  # Conv (k, in/groups, out) -> (out, in/groups, k)
             a = np.transpose(a, (2, 1, 0))
         return "weight", a
@@ -59,8 +70,11 @@ def _leaf(name: str, a: np.ndarray):
     return name, a
 
 
-def state_dict_from_jax_params(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """The port's HubertModel state dict from the JAX ``HubertModel`` tree."""
+def state_dict_from_tree(tree: Mapping[str, Any], renames=(),
+                         transposed=None) -> Dict[str, torch.Tensor]:
+    """A port module's float32 state dict from a flax parameter tree whose
+    node names are the module's (after ``renames``). ``transposed`` matches
+    the keys of transposed convs."""
     sd: Dict[str, torch.Tensor] = {}
 
     def walk(node, prefix):
@@ -68,9 +82,10 @@ def state_dict_from_jax_params(tree: Mapping[str, Any]) -> Dict[str, torch.Tenso
             if isinstance(value, Mapping):
                 walk(value, f"{prefix}{name}.")
                 continue
-            leaf, a = _leaf(name, np.asarray(value))
+            is_t = transposed is not None and bool(transposed.match(prefix))
+            leaf, a = _leaf(name, np.asarray(value), is_t)
             key = f"{prefix}{leaf}"
-            for pattern, repl in _RENAMES:
+            for pattern, repl in renames:
                 key = pattern.sub(repl, key)
             sd[key] = torch.from_numpy(np.array(a, dtype=np.float32))
 
@@ -78,19 +93,21 @@ def state_dict_from_jax_params(tree: Mapping[str, Any]) -> Dict[str, torch.Tenso
     return sd
 
 
-def jax_params_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
-    """The JAX ``HubertModel`` tree (nested dicts of float32 numpy arrays,
-    flax layouts) from the port's state dict: the inverse of
-    :func:`state_dict_from_jax_params`."""
+def tree_from_state_dict(sd: Mapping[str, torch.Tensor], renames=(),
+                         transposed=None) -> Dict[str, Any]:
+    """The flax tree (nested dicts of float32 numpy arrays) of a port state
+    dict: the inverse of :func:`state_dict_from_tree`."""
     tree: Dict[str, Any] = {}
     for key, t in sd.items():
         a = t.detach().float().cpu().numpy()
-        key = re.sub(r"^feature_extractor\.convs\.(\d+)\.", r"feature_extractor.conv_\1.", key)
-        key = re.sub(r"^layers\.(\d+)\.", r"layer_\1.", key)
+        for pattern, repl in renames:
+            key = pattern.sub(repl, key)
         *path, leaf = key.split(".")
         if leaf == "weight":
             if a.ndim == 2:      # Linear (out, in) -> Dense (in, out)
                 leaf, a = "kernel", a.T
+            elif transposed is not None and transposed.match(".".join(path) + "."):
+                leaf, a = "kernel", np.transpose(a, (2, 0, 1))[::-1]
             elif a.ndim == 3:    # Conv1d (out, in/groups, k) -> (k, in/groups, out)
                 leaf, a = "kernel", np.transpose(a, (2, 1, 0))
             else:                # LayerNorm / GroupNorm
@@ -102,22 +119,61 @@ def jax_params_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]
     return tree
 
 
-def save_params_npz(path: str, sd: Mapping[str, torch.Tensor]) -> None:
-    """The port's state dict as a JAX-layout float32 ``.npz`` (keys '/'-joined
-    tree paths), which ``sylber_tpu.io.checkpoint.load_params_npz`` and
+def state_dict_from_jax_params(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The port's HubertModel state dict from the JAX ``HubertModel`` tree."""
+    return state_dict_from_tree(tree, _RENAMES)
+
+
+def jax_params_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The JAX ``HubertModel`` tree (nested dicts of float32 numpy arrays,
+    flax layouts) from the port's state dict: the inverse of
+    :func:`state_dict_from_jax_params`."""
+    return tree_from_state_dict(sd, _INVERSE_RENAMES)
+
+
+def synthesis_state_dict_from_jax(tree: Mapping[str, Any]) -> Dict[str, Dict[str, torch.Tensor]]:
+    """``{"input_mlp": sd, "regressor": sd}`` for the port's ``InputMLP`` and
+    ``Regressor`` from a JAX synthesis tree holding those two subtrees (the
+    layout of ``tests/fixtures/mini_synth.npz``), and ``"hubert"`` for the
+    encoder where the tree holds one (a ``SynthesisParams`` tree)."""
+    sds = {name: state_dict_from_tree(tree[name]) for name in ("input_mlp", "regressor")}
+    if "hubert" in tree:
+        sds["hubert"] = state_dict_from_jax_params(tree["hubert"])
+    return sds
+
+
+def generator_state_dict_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The port's HiFi-GAN ``Generator`` state dict from the JAX generator
+    tree (``tests/fixtures/mini_vocoder.npz``)."""
+    return state_dict_from_tree(tree, transposed=_GENERATOR_TRANSPOSED)
+
+
+def jax_tree_from_generator(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """Inverse of :func:`generator_state_dict_from_jax`."""
+    return tree_from_state_dict(sd, transposed=_GENERATOR_TRANSPOSED)
+
+
+def save_tree_npz(path: str, tree: Mapping[str, Any]) -> None:
+    """A flax-layout tree as a float32 ``.npz`` (keys '/'-joined tree paths),
+    which ``sylber_tpu.io.checkpoint.load_params_npz`` and
     :func:`load_params_npz` read."""
     flat: Dict[str, np.ndarray] = {}
 
     def walk(node, prefix):
         for k, v in node.items():
             key = f"{prefix}/{k}" if prefix else k
-            if isinstance(v, dict):
+            if isinstance(v, Mapping):
                 walk(v, key)
             else:
-                flat[key] = v
+                flat[key] = np.asarray(v, np.float32)
 
-    walk(jax_params_from_state_dict(sd), "")
+    walk(tree, "")
     np.savez(path, **flat)  # float weights hardly compress; zlib would take seconds
+
+
+def save_params_npz(path: str, sd: Mapping[str, torch.Tensor]) -> None:
+    """The port's HubertModel state dict as a JAX-layout float32 ``.npz``."""
+    save_tree_npz(path, jax_params_from_state_dict(sd))
 
 
 def load_state_dict(path: str, num_layers: int) -> Dict[str, torch.Tensor]:

@@ -3,13 +3,14 @@
 Port of the k-means part of ``sylber_tpu/flow/quantizer.py``:
 
 - :class:`KMQuantizer`: frozen centroids; encode is the nearest centroid
-  (one argmin over a distance matmul), decode a table lookup; optionally
-  the inputs are first scaled to norm 6;
+  (one argmin over a distance matmul), decode a table lookup, a call both
+  with the commitment loss; optionally the inputs are first scaled to norm 6;
 - :class:`ResidualKMQuantizer`: two stages, the second quantizing the
   residual of the first.
 
 The centroids live on one device, ``cuda`` unless ``device="cpu"`` is
-passed. Indices are int32, as in the JAX package.
+passed. Indices are int32, as in the JAX package. The trainable grouped residual VQ
+is in ``flow/quantizer.py``.
 """
 
 from __future__ import annotations
@@ -62,6 +63,13 @@ class KMQuantizer:
         if indices.ndim and indices.shape[-1] == 1:
             indices = indices[..., 0]
         return self.centroids[indices.long()]
+
+    def __call__(self, token):
+        token = torch.as_tensor(token, device=self.device)
+        idx = self.get_indices(token)
+        q = self.decode(idx)
+        return {"indices": idx, "quantize": q, "non_quantized": token,
+                "commitment_loss": ((token - q) ** 2).mean()}
 
 
 class ResidualKMQuantizer:

@@ -12,13 +12,18 @@ POST /segment       body: raw little-endian int16 or float32 PCM at 16 kHz
 POST /tokenize      same body; needs --centroids. Segments through the
                     micro-batcher, then nearest-centroid token ids
                     -> JSON {tokens, segments, durations, num_segments}
-POST /resynthesize  503: the resynthesis chain is not ported yet
+POST /resynthesize  same body; needs --synthesis-ckpt. The resynthesis chain
+                    (``SegmentSynthesis``) on the utterance, one sampler at a
+                    time, outside the micro-batcher; steps= (default 5)
+                    -> JSON {art: [[14 floats] x L], segments}; with audio=1
+                    (needs --vocoder-ckpt) -> audio/wav, 16 kHz int16
 GET  /stats         -> JSON serving counters
 GET  /healthz       -> 200
 
 Errors: 400 for a bad request (too short, bad parameter), 413 for a body
 over --max-body-bytes (refused before it is read), 503 for a stack that is
-not configured, 500 otherwise; the server keeps serving. Throughput comes
+not configured (/tokenize without --centroids, /resynthesize without
+--synthesis-ckpt, audio=1 without --vocoder-ckpt), 500 otherwise; the server keeps serving. Throughput comes
 from many concurrent connections coalescing in the micro-batcher
 (``ThreadingHTTPServer`` gives each connection a thread; the device is
 driven by the one dispatcher thread of ``sylber_tpu_torch.serve``).
@@ -26,14 +31,20 @@ driven by the one dispatcher thread of ``sylber_tpu_torch.serve``).
 Usage:
   python -m sylber_tpu_torch.serve_http --device cuda --ckpt sylber.ckpt \\
       --port 8787 [--max-batch 32] [--max-wait-ms 10] [--bf16] \\
-      [--centroids km.npy [--residual-centroids km2.npy]]
+      [--centroids km.npy [--residual-centroids km2.npy]] \\
+      [--synthesis-ckpt synth.npz|synthesis.ckpt [--synthesis-config cfg.yaml]] \\
+      [--vocoder-ckpt vocoder.npz|generator.ckpt [--vocoder-config cfg.json]]
 """
 
 from __future__ import annotations
 
 import argparse
+import io
 import json
+import threading
+import wave
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from pathlib import Path
 from urllib.parse import parse_qs, urlparse
 
 import numpy as np
@@ -43,15 +54,31 @@ class _TooLarge(Exception):
     """Request body exceeds the configured limit (HTTP 413)."""
 
 
-def build_handler(server, quantizer=None, max_body_bytes: int = 8 << 20):
-    """Handler class over a ``SegmenterServer`` and an optional k-means
-    quantizer (``sylber_tpu_torch.quantizer``) for /tokenize.
+def wav_bytes(pcm: np.ndarray, sr: int = 16000) -> bytes:
+    """float32 in (-1, 1) -> RIFF/WAV int16 bytes."""
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sr)
+        w.writeframes(np.clip(pcm * 32767.0, -32768, 32767).astype("<i2").tobytes())
+    return buf.getvalue()
+
+
+def build_handler(server, quantizer=None, max_body_bytes: int = 8 << 20, synth=None,
+                  vocoder=None, spk_emb=None, pitch_mean: float = 120.0):
+    """Handler class over a ``SegmenterServer``, an optional k-means
+    quantizer (``sylber_tpu_torch.quantizer``) for /tokenize, and an
+    optional ``SegmentSynthesis`` (with a ``SparcDecoder`` for audio out)
+    for /resynthesize.
 
     ``max_body_bytes`` (default 8 MiB, about 4.4 min of int16 PCM) refuses
     larger POSTs with 413 before reading the body: one request could
     otherwise allocate any host buffer and push any length into the
     batcher. Long recordings belong to ``LongFormSegmenter``."""
     from .tokenizer import durations, encode
+
+    synth_lock = threading.Lock()  # one sampler at a time on the device
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, *a):  # quiet
@@ -116,8 +143,7 @@ def build_handler(server, quantizer=None, max_body_bytes: int = 8 << 20):
                 elif url.path == "/tokenize":
                     self._tokenize(q)
                 elif url.path == "/resynthesize":
-                    self._refuse(503, "no resynthesis stack: the resynthesis chain is "
-                                      "not ported to sylber_tpu_torch")
+                    self._resynthesize(q)
                 else:
                     self._refuse(404, "not found")
             except (BrokenPipeError, ConnectionError):
@@ -174,7 +200,88 @@ def build_handler(server, quantizer=None, max_body_bytes: int = 8 << 20):
                 "num_segments": int(len(segs)),
             })
 
+        def _resynthesize(self, q):
+            if synth is None:
+                self._refuse(503, "no --synthesis-ckpt configured")
+                return
+            steps = int(q.get("steps", ["5"])[0])
+            want_audio = q.get("audio", ["0"])[0] not in ("0", "false")
+            if want_audio and vocoder is None:
+                self._refuse(503, "no --vocoder-ckpt configured")
+                return
+            wav = self._read_wav()
+            with synth_lock:
+                art, segs = synth.resynthesize(input_values=wav[None], steps=steps)
+                if want_audio:
+                    spk = (np.zeros(vocoder.config.spk_emb_dim, np.float32)
+                           if spk_emb is None else spk_emb)
+                    out = synth.decode_audio(art, spk, pitch_mean=pitch_mean,
+                                             vocoder=vocoder)[0]
+            if want_audio:
+                body = wav_bytes(out)
+                self._responded = True
+                self.send_response(200)
+                self.send_header("Content-Type", "audio/wav")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+            else:
+                self._json(200, {"art": art[0].tolist(),
+                                 "segments": segs[0].tolist() if segs is not None else None})
+
     return Handler
+
+
+def _read_config(path: str) -> dict:
+    """A YAML (or JSON) config: the model block itself, or a recipe or a
+    fixture's metadata holding it under ``model`` / ``config.model``."""
+    import yaml
+
+    with open(path) as f:
+        cfg = yaml.safe_load(f) or {}
+    cfg = cfg.get("config", cfg)
+    return cfg.get("model", cfg)
+
+
+def build_synthesis_stack(synthesis_ckpt: str, synthesis_config: str, device,
+                          quantizer=None, vocoder_ckpt=None, vocoder_config=None):
+    """``(SegmentSynthesis, SparcDecoder or None)`` from checkpoint paths: a
+    JAX-layout ``.npz`` or a reference torch checkpoint for each (an Orbax
+    directory raises). ``vocoder_config`` holds ``{"generator": {...}}``
+    (HiFiGANConfig fields; default ``SparcDecoderConfig()``)."""
+    from .synthesis import SegmentSynthesis, synthesis_config_from_dict
+    from .vocoder import SparcDecoder
+    from .vocoder.hifigan import HiFiGANConfig
+    from .vocoder.sparc import SparcDecoderConfig
+
+    model = _read_config(synthesis_config)
+    synth = SegmentSynthesis(model_ckpt=synthesis_ckpt, config=synthesis_config_from_dict(model),
+                             thresholder_configs=model.get("thresholder_configs"),
+                             quantizer=quantizer, device=device)
+    vocoder = None
+    if vocoder_ckpt:
+        dcfg = SparcDecoderConfig()
+        if vocoder_config:
+            with open(vocoder_config) as f:
+                dcfg = SparcDecoderConfig(generator=HiFiGANConfig(**json.load(f)["generator"]))
+        if vocoder_ckpt.endswith(".npz"):
+            from .io.checkpoint import load_params_npz
+
+            vocoder = SparcDecoder(dcfg, params=load_params_npz(vocoder_ckpt), device=device)
+        else:
+            from pathlib import Path
+
+            from .io.torch_convert import hifigan_params_from_torch, torch_load
+
+            if Path(vocoder_ckpt).is_dir():
+                raise NotImplementedError(f"{vocoder_ckpt}: Orbax directories need JAX; "
+                                          "pass a .npz or a torch generator checkpoint")
+            sd = torch_load(vocoder_ckpt)
+            if isinstance(sd, dict) and "generator" in sd:
+                sd = sd["generator"]
+            vocoder = SparcDecoder(dcfg, state_dict=hifigan_params_from_torch(sd, dcfg.generator),
+                                   device=device)
+    return synth, vocoder
 
 
 def main(argv=None) -> None:
@@ -196,6 +303,22 @@ def main(argv=None) -> None:
     p.add_argument("--centroids", default=None,
                    help="k-means centroid .npy -> enables POST /tokenize")
     p.add_argument("--residual-centroids", default=None)
+    p.add_argument("--synthesis-ckpt", default=None,
+                   help="SegmentSynthesis weights, a JAX-layout .npz (hubert, input_mlp, "
+                        "regressor) or a reference torch checkpoint -> enables "
+                        "POST /resynthesize")
+    p.add_argument("--synthesis-config",
+                   default=str(Path(__file__).resolve().parent.parent / "configs"
+                               / "sylber_resynthesis.yaml"),
+                   help="resynthesis YAML (or a fixture's JSON metadata)")
+    p.add_argument("--vocoder-ckpt", default=None,
+                   help="HiFi-GAN generator, a JAX-layout .npz or a torch checkpoint -> "
+                        "enables /resynthesize?audio=1")
+    p.add_argument("--vocoder-config", default=None,
+                   help='JSON with {"generator": {HiFiGANConfig fields}} '
+                        "(default: SparcDecoderConfig())")
+    p.add_argument("--spk-emb", default=None, help=".npy speaker embedding")
+    p.add_argument("--pitch-mean", type=float, default=120.0)
     p.add_argument("--max-body-bytes", type=int, default=8 << 20,
                    help="refuse larger POST bodies with 413 (default 8 MiB, "
                         "about 4.4 min of int16 PCM)")
@@ -216,11 +339,18 @@ def main(argv=None) -> None:
     server = SegmenterServer(seg, max_batch=args.max_batch, max_wait_ms=args.max_wait_ms)
     quantizer = (load_km_quantizer(args.centroids, args.residual_centroids,
                                    device=seg.device) if args.centroids else None)
+    synth = vocoder = None
+    if args.synthesis_ckpt:
+        synth, vocoder = build_synthesis_stack(args.synthesis_ckpt, args.synthesis_config,
+                                               seg.device, quantizer, args.vocoder_ckpt,
+                                               args.vocoder_config)
+    spk = np.load(args.spk_emb).astype(np.float32) if args.spk_emb else None
     if not args.no_warmup:
         print("warming the batch buckets ...", flush=True)
         server.warmup()
     httpd = ThreadingHTTPServer((args.host, args.port),
-                                build_handler(server, quantizer, args.max_body_bytes))
+                                build_handler(server, quantizer, args.max_body_bytes, synth,
+                                              vocoder, spk, args.pitch_mean))
     print(f"serving on http://{args.host}:{httpd.server_address[1]}", flush=True)
     try:
         httpd.serve_forever()

@@ -2,7 +2,8 @@
 
 A fresh interpreter imports every module of ``sylber_tpu_torch`` (walked
 with ``pkgutil``) and checks ``sys.modules``; then, with no GPU, the entry
-points refuse to run unless the caller asks for the CPU.
+points (the resynthesis chain's included) refuse to run unless the caller
+asks for the CPU.
 """
 
 import subprocess
@@ -32,9 +33,15 @@ from sylber_tpu_torch.longform import LongFormSegmenter
 from sylber_tpu_torch.quantizer import KMQuantizer
 from sylber_tpu_torch.train.loop import train
 from sylber_tpu_torch.train.__main__ import main as train_cli
+from sylber_tpu_torch.synthesis import SegmentSynthesis
+from sylber_tpu_torch.vocoder import SparcDecoder
+from sylber_tpu_torch.vq_tokenizer import TrainedVQTokenizer
+from sylber_tpu_torch.flow.quantizer import load_quantizer
 for make in (lambda: LongFormSegmenter(Segmenter()), lambda: KMQuantizer([[0.0, 1.0]]),
              lambda: train({"data": {"synthetic": True}}, out_dir="/nonexistent"),
-             lambda: train_cli(["--config", "/nonexistent.yaml"])):
+             lambda: train_cli(["--config", "/nonexistent.yaml"]),
+             lambda: SegmentSynthesis(), lambda: SparcDecoder(),
+             lambda: TrainedVQTokenizer(None, None), lambda: load_quantizer({})):
     try:
         make()
     except RuntimeError as e:
@@ -53,5 +60,7 @@ def test_port_imports_no_jax_and_needs_a_gpu_or_cpu_choice():
     count, ok = run.stdout.split("\n")[:2]
     assert ok == "ok"
     # the modules this test must reach, whatever else the package holds
-    # (the trainer's train/, data/ and utils/ modules included)
-    assert int(count.split()[0]) >= 36, count
+    # (the trainer's train/, data/ and utils/ modules, and the resynthesis
+    # chain's flow/, vocoder/, models/voicebox, ops/pitch, synthesis and
+    # vq_tokenizer included)
+    assert int(count.split()[0]) >= 50, count

@@ -3,19 +3,25 @@ localhost port, over a tiny seeded port ``Segmenter`` on the CPU: /segment
 (thresholds, ``in_second``, int16 and float32 bodies) equals the direct
 ``Segmenter`` call, /tokenize gives nearest-centroid ids, /stats and
 /healthz answer, errors answer 400 / 404 / 413 and leave the server up, and
-a stack that is not there (/resynthesize always, /tokenize without
-centroids) answers 503. Also ``python -m sylber_tpu_torch.serve_http``
-parses its arguments and refuses to start without a GPU unless
-``--device cpu`` is given.
+a stack that is not there (/resynthesize without a synthesis stack,
+audio=1 without a vocoder, /tokenize without centroids) answers 503.
+/resynthesize over the trained mini fixtures (``mini_synth``,
+``mini_vocoder``), built from files as ``--synthesis-ckpt`` /
+``--vocoder-ckpt`` build them, answers the art of ``resynthesize`` and a
+16 kHz WAV. Also ``python -m sylber_tpu_torch.serve_http`` parses its
+arguments and refuses to start without a GPU unless ``--device cpu`` is
+given.
 """
 
 import http.client
+import io
 import json
 import subprocess
 import sys
 import threading
 import urllib.error
 import urllib.request
+import wave
 from http.server import ThreadingHTTPServer
 from pathlib import Path
 
@@ -160,7 +166,58 @@ def test_module_entry_point_needs_a_device_choice():
     run = subprocess.run([sys.executable, "-m", "sylber_tpu_torch.serve_http", "--help"],
                          capture_output=True, text=True, env=env, timeout=120)
     assert run.returncode == 0 and "--device" in run.stdout
+    assert "--synthesis-ckpt" in run.stdout and "--vocoder-ckpt" in run.stdout
     run = subprocess.run([sys.executable, "-m", "sylber_tpu_torch.serve_http",
                           "--encoding-layer", "1", "--port", "0"],
                          capture_output=True, text=True, env=env, timeout=120)
     assert run.returncode != 0 and "device='cpu'" in run.stderr
+
+
+def test_resynthesize_endpoint_with_the_mini_fixtures(tmp_path):
+    """The stack built from files the way the flags build it (an ``.npz``
+    of the three subtrees and the fixture's metadata as the config; the
+    vocoder's ``.npz`` and its generator config): JSON art equal to a
+    direct ``resynthesize``, audio=1 a WAV of 320 samples a frame, 503
+    without a vocoder for audio=1, and an Orbax directory refused."""
+    from sylber_tpu_torch.io.checkpoint import load_params_npz, save_tree_npz
+
+    tree = {"hubert": load_params_npz(str(ROOT / "tests/fixtures/mini_ckpt.npz")),
+            **load_params_npz(str(ROOT / "tests/fixtures/mini_synth.npz"))}
+    save_tree_npz(str(tmp_path / "synth.npz"), tree)
+    synth, vocoder = serve_http.build_synthesis_stack(
+        str(tmp_path / "synth.npz"), str(ROOT / "tests/fixtures/mini_synth.json"), "cpu",
+        vocoder_ckpt=str(ROOT / "tests/fixtures/mini_vocoder.npz"),
+        vocoder_config=str(ROOT / "tests/fixtures/mini_vocoder.json"))
+    (tmp_path / "orbax").mkdir()
+    with pytest.raises(NotImplementedError):
+        serve_http.build_synthesis_stack(str(tmp_path / "orbax"),
+                                         str(ROOT / "tests/fixtures/mini_synth.json"), "cpu")
+    seg = Segmenter(hubert_config=HubertConfig(**TINY), device="cpu")
+    server = SegmenterServer(seg, max_batch=2, max_wait_ms=5.0)
+    httpd, base = _serve(server, synth=synth, vocoder=vocoder)
+    bare, bare_base = _serve(server, synth=synth)
+    wav = _wav(1.0, seed=3)
+    try:
+        ct, out = _post(base, "/resynthesize?steps=3", wav.tobytes())
+        direct, segs = synth.resynthesize(input_values=wav[None], steps=3)
+        assert ct == "application/json"
+        np.testing.assert_allclose(np.asarray(out["art"]), direct[0], rtol=1e-6, atol=1e-6)
+        assert np.asarray(out["art"]).shape == (49, 14)
+        assert out["segments"] == segs[0].tolist()
+        req = urllib.request.Request(base + "/resynthesize?steps=2&audio=1", data=wav.tobytes(),
+                                     headers={"X-Dtype": "float32"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            assert r.headers.get("Content-Type") == "audio/wav"
+            with wave.open(io.BytesIO(r.read())) as w:
+                assert (w.getframerate(), w.getsampwidth(), w.getnframes()) == (16000, 2, 49 * 320)
+        with pytest.raises(urllib.error.HTTPError) as e:
+            _post(bare_base, "/resynthesize?audio=1", wav.tobytes())
+        assert e.value.code == 503
+        with pytest.raises(urllib.error.HTTPError) as e:
+            _post(base, "/resynthesize?steps=x", wav.tobytes())
+        assert e.value.code == 400
+    finally:
+        for h in (httpd, bare):
+            h.shutdown()
+            h.server_close()
+        server.stop()
