@@ -78,7 +78,29 @@ Phases, each of which fails the script when it fails:
    feature paths, midpoint and tsit5; the explicit-pitch
    ``mini_synth_rich_pitch``; the token path of ``mini_vq_synth`` +
    ``mini_vq_tokenizer``; ``mini_vocoder``'s waveform and its log-mel).
-   ``--only-resynthesis`` runs phases 1 and 7 alone and prints no result.
+   ``--only-resynthesis`` runs phases 1 and 7 alone and prints no result;
+8. the resynthesis trainers: the k-means++ seeding kernel against its
+   plain version (the plain steps replayed on the kernel's rows, a row
+   differing only at a float64/float32 tie) at the mini shapes (n 4,096,
+   d 144, k 64 / 256 / 1,024), the VQ widths (d 24, 8), an awkward n
+   (5,003), a pool of 256 distinct points each repeated 16 times (each
+   taken once) and full width (n 65,536, d 768, k 2,000), timed beside its
+   plain version and its byte bound; ``fit_kmeans`` at 5,000 centers on
+   65,536 x 768 seeded features (its seeding launch counted from 0);
+   ``train_synthesis`` at full width (``configs/sylber_resynthesis.yaml``,
+   seeded random encoder, 128 synthetic utterances, B64 x 5 s) under
+   "highest" and "default", 13 steps each with every counter from 0 (the
+   precompute must launch conv0, small attention and both segmentation
+   passes), step p50, frames a second, MFU, peak memory, one step under
+   ``set_sync_debug_mode("error")``, a profiled step, and
+   ``evaluate_synthesis`` on 8 held-out utterances (small attention must
+   launch); one joint-VQ step and a ``make_vocoder_train_step`` step
+   (``SparcDecoderConfig()``, B16 x 32 frames) at full width, timed; the mini
+   fixtures' CFM, joint-VQ and vocoder steps on the card against the CPU
+   (losses, gradients with the leaf of the largest difference named,
+   updated parameters). ``--only-synthesis-training`` runs phases 1 and 8
+   alone, ``--reproduce-synthesis`` phase 1 and the 6,000-step mini recipe
+   against ``mini_synth.json``'s recorded eval; neither prints a result.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit
 (``nvidia-smi``), and as its last line
@@ -1477,15 +1499,20 @@ def card_against_cpu_step(torch):
                 and np.array_equal(g["segments"], c["segments"]))
     largest = max(float(v.abs().max()) for v in c["grads"].values())
     gerr = max(float((g["grads"][k] - v).abs().max()) for k, v in c["grads"].items())
+    gap = gradient_gap(g["grads"], c["grads"])
     rel = abs(g["loss"] - c["loss"]) / abs(c["loss"])
     rec = dict(loss_cuda=g["loss"], loss_cpu=c["loss"], loss_rel_err=rel, segments_equal=same,
                segments=int(c["num_segments"].sum()), grad_max_abs_err=gerr,
-               grad_largest=largest, ok=bool(rel <= 1e-4 and same and gerr <= 1e-4 * largest
-                                             and g["grads"].keys() == c["grads"].keys()))
+               grad_largest=largest, grad_gap=gap,
+               ok=bool(rel <= 1e-4 and same and gerr <= 1e-4 * largest
+                       and g["grads"].keys() == c["grads"].keys()))
     log(f"phase 6 card vs CPU, one stage-2 step of mini_ckpt.npz (B4 x 3 s, fp32 highest): loss "
         f"{g['loss']:.6g} vs {c['loss']:.6g} (rel {rel:.2g}, tol 1e-4), segments equal {same} "
         f"({rec['segments']}), max |grad diff| {gerr:.3g} of largest {largest:.3g} (tol 1e-4 "
         f"relative) ok={rec['ok']}")
+    log(f"phase 6 card vs CPU gradients: the largest difference is in {gap['leaf']} "
+        f"({gap['rel']:.3g} of the largest gradient, {gap['leaf_own_rel']:.3g} of the leaf's "
+        f"own largest); next: " + ", ".join(f"{k} {e:.3g}" for k, e in gap["top"][1:]))
     return rec
 
 
@@ -1797,20 +1824,11 @@ def _mini_synth(torch, name, device, quantizer=None):
 
 
 def mini_corpus(n, seconds, seed, style="v1"):
-    """(wav, art) utterances as the JAX trainer's synthesis corpus builds
-    them: zero mean, unit variance, 160 samples of silence each side."""
-    from sylber_tpu_torch.data.dataset import _zero_mean_unit_var
-    from sylber_tpu_torch.data.synthetic import synth_utterance
+    """(wav, art) utterances of the trainers' synthesis corpus."""
+    from sylber_tpu_torch.train.synthesis_loop import build_synthesis_corpus
 
-    rng = np.random.RandomState(seed)
-    n_samples = int(seconds * 16000) // 320 * 320
-    wavs, arts = [], []
-    for _ in range(n):
-        wav, _segs, art = synth_utterance(rng, n_samples, return_art=True, style=style)
-        pad = np.zeros(160, np.float32)
-        wavs.append(np.concatenate([pad, _zero_mean_unit_var(wav), pad]))
-        arts.append(art)
-    return np.stack(wavs), np.stack(arts)
+    corpus = build_synthesis_corpus(n, seconds, seed, style)
+    return corpus["wav"], corpus["art"]
 
 
 def rel_err(a, b):
@@ -1994,12 +2012,686 @@ def resynthesis_phase(torch, ops, counters, smi):
     return dict(kernels=shapes, runs=runs, launches=launches, mini=mini)
 
 
+# ---------------------------------------------------------------- phase 8
+
+# a seeding row may differ from the plain version's only where the uniform
+# lands within this share of the total weight of a prefix boundary: the two
+# sum each squared distance in float32 in their own order, so the weights,
+# and with them the float64 prefixes, round apart by at most about 1e-7 of
+# the total; ten times that, well below the 1.5e-5 of the total that the
+# average row holds at n 65,536, so that taking a neighbouring row fails
+KMEANSPP_TIE_RTOL = 1e-6
+KMEANSPP_SHAPES = [  # name, rows, width, centers, distinct points (each repeated) or None
+    ("mini", 4096, 144, (64, 256, 1024), None),
+    ("vq_art", 4096, 24, (256,), None),
+    ("vq_pitch", 4096, 8, (64,), None),
+    ("awkward_rows", 5003, 144, (128,), None),
+    ("duplicates", 4096, 144, (256,), 256),
+    ("full_width", 65536, 768, (2000,), None),
+]
+# the mini card-vs-CPU checks (as the CPU tests hold the port to JAX):
+# losses within 1e-4, gradients within 1e-4 of the largest, updated
+# parameters within 1e-5. The vocoder's generator gradient is ill-conditioned
+# in float32 (a leaky ReLU pre-activation within rounding of 0 takes the other
+# slope on the other device), so the whole vocoder step is held to these
+# gates in float64, and in float32 its losses and the discriminators'
+# gradients are; there a discriminator element may sit more than 1e-5 apart
+# only where its gradient lies within the gradients' largest difference of 0
+# (Adam's first step moves it by about +-lr, the sign of its gradient)
+SYNTH_GRAD_RTOL, SYNTH_LOSS_RTOL, SYNTH_PARAM_ATOL = 1e-4, 1e-4, 1e-5
+FULL_CFM_UTTS = 128  # of the recipe's 512: the batch is 64, the corpus is built on the host
+
+
+def gradient_gap(got, want):
+    """The largest difference between two ``{leaf: gradient}`` dicts,
+    relative to ``want``'s largest gradient, with the leaf that sets it
+    (also relative to that leaf's own largest) and the next four; and the
+    trees' L2 difference relative to ``want``'s L2 norm."""
+    largest = max(float(v.abs().max()) for v in want.values())
+    per = {k: float((got[k].float() - v.float()).abs().max()) for k, v in want.items()}
+    worst = max(per, key=per.get)
+    l2 = sum(float(((got[k].double() - v.double()) ** 2).sum()) for k, v in want.items())
+    norm = sum(float((v.double() ** 2).sum()) for v in want.values())
+    return dict(rel=per[worst] / largest, leaf=worst, leaf_abs=per[worst],
+                leaf_own_rel=per[worst] / max(float(want[worst].abs().max()), 1e-30),
+                largest=largest, l2_rel=(l2 / max(norm, 1e-300)) ** 0.5,
+                top=[(k, e / largest) for k, e in sorted(per.items(), key=lambda kv: -kv[1])[:5]])
+
+
+def mixture(torch, n, d, seed, clusters=64):
+    """Seeded clustered points (n, d) on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    means = torch.randn(clusters, d, generator=g, device="cuda") * 3
+    pick = torch.randint(0, clusters, (n,), generator=g, device="cuda")
+    return means[pick] + torch.randn(n, d, generator=g, device="cuda")
+
+
+def kmeanspp_record(torch, km, name, x, k, seed, distinct=None):
+    """The seeding kernel against its plain version at one shape: the plain
+    steps replayed on the kernel's rows, a differing row allowed only at a
+    tie (KMEANSPP_TIE_RTOL), the centers against the rows they copy; kernel,
+    plain and bound times."""
+    n, d = x.shape
+    u = km.seeding_uniforms(seed, k).cuda()
+    centers, rows = km.kmeanspp(x, u)
+    torch.cuda.synchronize()
+    rows_h = rows.cpu().numpy()
+    copy_err = float((centers - x.index_select(0, rows)).abs().max())
+    first = int(min(int(np.floor(float(u[0]) * n)), n - 1))
+    ties, bad, d2 = [], int(first != rows_h[0]), None
+    for j in range(1, k):
+        c = x.index_select(0, rows[j - 1:j])
+        dist = ((x - c) ** 2).sum(-1)
+        d2 = dist if d2 is None else torch.minimum(d2, dist)
+        cum = torch.cumsum(d2.clamp_min(km.MIN_WEIGHT).double(), 0)
+        target = u[j] * cum[-1]
+        p = int(torch.searchsorted(cum, target[None], right=True).clamp_max(n - 1))
+        if p != rows_h[j]:
+            lo, hi = sorted((p, int(rows_h[j])))
+            gap = float((cum[lo:hi] - target).abs().min() / cum[-1])
+            ties.append(gap)
+            bad += gap > KMEANSPP_TIE_RTOL
+    distinct_ok = None
+    if distinct:
+        distinct_ok = len({tuple(r) for r in centers.cpu().numpy().tolist()}) == distinct
+    ms = time_ms(torch, lambda: km.kmeanspp(x, u), reps=3, warmup=1)
+    plain_ms = time_ms(torch, lambda: km.kmeanspp_plain(x, u), reps=1, warmup=1)
+    nbytes = (k - 1) * n * d * 4.0 + k * d * 4.0  # x once a step (above the L2), the centers
+    bound, by = bound_ms(nbytes, 3.0 * n * d * (k - 1), "float32")
+    ok = bad == 0 and copy_err == 0.0 and distinct_ok is not False
+    return dict(name=name, shape=[n, d, k], ties=len(ties), worst_tie_gap=max(ties, default=0.0),
+                non_tie_differences=bad, max_abs_err=copy_err, distinct_ok=distinct_ok, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                bound_once_ms=bound_ms(n * d * 4.0 + k * d * 4.0, 0, "float32")[0],
+                cuda_launches_per_call=2 * k - 1, ok=bool(ok))
+
+
+def kmeanspp_records(torch, km):
+    recs = []
+    for name, n, d, ks, distinct in KMEANSPP_SHAPES:
+        if distinct:
+            pts = mixture(torch, distinct, d, seed=n + d)
+            x = pts[torch.randperm(n, generator=torch.Generator().manual_seed(1)).cuda()
+                    % distinct].contiguous()
+        else:
+            x = mixture(torch, n, d, seed=n + d)
+        for k in ks:
+            recs.append(kmeanspp_record(torch, km, name, x, k, seed=k, distinct=distinct))
+        del x
+    return recs
+
+
+def fit_kmeans_run(torch, km, smi):
+    """``fit_kmeans`` at 5,000 centers on 65,536 x 768 seeded features, the
+    seeding's launches counted from 0: the kmeanspp kernel's main path."""
+    feats = mixture(torch, 65536, 768, seed=7, clusters=2000).cpu().numpy()
+    km.kmeanspp.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    centroids, inertia = km.fit_kmeans(feats, 5000, seed=0, device="cuda")
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = km.kmeanspp.launches
+    ok = (centroids.shape == (5000, 768) and np.isfinite(centroids).all()
+          and np.isfinite(inertia) and launches >= 1)
+    rec = dict(shape=[65536, 768, 5000], ms=wall, inertia=inertia, kmeanspp_launches=launches,
+               ok=bool(ok))
+    log(f"phase 8: fit_kmeans 65,536 x 768 -> 5,000 centers (10 epochs of batch 16,384): "
+        f"{wall:.1f} ms, inertia {inertia:.4g}, kmeanspp launched {launches} time(s) "
+        f"ok={rec['ok']}  [{smi}]")
+    return rec
+
+
+def _quiet_setup(SL, cfg, device):
+    import warnings
+
+    with warnings.catch_warnings():  # no speech_model_ckpt: a seeded random encoder
+        warnings.simplefilter("ignore")
+        return SL.setup(cfg, 0, device)
+
+
+def cfm_step_parts_ms(torch, synth, state, batch, opt):
+    """One CFM step in parts (CUDA events): the forward (conditioning, the
+    regressor, the loss), the backward, the clip + AdamW update."""
+    from sylber_tpu_torch.flow.cfm import cfm_draws
+    from sylber_tpu_torch.models.hubert import matmul_precision
+    from sylber_tpu_torch.train.distill import apply_gradients, step_generators
+
+    gens = step_generators(0, state.step, "cuda")
+    draws = cfm_draws(batch["art"].shape, gens.noise, gens.mask, gens.drop, "cuda")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    for p in state.params:
+        p.grad = None
+    for m in synth.trainable_modules():
+        m.train()
+    with matmul_precision(synth.config.regressor.precision):
+        ev[0].record()
+        loss = synth.loss(batch, draws)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        apply_gradients(state.params, [p.grad for p in state.params], state.optimizer, None,
+                        state.step, opt, opt.schedule())
+        ev[3].record()
+    for m in synth.trainable_modules():
+        m.eval()
+    torch.cuda.synchronize()
+    return {k: ev[i].elapsed_time(ev[i + 1])
+            for i, k in enumerate(("forward", "backward", "optimizer"))}
+
+
+def full_cfm_runs(torch, counters, smi, tmp):
+    """``train_synthesis`` at full width (``configs/sylber_resynthesis.yaml``,
+    seeded random encoder, the synthetic corpus of FULL_CFM_UTTS utterances)
+    under "highest" and "default": 13 steps with every launch counter from 0
+    (the precompute runs conv0, small attention and both segmentation
+    passes; the held-out gate small attention), the step p50 of the last 10,
+    frames a second, the step's FLOPs (FlopCounterMode) and MFU, peak
+    memory; then on the trained model one step under
+    ``set_sync_debug_mode("error")``, a profiled step and
+    ``evaluate_synthesis`` on 8 held-out utterances with the counters from 0."""
+    import dataclasses
+
+    import yaml
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from sylber_tpu_torch.synthesis import make_synthesis_optimizer, make_synthesis_train_step
+    from sylber_tpu_torch.train import synthesis_loop as SL
+    from sylber_tpu_torch.utils.profiling import peak_flops
+
+    base = yaml.safe_load((ROOT / "configs" / "sylber_resynthesis.yaml").read_text())
+    base["data"]["n_utts"] = FULL_CFM_UTTS
+    base["eval"]["n_utts"] = 8
+    runs = {}
+    for precision in ("highest", "default"):
+        cfg = json.loads(json.dumps(base))
+        cfg["regressor_configs"]["precision"] = precision
+        out = Path(tmp) / f"cfm_{precision}"
+        for fn in counters:
+            fn.launches = 0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        import warnings
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            state, ev = SL.train_synthesis(cfg, out_dir=str(out), max_steps=13, log_every=1,
+                                           eval_steps=10, device="cuda")
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in counters}
+        peak = torch.cuda.max_memory_allocated()
+        idle = [k for k in ("conv0_gn_gelu", "small_attention", "segment_pass1", "segment_pass2")
+                if launches[k] == 0]
+        if idle:
+            raise AssertionError(f"phase 8 {precision}: kernels never launched: {idle}")
+        rows = [json.loads(ln) for ln in open(out / "metrics.jsonl")]
+        train_rows = [r for r in rows if r["prefix"] == "train"]
+        if len(train_rows) != 13 or not all(np.isfinite(r["cfm_loss"]) for r in train_rows):
+            raise AssertionError(f"phase 8 {precision}: metrics {train_rows[:2]}")
+        step_ms = [1e3 * (b["time"] - a["time"]) for a, b in zip(train_rows, train_rows[1:])][2:]
+        p50 = float(np.median(step_ms))
+
+        synth = state.synth
+        B = base["train"]["batch_size"]
+        corpus = SL.build_synthesis_corpus(B, 5.0, seed=3)
+        nt = synth.default_normthreshold
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feats, _ = SL.corpus_features(synth, synth.config, corpus, nt, 0.8)
+        torch.cuda.synchronize()
+        precompute_ms = (time.perf_counter() - t0) * 1e3
+        batch = {"features": feats, "art": torch.from_numpy(corpus["art"]).cuda()}
+        opt = make_synthesis_optimizer(lr=1e-4, warmup_steps=5000, total_steps=500000)
+        state.step = 13
+        step_fn = make_synthesis_train_step(synth, opt)
+        with FlopCounterMode(display=False) as fc:
+            step_fn(state, batch, 0)
+        flops = float(fc.get_total_flops())
+        torch.cuda.synchronize()
+        forbid_host_syncs(torch, step_fn)(state, batch, 0)  # raises on a host sync
+        torch.cuda.synchronize()
+        prof = profile(torch, lambda: step_fn(state, batch, 0), top=8)
+        parts = cfm_step_parts_ms(torch, synth, state, batch, opt)
+        frames = B * feats.shape[1]
+        rec = dict(precision=precision, batch=B, frames=int(feats.shape[1]), step_ms=step_ms,
+                   step_ms_p50=p50, frames_per_s=frames / (p50 / 1e3), step_tflop=flops / 1e12,
+                   mfu=flops / (p50 / 1e3) / peak_flops("float32", precision),
+                   max_memory_allocated_gb=peak / 1e9, launches_over_run=launches,
+                   losses=[r["cfm_loss"] for r in train_rows], train_eval=ev, profile=prof,
+                   parts_ms=parts, precompute_ms_64_utts=precompute_ms)
+        log(f"phase 8 CFM {precision}: B{B} x {rec['frames']} frames (regressor depth 8, 512 "
+            f"wide): step p50 {p50:.1f} ms (10 steps after 3 warm-up, min {min(step_ms):.1f}, "
+            f"max {max(step_ms):.1f}), {rec['frames_per_s']:.0f} frames/s, {flops / 1e12:.2f} "
+            f"TFLOP a step, MFU {100 * rec['mfu']:.1f} % of the fp32 {precision} peak, "
+            f"max_memory_allocated {peak / 1e9:.2f} GB; loss {rec['losses'][0]:.4g} -> "
+            f"{rec['losses'][-1]:.4g}; launches over the run {launches}  [{smi}]")
+        log(f"phase 8 CFM {precision}: one step under set_sync_debug_mode('error'): no host "
+            f"sync; profiled step: device busy {prof['device_ms']:.1f} of {prof['wall_ms']:.1f} "
+            f"ms, {prof['launches']} launches; top: "
+            + ", ".join(f"{k} {v:.1f} ms" for k, v in prof["top_ms"]))
+        log(f"phase 8 CFM {precision}: a step in parts (CUDA events): "
+            + ", ".join(f"{k} {v:.1f} ms" for k, v in parts.items())
+            + f"; precompute of 64 x 5 s (encoder, both segmentation passes, the fill) "
+            f"{precompute_ms:.1f} ms  [{smi}]")
+
+        heldout = SL.build_synthesis_corpus(8, 5.0, seed=90001)
+        feats_ev, _ = SL.corpus_features(synth, synth.config, heldout, nt, 0.8)
+        for fn in counters:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        metrics = SL.evaluate_synthesis(synth, feats_ev, heldout["art"], steps=10)
+        rec["evaluate_ms"] = (time.perf_counter() - t0) * 1e3
+        rec["evaluate"] = metrics
+        rec["evaluate_launches"] = {fn.__name__: fn.launches for fn in counters}
+        if rec["evaluate_launches"]["small_attention"] == 0 or not np.isfinite(
+                metrics["loud_corr"]):
+            raise AssertionError(f"phase 8 evaluate_synthesis: {rec['evaluate_launches']}, "
+                                 f"{metrics}")
+        log(f"phase 8 CFM {precision}: evaluate_synthesis on 8 held-out utterances (midpoint, "
+            f"10 steps) {rec['evaluate_ms']:.1f} ms, small attention launched "
+            f"{rec['evaluate_launches']['small_attention']} times; pitch_corr "
+            f"{metrics['pitch_corr']:.3f}, loud_corr {metrics['loud_corr']:.3f} (random "
+            f"weights)  [{smi}]")
+        runs[precision] = rec
+        del state, synth, feats, batch, feats_ev
+        torch.cuda.empty_cache()
+    launches = {fn.__name__: sum(r["launches_over_run"][fn.__name__]
+                                 + r["evaluate_launches"][fn.__name__] for r in runs.values())
+                for fn in counters}
+    return runs, launches
+
+
+def full_vq_step(torch, smi):
+    """One joint-VQ step (and a warm-up) at full width with the quantizer
+    shape of ``sylber_resynthesis_tokens_mini.yaml`` on 768-d features."""
+    import yaml
+
+    from sylber_tpu_torch.flow.quantizer import quantizer_forward, vq_ema_update
+    from sylber_tpu_torch.synthesis import make_synthesis_optimizer
+    from sylber_tpu_torch.train import synthesis_loop as SL
+    from sylber_tpu_torch.train import vq_synthesis as VQ
+
+    cfg = yaml.safe_load((ROOT / "configs" / "sylber_resynthesis.yaml").read_text())
+    tok = yaml.safe_load((ROOT / "configs" / "sylber_resynthesis_tokens_mini.yaml").read_text())
+    _, sc, synth, nt, mt = _quiet_setup(SL, cfg, "cuda")
+    qcfg = VQ.quantizer_config_from_dict(tok["model"]["quantizer_configs"],
+                                         input_dim=sc.hubert.hidden_size)
+    B = cfg["train"]["batch_size"]
+    corpus = SL.build_synthesis_corpus(B, 5.0, seed=5)
+    feats, _ = SL.corpus_features(synth, sc, corpus, nt, mt)
+    batch = {"features": feats, "art": torch.from_numpy(corpus["art"]).cuda()}
+    opt = make_synthesis_optimizer(lr=1e-4, warmup_steps=10, total_steps=1000)
+    state = VQ.init_vq_synthesis_train_state(synth, qcfg, opt, seed=7)
+    step = VQ.make_vq_synthesis_train_step(synth, qcfg, opt, commit_weight=1.0,
+                                           pitch_weight=1.0)
+    torch.cuda.reset_peak_memory_stats()
+    step(state, batch, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = step(state, batch, 0)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    # the codebooks' EMA update alone, on this step's pre-VQ outputs
+    with torch.no_grad():
+        out = quantizer_forward(state.quantizer, qcfg, feats)
+    nb = (feats ** 2).sum(-1) > 0
+    P, n_art = qcfg.pitch_emb_dim, qcfg.art_vq.groups * qcfg.art_vq.num_quantizers
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ema_ms = time_ms(torch, lambda: (
+        vq_ema_update(state.quantizer.art_vq, qcfg.art_vq, out["non_quantized"][..., :-P],
+                      out["indices"][..., :n_art], gen, mask=nb),
+        vq_ema_update(state.quantizer.pitch_vq, qcfg.pitch_vq, out["non_quantized"][..., -P:],
+                      out["indices"][..., n_art:], gen, mask=nb)), reps=5)
+    vals = {k: float(v) for k, v in m.items()}
+    ok = all(np.isfinite(v) for v in vals.values())
+    rec = dict(batch=B, frames=int(feats.shape[1]), step_ms=ms, ema_update_ms=ema_ms,
+               metrics=vals, max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+               ok=bool(ok))
+    log(f"phase 8 joint VQ: B{B} x {rec['frames']} frames, quantizer 768 -> [128, 128] -> 32 "
+        f"(art 24 x 256 codes, pitch 8 x 64): step {ms:.1f} ms (after one warm-up), of it the "
+        f"EMA update of both codebooks {ema_ms:.2f} ms (CUDA events), "
+        f"max_memory_allocated {rec['max_memory_allocated_gb']:.2f} GB, "
+        + ", ".join(f"{k} {v:.4g}" for k, v in vals.items()) + f" ok={ok}  [{smi}]")
+    del state, synth, feats, batch
+    torch.cuda.empty_cache()
+    return rec
+
+
+def full_vocoder_step(torch, smi):
+    """``make_vocoder_train_step`` at ``SparcDecoderConfig()`` width (512
+    initial channels, x320, the harmonic source off as in that config),
+    B16 x 32 frames: step p50 of 5 after 2 warm-up, peak memory."""
+    from sylber_tpu_torch.vocoder import SparcDecoderConfig, VocoderTrainConfig
+    from sylber_tpu_torch.vocoder import make_vocoder_train_step
+
+    gcfg = SparcDecoderConfig().generator
+    init_fn, step_fn = make_vocoder_train_step(VocoderTrainConfig(model=gcfg))
+    state = init_fn("cuda", seed=0)
+    rng = np.random.RandomState(8)
+    B, T = 16, 32
+    feats = rng.randn(B, T, 14).astype(np.float32) * 0.5
+    feats[..., 12] = np.log(rng.uniform(90, 250, (B, T)) / 100.0)
+    wav = np.stack([speechlike(rng, T * 320) * 0.3 for _ in range(B)])
+    args = [torch.from_numpy(a).cuda() for a in (feats, wav, rng.randn(B, 64).astype(np.float32))]
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step_fn(state, *args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    vals = {k: float(v) for k, v in m.items()}
+    p50 = float(np.median(times[2:]))
+    rec = dict(batch=B, frames=T, step_ms=times[2:], step_ms_p50=p50, metrics=vals,
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+               ok=bool(all(np.isfinite(v) for v in vals.values())))
+    log(f"phase 8 vocoder: B{B} x {T} frames ({T * 320} samples), generator 512 -> x320 + "
+        f"MPD + MSD: step p50 {p50:.1f} ms (5 after 2 warm-up), max_memory_allocated "
+        f"{rec['max_memory_allocated_gb']:.2f} GB, "
+        + ", ".join(f"{k} {v:.4g}" for k, v in vals.items()) + f" ok={rec['ok']}  [{smi}]")
+    del state, args
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _mini_batch(torch, B=4, seconds=1.2, seed=0):
+    """Averaged/blanked 144-d features of random segments and the corpus's
+    art (the CPU tests' batch)."""
+    from sylber_tpu_torch.train.synthesis_loop import build_synthesis_corpus
+
+    rng = np.random.RandomState(seed)
+    art = build_synthesis_corpus(B, seconds, seed=seed)["art"]
+    L = art.shape[1]
+    feats = np.zeros((B, L, 144), np.float32)
+    for b in range(B):
+        t = 2
+        while t < L - 3:
+            n = rng.randint(3, 12)
+            if rng.rand() > 0.15:
+                feats[b, t:t + n] = rng.randn(144) * 0.4
+            t += n
+    return {"features": feats, "art": art.astype(np.float32)}
+
+
+def _on(torch, d, dev):
+    return {k: torch.from_numpy(v).to(dev) for k, v in d.items()}
+
+
+def _named(mods):
+    """``{"<name>/<leaf>": tensor}`` over modules and encoder layers."""
+    out = {}
+    for n, m in mods:
+        items = m.named_parameters() if hasattr(m, "named_parameters") else m.items()
+        out.update({f"{n}/{k}": t for k, t in items})
+    return out
+
+
+def grads_of(mods):
+    return {k: t.grad.detach().cpu() for k, t in _named(mods).items()}
+
+
+def params_of(mods):
+    return {k: t.detach().cpu() for k, t in _named(mods).items()}
+
+
+def mini_training_agreement(torch, smi):
+    """One CFM step (``mini_synth.npz``) and one joint-VQ step
+    (``mini_vq_synth.npz`` + ``mini_vq_tokenizer.npz``) on the card and on
+    the CPU with the same draws, fp32 at "highest", dropout 0: losses,
+    gradients (the leaf with the largest difference named) and updated
+    parameters; then ``vocoder_agreement``."""
+    import dataclasses
+
+    from sylber_tpu_torch.flow.cfm import cfm_draws
+    from sylber_tpu_torch.flow.quantizer import vq_reseed_draw
+    from sylber_tpu_torch.io.checkpoint import load_params_npz
+    from sylber_tpu_torch.synthesis import (SegmentSynthesis, init_synthesis_train_state,
+                                            make_synthesis_optimizer, make_synthesis_train_step,
+                                            synthesis_config_from_dict)
+    from sylber_tpu_torch.train import vq_synthesis as VQ
+    from sylber_tpu_torch.vq_tokenizer import TrainedVQTokenizer
+
+    enc = load_params_npz(str(FIXTURES / "mini_ckpt.npz"))
+    host = _mini_batch(torch)
+    g = [torch.Generator().manual_seed(s) for s in (1, 2, 3)]
+    draws = cfm_draws(host["art"].shape, *g, device="cpu")
+    opt_kw = dict(lr=4e-4, warmup_steps=0, total_steps=100, min_factor=0.05)
+    checks = []
+
+    def synth_on(name, dev):
+        mc = json.loads((FIXTURES / f"{name}.json").read_text())["config"]["model"]
+        sc = synthesis_config_from_dict(mc)
+        sc = dataclasses.replace(sc, input_dropout=0.0, regressor=dataclasses.replace(
+            sc.regressor, precision="highest"))
+        return SegmentSynthesis(config=sc, params={"hubert": enc, **load_params_npz(
+            str(FIXTURES / f"{name}.npz"))}, device=dev), mc
+
+    # the CFM step
+    out = {}
+    for dev in ("cuda", "cpu"):
+        synth, _ = synth_on("mini_synth", dev)
+        opt = make_synthesis_optimizer(**opt_kw)
+        state = init_synthesis_train_state(synth, opt)
+        d = type(draws)(*(t.to(dev) if torch.is_tensor(t) else t for t in draws))
+        m = make_synthesis_train_step(synth, opt)(state, _on(torch, host, dev), 0, draws=d)
+        mods = (("input_mlp", synth.input_mlp), ("regressor", synth.regressor))
+        out[dev] = dict(loss=float(m["cfm_loss"]), grads=grads_of(mods), params=params_of(mods))
+    checks.append(_agreement("CFM step, mini_synth.npz (B4 x 60 frames)", out, SYNTH_GRAD_RTOL))
+
+    # the joint-VQ step
+    mc = json.loads((FIXTURES / "mini_vq_synth.json").read_text())["config"]
+    out = {}
+    nb = torch.from_numpy((host["features"] ** 2).sum(-1).reshape(-1) > 0).float()
+    qcfg = VQ.quantizer_config_from_dict(mc["model"]["quantizer_configs"], input_dim=144)
+    sample_idx = tuple(vq_reseed_draw(torch.Generator().manual_seed(5 + i), nb,
+                                      (1, 1, c.codebook_size))
+                       for i, c in enumerate((qcfg.art_vq, qcfg.pitch_vq)))
+    for dev in ("cuda", "cpu"):
+        synth, _ = synth_on("mini_vq_synth", dev)
+        tok = TrainedVQTokenizer.load_npz(str(FIXTURES / "mini_vq_tokenizer.npz"), qcfg,
+                                          device=dev)
+        opt = make_synthesis_optimizer(**opt_kw)
+        state = VQ.init_vq_synthesis_train_state(synth, qcfg, opt, quantizer=tok.state)
+        with torch.no_grad():
+            state.pitch_head["kernel"].fill_(0.1)
+        d = type(draws)(*(t.to(dev) if torch.is_tensor(t) else t for t in draws))
+        m = VQ.make_vq_synthesis_train_step(synth, qcfg, opt, pitch_weight=1.0)(
+            state, _on(torch, host, dev), 0, draws=d,
+            sample_idx=tuple(s.to(dev) for s in sample_idx))
+        mods = [("input_mlp", synth.input_mlp), ("regressor", synth.regressor)] + [
+            (f"qenc_{i}", layer) for i, layer in enumerate(state.quantizer.encoder)]
+        p = params_of(mods)
+        p.update({f"vq/{n}/{i}": t.cpu() for n, vq in (("art", state.quantizer.art_vq),
+                                                        ("pitch", state.quantizer.pitch_vq))
+                  for i, t in enumerate(vq)})
+        out[dev] = dict(loss=float(m["loss"]), grads=grads_of(mods), params=p)
+    checks.append(_agreement("joint-VQ step, mini_vq_synth.npz", out, SYNTH_GRAD_RTOL))
+
+    checks += vocoder_agreement(torch)
+    for c in checks:
+        params = ("not compared" if c["params_total"] is None else
+                  f"{c['params_off']} of {c['params_total']} (largest "
+                  f"{c['param_max_abs_err']:.3g}; {c['params_flipped']} more at gradients within "
+                  f"the largest difference of 0)")
+        log(f"phase 8 card vs CPU, {c['what']}: loss rel {c['loss_rel']:.3g} (tol "
+            f"{SYNTH_LOSS_RTOL}), gradients {c['grad']['rel']:.3g} of the largest (tol "
+            f"{c['grad_tol'] or 'none: reported'}), L2 {c['grad']['l2_rel']:.3g} of the norm, "
+            f"set by {c['grad']['leaf']} ({c['grad']['leaf_own_rel']:.3g} of its own largest; "
+            f"next " + ", ".join(f"{k} {e:.3g}" for k, e in c["grad"]["top"][1:3])
+            + f"); parameters off by more than {SYNTH_PARAM_ATOL}: {params} ok={c['ok']}  [{smi}]")
+    return checks
+
+
+def vocoder_agreement(torch, dev="cuda"):
+    """One ``make_vocoder_train_step`` step (``mini_vocoder.npz``, seeded
+    discriminators, B2 x 8 frames at 250 Hz, where the source's phase sum
+    is exact) on ``dev`` and on the CPU at "highest": in float64 the whole
+    step (both losses, every gradient, every updated parameter); in float32
+    the losses, the discriminators' gradients and parameters from the same
+    start, and the generator's gradient against the same (the CPU's
+    updated) discriminators, reported beside the float64 one."""
+    from sylber_tpu_torch.io.checkpoint import generator_state_dict_from_jax, load_params_npz
+    from sylber_tpu_torch.models.hubert import matmul_precision
+    from sylber_tpu_torch.vocoder import HiFiGANConfig, VocoderTrainConfig
+    from sylber_tpu_torch.vocoder import make_vocoder_train_step
+    from sylber_tpu_torch.vocoder.hifigan import generator_step_loss
+
+    meta = json.loads((FIXTURES / "mini_vocoder.json").read_text())
+    vcfg = VocoderTrainConfig(model=HiFiGANConfig(**meta["generator"]))
+    gen = generator_state_dict_from_jax(load_params_npz(str(FIXTURES / "mini_vocoder.npz")))
+    rng = np.random.RandomState(0)
+    B, T = 2, 8
+    feats = rng.randn(B, T, 14).astype(np.float32) * 0.5
+    feats[..., 12] = np.float32(np.log(2.5))
+    vhost = {"f": feats, "w": np.stack([speechlike(rng, T * 320) * 0.3 for _ in range(B)]),
+             "c": rng.randn(B, 64).astype(np.float32),
+             "n": rng.randn(B, T * 320).astype(np.float32)}
+    checks = []
+
+    def step(d, dtype):
+        init_fn, step_fn = make_vocoder_train_step(vcfg, precision="highest")
+        state = init_fn(d, seed=3, generator_state=gen)
+        for m in (state.generator, state.mpd, state.msd):
+            m.to(dtype)
+        v = {k: t.to(dtype) for k, t in _on(torch, vhost, d).items()}
+        return state, v, step_fn(state, v["f"], v["w"], v["c"], noise=v["n"])
+
+    out = {}
+    for key, d in (("cpu", "cpu"), ("cuda", dev)):
+        state, _, m = step(d, torch.float64)
+        mods = (("gen", state.generator), ("mpd", state.mpd), ("msd", state.msd))
+        out[key] = dict(loss=[float(m["d_loss"]), float(m["g_loss"])], grads=grads_of(mods),
+                      params=params_of(mods))
+    checks.append(_agreement("vocoder step in float64, mini_vocoder.npz (B2 x 8 frames): "
+                             "both losses, all three networks", out, SYNTH_GRAD_RTOL))
+    out, states = {}, {}
+    for key, d in (("cpu", "cpu"), ("cuda", dev)):
+        state, v, m = step(d, torch.float32)
+        states[key] = state
+        discs = (("mpd", state.mpd), ("msd", state.msd))
+        out[key] = dict(loss=float(m["d_loss"]), grads=grads_of(discs), params=params_of(discs))
+    checks.append(_agreement("vocoder step in float32: the discriminators", out,
+                             SYNTH_GRAD_RTOL, adam_flips=True))
+    out = {}
+    for key, d in (("cpu", "cpu"), ("cuda", dev)):
+        init_fn, _ = make_vocoder_train_step(vcfg, precision="highest")
+        fresh = init_fn(d, seed=3, generator_state=gen)
+        fresh.mpd.load_state_dict(states["cpu"].mpd.state_dict())
+        fresh.msd.load_state_dict(states["cpu"].msd.state_dict())
+        v = _on(torch, vhost, d)
+        with matmul_precision("highest"):
+            loss, _ = generator_step_loss(vcfg, fresh.generator, fresh.mpd, fresh.msd, v["f"],
+                                          v["w"], v["c"], v["n"])
+            loss.backward()
+        out[key] = dict(loss=float(loss.detach()), grads=grads_of((("gen", fresh.generator),)),
+                        params=None)
+    checks.append(_agreement("vocoder step in float32: the generator against the same "
+                             "discriminators (its gradient reported, held in float64)", out))
+    return checks
+
+
+def _agreement(what, out, grad_tol=None, adam_flips=False):
+    """Card against CPU: the loss or losses, the gradients (largest element
+    against ``grad_tol`` of the largest, or reported only where it is
+    None), the updated parameters where given (with ``adam_flips``, an
+    element off by more than SYNTH_PARAM_ATOL is let pass only where its
+    CPU gradient lies within the gradients' largest difference of 0)."""
+    g, c = out["cuda"], out["cpu"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(np.atleast_1d(g["loss"]),
+                                                       np.atleast_1d(c["loss"])))
+    gap = gradient_gap(g["grads"], c["grads"])
+    off = flipped = total = worst = None
+    if c["params"] is not None:
+        off = flipped = total = 0
+        for k, v in c["params"].items():
+            far = (g["params"][k] - v).abs() > SYNTH_PARAM_ATOL
+            if adam_flips:
+                near_zero = c["grads"][k].abs() <= gap["leaf_abs"]
+                flipped += int((far & near_zero).sum())
+                far = far & ~near_zero
+            off += int(far.sum())
+            total += v.numel()
+        worst = max(float((g["params"][k] - v).abs().max()) for k, v in c["params"].items())
+    ok = (loss_rel <= SYNTH_LOSS_RTOL and not off
+          and (grad_tol is None or gap["rel"] <= grad_tol))
+    return dict(what=what, loss_cuda=g["loss"], loss_cpu=c["loss"], loss_rel=loss_rel,
+                grad=gap, grad_tol=grad_tol, params_off=off, params_flipped=flipped,
+                params_total=total, param_max_abs_err=worst, ok=bool(ok))
+
+
+def synthesis_training_phase(torch, ops, counters, smi):
+    """Phase 8: the resynthesis trainers on the card. Any failed check raises."""
+    from sylber_tpu_torch.flow import kmeans as km
+    from sylber_tpu_torch.models.hubert import matmul_precision
+
+    with matmul_precision("highest"):
+        seeding = kmeanspp_records(torch, km)
+    for r in seeding:
+        log(f"phase 8: kmeanspp {r['name']} {r['shape']} (n, d, k): {r['ties']} tie(s) (worst "
+            f"gap {r['worst_tie_gap']:.2g} of the total, tol {KMEANSPP_TIE_RTOL}), "
+            f"{r['non_tie_differences']} other differences, copy err {r['max_abs_err']}, "
+            f"distinct {r['distinct_ok']} ok={r['ok']}  kernel_ms {r['ms']:.3f}  plain_ms "
+            f"{r['plain_ms']:.3f}  bound_ms {r['bound_ms']:.3f} ({r['bound_by']}; x read once: "
+            f"{r['bound_once_ms']:.4f})  {r['cuda_launches_per_call']} launches a call  [{smi}]")
+    bad = [r for r in seeding if not r["ok"]]
+    if bad:
+        raise AssertionError(f"kmeanspp disagrees with its plain version: {bad}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_synth_") as tmp:
+        fit = fit_kmeans_run(torch, km, smi)
+        if not fit["ok"]:
+            raise AssertionError(f"phase 8 fit_kmeans: {fit}")
+        runs, launches = full_cfm_runs(torch, counters, smi, tmp)
+    vq = full_vq_step(torch, smi)
+    voc = full_vocoder_step(torch, smi)
+    mini = mini_training_agreement(torch, smi)
+    bad = [c["what"] for c in mini if not c["ok"]] + [n for n, r in (("vq", vq), ("vocoder", voc))
+                                                       if not r["ok"]]
+    if bad:
+        raise AssertionError(f"phase 8 failed: {bad}")
+    return dict(kmeanspp=seeding, fit_kmeans=fit, cfm=runs, launches=launches, vq=vq,
+                vocoder=voc, mini=mini, kmeanspp_launches=fit["kmeanspp_launches"])
+
+
+def reproduce_synthesis(torch, smi):
+    """``configs/sylber_resynthesis_mini.yaml`` trained on the card by the
+    port (6,000 steps, the trained ``mini_ckpt.npz`` encoder), evaluated with
+    50 ODE steps: the recorded eval is ``mini_synth.json``'s; the JAX
+    package's gates are pitch_corr > 0.5 and loud_corr > 0.6."""
+    import yaml
+
+    from sylber_tpu_torch.train.synthesis_loop import train_synthesis
+
+    cfg = yaml.safe_load((ROOT / "configs" / "sylber_resynthesis_mini.yaml").read_text())
+    cfg["speech_model_ckpt"] = str(FIXTURES / "mini_ckpt.npz")
+    recorded = json.loads((FIXTURES / "mini_synth.json").read_text())["eval"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_reproduce_") as tmp:
+        t0 = time.perf_counter()
+        _, ev = train_synthesis(cfg, out_dir=tmp, log_every=500, eval_steps=50, device="cuda")
+        wall = time.perf_counter() - t0
+    ok = ev["pitch_corr"] > 0.5 and ev["loud_corr"] > 0.6
+    log(f"reproduce: sylber_resynthesis_mini.yaml, {cfg['train']['max_steps']} steps on the "
+        f"card in {wall:.1f} s: pitch_corr {ev['pitch_corr']:.4f} (recorded "
+        f"{recorded['pitch_corr']:.4f}), loud_corr {ev['loud_corr']:.4f} (recorded "
+        f"{recorded['loud_corr']:.4f}), art_l1_voiced {ev['art_l1_voiced']:.4f} (recorded "
+        f"{recorded['art_l1_voiced']:.4f}); gates > 0.5 / > 0.6 ok={ok}  [{smi}]")
+    log(json.dumps(dict(reproduce=ev, recorded=recorded, wall_s=wall)))
+    if not ok:
+        raise AssertionError(f"the reproduced mini eval misses the gates: {ev}")
+    return ev
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the full report as JSON to this path")
     ap.add_argument("--only-resynthesis", action="store_true",
                     help="build the kernels and run phase 7 alone (a quicker check while "
                          "working on the resynthesis chain); prints no result line")
+    ap.add_argument("--only-synthesis-training", action="store_true",
+                    help="build the kernels and run phase 8 alone; prints no result line")
+    ap.add_argument("--reproduce-synthesis", action="store_true",
+                    help="build the kernels, then train configs/sylber_resynthesis_mini.yaml "
+                         "(6,000 steps) on the card and evaluate it with 50 ODE steps against "
+                         "mini_synth.json's recorded eval; prints no result line")
     args = ap.parse_args()
 
     import torch
@@ -2026,6 +2718,12 @@ def main() -> int:
                 ops.segment.segment_pass2]
     if args.only_resynthesis:
         resynthesis_phase(torch, ops, counters, smi)
+        return 0
+    if args.only_synthesis_training:
+        synthesis_training_phase(torch, ops, counters, smi)
+        return 0
+    if args.reproduce_synthesis:
+        reproduce_synthesis(torch, smi)
         return 0
 
     with matmul_precision("highest"):
@@ -2111,6 +2809,11 @@ def main() -> int:
     resynthesis = resynthesis_phase(torch, ops, counters, smi)
     launches = {k: v + resynthesis["launches"][k] for k, v in launches.items()}
 
+    synthesis_training = synthesis_training_phase(torch, ops, counters, smi)
+    log(f"phase 8: launches over the full-width CFM runs: {synthesis_training['launches']}; "
+        f"kmeanspp over fit_kmeans: {synthesis_training['kmeanspp_launches']}  [{smi}]")
+    launches = {k: v + synthesis_training["launches"][k] for k, v in launches.items()}
+
     sources = {"conv0_gn_gelu": ("frontend.cu", "sylber_tpu/ops/pallas/frontend.py:122"),
                "small_attention": ("smallattn.cu", "sylber_tpu/ops/pallas/smallattn.py:78"),
                "flash_attention": ("flash.cu", "sylber_tpu/ops/pallas/flash.py:125"),
@@ -2166,6 +2869,24 @@ def main() -> int:
         entries[name]["resynthesis_shape"] = rec["float32"]
     for name, entry in entries.items():
         entry["resynthesis_launches"] = resynthesis["launches"][name]
+        entry["synthesis_training_launches"] = synthesis_training["launches"][name]
+    # the seeding kernel (phase 8): its main path is fit_kmeans; the headline
+    # shape is the production seed pool's width at 2,000 centers
+    seeding = synthesis_training["kmeanspp"]
+    head = next(r for r in seeding if r["name"] == "full_width")
+    line.append(dict(name="kmeanspp", route="cuda", source="sylber_tpu_torch/csrc/kmeanspp.cu",
+                     replaces="sylber_tpu/flow/kmeans.py:31",
+                     launches=synthesis_training["kmeanspp_launches"],
+                     max_abs_err=head["max_abs_err"], ms=head["ms"], plain_ms=head["plain_ms"],
+                     bound_ms=head["bound_ms"], bound_by=head["bound_by"], library_ms=None,
+                     dtype="float32", shape=head["shape"],
+                     cuda_launches_per_call=head["cuda_launches_per_call"],
+                     bound_once_ms=head["bound_once_ms"],
+                     ties=sum(r["ties"] for r in seeding),
+                     shapes=[{k: r[k] for k in ("name", "shape", "ties", "worst_tie_gap", "ms",
+                                                "plain_ms", "bound_ms", "ok")}
+                             for r in seeding],
+                     fit_kmeans=synthesis_training["fit_kmeans"]))
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         build_log = kernels.BUILD_DIR / "build.log"  # registers, shared memory, spills
@@ -2179,7 +2900,8 @@ def main() -> int:
                                                   shared_divisor=division,
                                                   mini_ckpt=mini, consumers=consumers,
                                                   training=training,
-                                                  resynthesis=resynthesis),
+                                                  resynthesis=resynthesis,
+                                                  synthesis_training=synthesis_training),
                                              indent=1))
     log(json.dumps({"kernels": line}))
     log(smi)

@@ -1,7 +1,15 @@
-"""Conditional flow matching: the ODE samplers, with no host read per step.
+"""Conditional flow matching: the training loss, and the ODE samplers with
+no host read per step.
 
-Port of the sampling half of ``sylber_tpu/flow/cfm.py`` (``cfm_loss`` and
-``mask_from_frac_lengths`` belong to the trainer, not ported yet):
+Port of ``sylber_tpu/flow/cfm.py``:
+
+- :func:`cfm_loss`: t ~ U[0, 1], w = (1 - (1 - sigma) t) x0 + t x1, flow =
+  x1 - (1 - sigma) x0, the masked L1 of the predicted field, the
+  conditioning masked by a random span (:func:`mask_from_frac_lengths`).
+  Its randomness is split from its arithmetic, as the trainer's span mask
+  is: :func:`cfm_draws` draws x0, the times, the span's two uniforms and the
+  dropout seed from torch generators, and the loss is a pure function of
+  them (the tests hand it JAX's draws);
 
 - :func:`sample_midpoint`: y0 = randn * rand_scale, then a fixed grid over
   t = linspace(0, 1, steps) (euler, midpoint or rk4). JAX runs it as a
@@ -29,12 +37,71 @@ is not JAX's stream; ``y0=`` takes a given start (the tests pass JAX's).
 from __future__ import annotations
 
 import warnings
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 CHUNK_STEPS = 8  # masked adaptive steps enqueued between two reads of the status
+
+
+class CFMDraws(NamedTuple):
+    x0: torch.Tensor        # (B, L, D) the noise end of the path
+    times: torch.Tensor     # (B,) t ~ U[0, 1)
+    frac_u: torch.Tensor    # (B,) uniform of the span's length
+    start_u: torch.Tensor   # (B,) uniform of the span's start
+    dropout_seed: int       # seed of the regressor's dropout masks
+
+
+def cfm_draws(shape, noise: torch.Generator, mask: torch.Generator, drop: torch.Generator,
+              device) -> CFMDraws:
+    """The draws of one :func:`cfm_loss`: x0 and the times from ``noise``, the
+    span's uniforms from ``mask`` (both device generators), the dropout seed
+    from ``drop`` (a CPU generator: nothing is read from the device)."""
+    B = shape[0]
+    x0 = torch.randn(shape, generator=noise, device=device)
+    times = torch.rand(B, generator=noise, device=device)
+    frac_u = torch.rand(B, generator=mask, device=device)
+    start_u = torch.rand(B, generator=mask, device=device)
+    seed = int(torch.randint(0, 2 ** 62, (), generator=drop))
+    return CFMDraws(x0, times, frac_u, start_u, seed)
+
+
+def mask_from_frac_lengths(frac_u: torch.Tensor, start_u: torch.Tensor, seq_len: int,
+                           frac_range=(0.7, 1.0)) -> torch.Tensor:
+    """(B, L) bool: a contiguous span covering a fraction of the sequence, in
+    JAX's arithmetic: the length truncated to int32, the start a float, and
+    the end compared as a float (rounding it would move a frame)."""
+    lo, hi = frac_range
+    frac = frac_u.float() * (hi - lo) + lo
+    lengths = (frac * seq_len).to(torch.int32)
+    max_start = seq_len - lengths
+    start = torch.clamp_min(max_start * start_u.float(), 0.0)
+    end = start + lengths
+    seq = torch.arange(seq_len, device=frac_u.device)[None, :]
+    return (seq >= start.to(torch.int32)[:, None]) & (seq < end[:, None])
+
+
+def cfm_loss(apply_fn: Callable, draws: CFMDraws, x1: torch.Tensor,
+             cond_emb: Optional[torch.Tensor] = None, mask: Optional[torch.Tensor] = None,
+             sigma: float = 0.0, frac_lengths_mask=(0.7, 1.0),
+             train: bool = True) -> torch.Tensor:
+    """``apply_fn(w, times, cond, cond_emb, self_attn_mask, cond_mask,
+    dropout_seed, train) -> pred``; the scalar masked-L1 flow-matching loss:
+    per frame the mean over channels, summed over the frames of the span
+    (and of ``mask``), divided by their count (at least 1e-5), averaged over
+    the batch."""
+    t = draws.times[:, None, None]
+    x0 = draws.x0
+    w = (1.0 - (1.0 - sigma) * t) * x0 + t * x1
+    flow = x1 - (1.0 - sigma) * x0
+    cond_mask = mask_from_frac_lengths(draws.frac_u, draws.start_u, x1.shape[1],
+                                       frac_lengths_mask)
+    pred = apply_fn(w, draws.times, x1, cond_emb, mask, cond_mask, draws.dropout_seed, train)
+    loss_mask = cond_mask if mask is None else cond_mask & (mask > 0)
+    per_frame = torch.where(loss_mask, (pred - flow).abs().mean(-1), 0.0)
+    den = torch.clamp_min(loss_mask.sum(-1).to(per_frame.dtype), 1e-5)
+    return (per_frame.sum(-1) / den).mean()
 
 
 def time_grid(steps: int) -> np.ndarray:

@@ -12,24 +12,26 @@ k-means quantizers are ``sylber_tpu_torch/quantizer.py``):
 - :class:`ScalarPitchQuantizer`, the uniform pitch-token quantizer of the
   explicit-pitch path.
 
-The codebooks' EMA update (``vq_ema_update``) belongs to the trainer and is
-not ported yet. Parameters keep the JAX layouts (Dense kernels (in, out)), as
-torch tensors on one device. The nearest-code search is the k-means one,
-a full-precision fp32 distance matmul.
+and the training half: :func:`vq_init` and :func:`vq_ema_update`, the EMA
+k-means update of the codebooks with dead-code reseeding. Parameters keep
+the JAX layouts (Dense kernels (in, out)), as torch tensors on one device.
+The nearest-code search is the k-means one, a full-precision fp32 distance
+matmul.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, NamedTuple, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..quantizer import KMQuantizer, ResidualKMQuantizer, _nearest, load_km_quantizer
 
 __all__ = ["KMQuantizer", "ResidualKMQuantizer", "load_km_quantizer", "unit_norm",
            "unit_norm_sep", "GroupedResidualVQConfig", "VQState", "vq_encode", "vq_decode",
-           "vq_forward", "FFEncoder", "QuantizerConfig", "QuantizerState", "quantizer_init",
+           "vq_forward", "vq_init", "vq_ema_update", "vq_reseed_draw", "FFEncoder", "QuantizerConfig", "QuantizerState", "quantizer_init",
            "quantizer_forward", "quantizer_decode", "load_quantizer", "ScalarPitchQuantizer"]
 
 
@@ -102,6 +104,84 @@ def vq_forward(state: VQState, cfg: GroupedResidualVQConfig, x: torch.Tensor):
     return x + (q - x).detach(), idx, commit
 
 
+def vq_init(cfg: GroupedResidualVQConfig, generator: torch.Generator, device=None) -> VQState:
+    """Codebooks normal(0, 0.02), EMA counts 1, EMA sums the codebooks."""
+    cb = torch.randn(cfg.groups, cfg.num_quantizers, cfg.codebook_size, cfg.dim_group,
+                     generator=generator) * 0.02
+    return VQState(cb.to(device), torch.ones(cb.shape[:-1], device=device), cb.clone().to(device))
+
+
+def vq_reseed_draw(generator: torch.Generator, mask: torch.Tensor, shape) -> torch.Tensor:
+    """Indices (``shape``) of points drawn uniformly, with replacement, among
+    those where ``mask`` (n,) is positive (among all where none is): the
+    draw of JAX's ``categorical(where(m > 0, 0, -1e9))``, by the inverse CDF
+    of float64 uniforms from ``generator``, with no read from the device."""
+    w = torch.where((mask > 0).any(), (mask > 0).double(), torch.ones_like(mask, dtype=torch.float64))
+    cum = torch.cumsum(w, 0)
+    u = torch.rand(shape, generator=generator, device=mask.device, dtype=torch.float64)
+    idx = torch.searchsorted(cum, (u * cum[-1]).reshape(-1), right=True)
+    return idx.clamp_max(mask.shape[0] - 1).reshape(shape)
+
+
+@torch.no_grad()
+def vq_ema_update(state: VQState, cfg: GroupedResidualVQConfig, x: torch.Tensor,
+                  indices: torch.Tensor, generator: Optional[torch.Generator] = None,
+                  mask: Optional[torch.Tensor] = None,
+                  sample_idx: Optional[torch.Tensor] = None) -> VQState:
+    """EMA k-means update of the codebooks (vector-quantize-pytorch
+    semantics, ``sylber_tpu/flow/quantizer.py::vq_ema_update``): per group
+    and quantizer, the one-hot counts and sums of the residual (masked by
+    ``mask``, broadcast to x's leading dims), decayed into the EMA counts
+    and sums, the codes that got points set to sum / max(count, eps), then
+    ``residual -= old_codebook[idx]``. With ``generator`` (or injected
+    ``sample_idx`` (groups, quantizers, K)), codes whose EMA count fell
+    below ``dead_threshold`` are reseeded, when any point is valid, from
+    valid batch vectors (:func:`vq_reseed_draw`), with count
+    ``2 * dead_threshold``."""
+    parts = torch.split(x.reshape(-1, cfg.dim), cfg.dim_group, dim=-1)
+    flat_idx = indices.reshape(-1, cfg.groups * cfg.num_quantizers)
+    n_pts = flat_idx.shape[0]
+    if mask is not None:
+        m = torch.broadcast_to(mask, x.shape[:-1]).reshape(n_pts).to(x.dtype)
+    else:
+        m = torch.ones(n_pts, dtype=x.dtype, device=x.device)
+    any_valid = m.sum() > 0
+    reseed = generator is not None or sample_idx is not None
+    if reseed and sample_idx is None:
+        sample_idx = vq_reseed_draw(generator, m,
+                                    (cfg.groups, cfg.num_quantizers, cfg.codebook_size))
+    new_cb, new_sz, new_avg = [], [], []
+    i = 0
+    for g, part in enumerate(parts):
+        residual = part
+        g_cb, g_sz, g_avg = [], [], []
+        for q in range(cfg.num_quantizers):
+            idx = flat_idx[:, i].long()
+            onehot = F.one_hot(idx, cfg.codebook_size).to(part.dtype) * m[:, None]
+            counts = onehot.sum(0)
+            sums = onehot.T @ residual
+            sz = state.cluster_sizes[g, q] * cfg.decay + counts * (1 - cfg.decay)
+            avg = state.embed_avgs[g, q] * cfg.decay + sums * (1 - cfg.decay)
+            cb = torch.where(counts[:, None] > 0, avg / torch.clamp_min(sz, cfg.eps)[:, None],
+                             state.codebooks[g, q])
+            if reseed:
+                dead = (sz < cfg.dead_threshold) & any_valid
+                seeds = residual[sample_idx[g, q].long()]
+                grace = 2.0 * cfg.dead_threshold
+                cb = torch.where(dead[:, None], seeds, cb)
+                sz = torch.where(dead, torch.full_like(sz, grace), sz)
+                avg = torch.where(dead[:, None], seeds * grace, avg)
+            residual = residual - state.codebooks[g, q][idx]
+            g_cb.append(cb)
+            g_sz.append(sz)
+            g_avg.append(avg)
+            i += 1
+        new_cb.append(torch.stack(g_cb))
+        new_sz.append(torch.stack(g_sz))
+        new_avg.append(torch.stack(g_avg))
+    return VQState(torch.stack(new_cb), torch.stack(new_sz), torch.stack(new_avg))
+
+
 class FFEncoder:
     """MLP of ``quantizer.py:15-31``: per hidden width a Linear, then a
     (non-residual) Linear -> ReLU -> Linear; a final Linear. Parameters are
@@ -153,12 +233,7 @@ def quantizer_init(cfg: QuantizerConfig, generator: torch.Generator, device=None
         dims.append(h)
     enc.append(dense(dims[-1], cfg.output_dim))
 
-    def vq(c: GroupedResidualVQConfig) -> VQState:
-        cb = torch.randn(c.groups, c.num_quantizers, c.codebook_size, c.dim_group,
-                         generator=generator) * 0.02
-        return VQState(cb, torch.ones(cb.shape[:-1]), cb.clone())
-
-    state = QuantizerState(enc, vq(cfg.art_vq), vq(cfg.pitch_vq))
+    state = QuantizerState(enc, vq_init(cfg.art_vq, generator), vq_init(cfg.pitch_vq, generator))
     return quantizer_to(state, device)
 
 

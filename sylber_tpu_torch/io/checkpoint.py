@@ -9,7 +9,8 @@ of :class:`sylber_tpu_torch.models.hubert.HubertModel`, and
 model the port trains loads into either package's ``Segmenter``. The same
 carry, :func:`state_dict_from_tree` / :func:`tree_from_state_dict`, serves
 the resynthesis modules, whose parameter names are the JAX tree's
-(``synthesis_state_dict_from_jax``, ``generator_state_dict_from_jax``).
+(``synthesis_state_dict_from_jax``, ``generator_state_dict_from_jax``,
+``discriminator_state_dicts_from_jax``).
 :class:`TrainCheckpointManager` keeps the trainer's rolling step
 directories (``torch.save``), the port's counterpart of the JAX package's
 Orbax manager.
@@ -64,6 +65,8 @@ def _leaf(name: str, a: np.ndarray, transposed: bool = False):
             a = np.transpose(a[::-1], (1, 2, 0))
         elif a.ndim == 3:  # Conv (k, in/groups, out) -> (out, in/groups, k)
             a = np.transpose(a, (2, 1, 0))
+        elif a.ndim == 4:  # 2-D Conv (kh, kw, in, out) -> (out, in, kh, kw)
+            a = np.transpose(a, (3, 2, 0, 1))
         return "weight", a
     if name == "scale":    # LayerNorm / GroupNorm
         return "weight", a
@@ -110,6 +113,8 @@ def tree_from_state_dict(sd: Mapping[str, torch.Tensor], renames=(),
                 leaf, a = "kernel", np.transpose(a, (2, 0, 1))[::-1]
             elif a.ndim == 3:    # Conv1d (out, in/groups, k) -> (k, in/groups, out)
                 leaf, a = "kernel", np.transpose(a, (2, 1, 0))
+            elif a.ndim == 4:    # Conv2d (out, in, kh, kw) -> (kh, kw, in, out)
+                leaf, a = "kernel", np.transpose(a, (2, 3, 1, 0))
             else:                # LayerNorm / GroupNorm
                 leaf = "scale"
         node = tree
@@ -151,6 +156,18 @@ def generator_state_dict_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Te
 def jax_tree_from_generator(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     """Inverse of :func:`generator_state_dict_from_jax`."""
     return tree_from_state_dict(sd, transposed=_GENERATOR_TRANSPOSED)
+
+
+def discriminator_state_dicts_from_jax(tree: Mapping[str, Any]) -> Dict[str, Dict[str, torch.Tensor]]:
+    """``{"mpd": sd, "msd": sd}`` for the port's multi-period and
+    multi-scale discriminators from the JAX vocoder state's ``disc`` tree
+    (``{"mpd": ..., "msd": ...}``)."""
+    return {name: state_dict_from_tree(tree[name]) for name in ("mpd", "msd")}
+
+
+def jax_tree_from_discriminators(sds: Mapping[str, Mapping[str, torch.Tensor]]) -> Dict[str, Any]:
+    """Inverse of :func:`discriminator_state_dicts_from_jax`."""
+    return {name: tree_from_state_dict(sds[name]) for name in ("mpd", "msd")}
 
 
 def save_tree_npz(path: str, tree: Mapping[str, Any]) -> None:

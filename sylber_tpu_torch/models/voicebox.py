@@ -14,9 +14,16 @@ between the two packages by renaming leaves only.
 The attention core is ``ops/attention.py::attention``: the small-attention
 kernel up to L 512 (registers included), flash above, the plain version on
 the CPU. The scale of 10 goes to the kernel as its scale; q is never
-pre-scaled. Key padding is a per-item key count: without a mask every key
-is valid (``kv_len`` = L, as at inference, where JAX passes no mask); a mask
-must be a prefix, which is asserted on the device without a read back.
+pre-scaled. The kernels are forward-only: in train mode or under autograd
+the core is ``ops/attention.py::attention_xla`` at the same scale (JAX's
+XLA path), as the HuBERT student's is. In train mode the masks of
+``ff_dropout`` (after the GEGLU) come from the ``Dropout`` the caller
+passes, drawn in call order. ``attn_dropout`` is declared and, as in JAX's
+regressor, never applied; both are 0 in every shipped config.
+
+Key padding is a per-item key count: without a mask every key is valid
+(``kv_len`` = L, as at inference, where JAX passes no mask); a mask must be
+a prefix, which is asserted on the device without a read back.
 
 The RoPE inverse frequencies are built on the host: ``theta ** (i / d)`` in
 float64 rounded to float32 (XLA's float32 power is correctly rounded;
@@ -41,7 +48,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import attention
+from ..ops.attention import Dropout, attention, attention_xla
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,7 +161,7 @@ class Attention(nn.Module):
             self.q_norm_gamma = nn.Parameter(torch.ones(cfg.heads, 1, cfg.dim_head))
             self.k_norm_gamma = nn.Parameter(torch.ones(cfg.heads, 1, cfg.dim_head))
 
-    def forward(self, x, kv_len, rope):
+    def forward(self, x, kv_len, rope, differentiable: bool = False):
         c = self.cfg
         B, L, _ = x.shape
         q, k, v = (t.reshape(B, L, c.heads, c.dim_head).transpose(1, 2)
@@ -165,7 +172,10 @@ class Attention(nn.Module):
             k = _l2norm(k) * (c.dim_head ** 0.5) * self.k_norm_gamma
             scale = c.qk_norm_scale
         q, k = apply_rope(rope, q), apply_rope(rope, k)
-        out = attention(q, k, v, kv_len, scale)
+        if differentiable:
+            out = attention_xla(q, k, v, kv_len, scale=scale)
+        else:
+            out = attention(q, k, v, kv_len, scale)
         return self.to_out(out.transpose(1, 2).reshape(B, L, c.heads * c.dim_head))
 
 
@@ -173,12 +183,13 @@ class GEGLUFeedForward(nn.Module):
     def __init__(self, cfg: RegressorConfig):
         super().__init__()
         inner = int(cfg.dim * cfg.ff_mult * 2 / 3)
+        self.ff_dropout = cfg.ff_dropout
         self.proj_in = nn.Linear(cfg.dim, inner * 2)
         self.proj_out = nn.Linear(inner, cfg.dim)
 
-    def forward(self, x):
+    def forward(self, x, dropout: Dropout = Dropout.OFF):
         val, gate = self.proj_in(x).chunk(2, dim=-1)  # torch chunk order: (x, gate)
-        return self.proj_out(_gelu(gate) * val)
+        return self.proj_out(dropout(_gelu(gate) * val, self.ff_dropout))
 
 
 class VoiceboxTransformer(nn.Module):
@@ -204,7 +215,8 @@ class VoiceboxTransformer(nn.Module):
     def _has_skip(self, ind: int) -> bool:
         return self.cfg.use_unet_skip_connection and ind + 1 > self.cfg.depth // 2
 
-    def forward(self, x, kv_len, time_cond):
+    def forward(self, x, kv_len, time_cond, dropout: Dropout = Dropout.OFF,
+                differentiable: bool = False):
         c = self.cfg
         B, L, _ = x.shape
         n_reg = c.num_register_tokens
@@ -224,9 +236,9 @@ class VoiceboxTransformer(nn.Module):
                 skip = skips.pop() * skip_scale
                 x = getattr(self, f"skip_combiner_{ind}")(torch.cat([x, skip], dim=-1))
             attn_in = getattr(self, f"attn_norm_{ind}")(x, time_cond)
-            x = getattr(self, f"attn_{ind}")(attn_in, kv_len, rope) + x
+            x = getattr(self, f"attn_{ind}")(attn_in, kv_len, rope, differentiable) + x
             ff_in = getattr(self, f"ff_norm_{ind}")(x, time_cond)
-            x = getattr(self, f"ff_{ind}")(ff_in) + x
+            x = getattr(self, f"ff_{ind}")(ff_in, dropout) + x
 
         if n_reg > 0:
             x = x[:, n_reg:]
@@ -266,9 +278,10 @@ class Regressor(nn.Module):
         return F.silu(self.time_mlp(torch.cat([torch.sin(f), torch.cos(f)], dim=-1)))
 
     def forward(self, x, times, cond=None, cond_emb=None, self_attn_mask=None,
-                cond_mask=None):
+                cond_mask=None, dropout: Dropout = Dropout.OFF):
         """``times``: a number, a 0-d tensor or (B,); ``self_attn_mask``
-        (B, L) prefix mask or None (every frame valid)."""
+        (B, L) prefix mask or None (every frame valid); ``dropout``: the
+        masks' source in train mode (``Dropout.OFF``: none)."""
         B, L, _ = x.shape
         x = self.proj_in(x)
         cond = torch.zeros_like(x) if cond is None else self.proj_in(cond)  # shared weights
@@ -296,7 +309,10 @@ class Regressor(nn.Module):
             pos = pos * self_attn_mask[..., None].to(pos.dtype)
         h = pos + h
 
-        h = self.transformer(h, kv_len, temb)
+        if not self.training:
+            dropout = Dropout.OFF
+        differentiable = self.training or torch.is_grad_enabled()
+        h = self.transformer(h, kv_len, temb, dropout, differentiable)
         return self.to_pred(h)
 
 

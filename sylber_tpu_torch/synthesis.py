@@ -23,8 +23,18 @@ the null field (the conditioning zeroed) as one batch of 2B rows.
 
 The regressor's matmuls and convs run under ``config.regressor.precision``
 (``"default"``: TF32 on the card; ``"highest"``: full fp32), the encoder
-under its own config's. The training half (``loss``,
-``make_synthesis_train_step``) is not ported yet.
+under its own config's.
+
+Training (``SegmentSynthesis.loss``, :func:`make_synthesis_train_step`):
+the frozen encoder's features (precomputed, ``train/synthesis_loop.py``)
+through the input MLP (dropout 0.05 in train mode) into the CFM loss over
+the regressor, both by autograd; the encoder gets no gradient and no
+optimizer slot. The step's draws come from ``train/distill.py``'s
+``step_generators`` (or are passed in, as the tests pass JAX's); the
+optimizer is the distillation trainer's clip + AdamW
+(``apply_gradients``) at clip 0.5, betas (0.9, 0.95), eps 1e-4, weight
+decay 0.1 on the warmup-cosine schedule. A step reads nothing from the
+device: its metrics are device tensors.
 """
 
 from __future__ import annotations
@@ -32,33 +42,41 @@ from __future__ import annotations
 import dataclasses
 import warnings
 from pathlib import Path
-from typing import Any, Dict, Mapping, Optional, Tuple, Union
+from typing import Any, Callable, ClassVar, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
 from .api import resolve_device
-from .flow.cfm import sample_adaptive, sample_midpoint
-from .io.checkpoint import load_params_npz, synthesis_state_dict_from_jax
+from .flow.cfm import CFMDraws, cfm_draws, cfm_loss, sample_adaptive, sample_midpoint
+from .io.checkpoint import (jax_params_from_state_dict, load_params_npz,
+                            synthesis_state_dict_from_jax, tree_from_state_dict)
 from .models.hubert import (HubertConfig, HubertModel, feature_vector_attention_mask,
                             init_weights, matmul_precision)
 from .models.voicebox import Regressor, RegressorConfig, init_regressor
+from .ops.attention import Dropout
 from .ops.segment import averaged_target_fill, segment_batch
+from .train.distill import apply_gradients, global_norm, make_optimizer, step_generators
+from .train.lr import cosine_warmup_schedule
 from .train.thresholder import get_threshold, thresholder_init
 
 
 class RFF(nn.Module):
-    """Residual feed-forward block with post-LayerNorm (eval: no dropout)."""
+    """Residual feed-forward block with post-LayerNorm; dropout after the
+    ReLU and after the second linear, from the ``Dropout`` passed in train
+    mode."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, dropout: float = 0.05):
         super().__init__()
+        self.dropout = dropout
         self.linear1 = nn.Linear(dim, dim)
         self.linear2 = nn.Linear(dim, dim)
         self.norm = nn.LayerNorm(dim, eps=1e-6)  # flax LayerNorm's epsilon
 
-    def forward(self, x):
-        return self.norm(x + self.linear2(torch.relu(self.linear1(x))))
+    def forward(self, x, drop: Dropout = Dropout.OFF):
+        h = drop(torch.relu(self.linear1(x)), self.dropout)
+        return self.norm(x + drop(self.linear2(h), self.dropout))
 
 
 class InputMLP(nn.Module):
@@ -66,18 +84,21 @@ class InputMLP(nn.Module):
     768 -> 512 -> 512 -> 256."""
 
     def __init__(self, input_dim: int, output_dim: int = 256,
-                 hidden_dims: Tuple[int, ...] = (512, 512)):
+                 hidden_dims: Tuple[int, ...] = (512, 512), dropout: float = 0.05):
         super().__init__()
         self.hidden_dims = tuple(hidden_dims)
         dims = (input_dim,) + self.hidden_dims
         for i, dim in enumerate(self.hidden_dims):
             self.add_module(f"in_{i}", nn.Linear(dims[i], dim))
-            self.add_module(f"rff_{i}", RFF(dim))
+            self.add_module(f"rff_{i}", RFF(dim, dropout))
         self.out = nn.Linear(dims[-1], output_dim)
 
-    def forward(self, x):
+    def forward(self, x, drop: Dropout = Dropout.OFF):
+        """``drop`` applies only in train mode."""
+        if not self.training:
+            drop = Dropout.OFF
         for i in range(len(self.hidden_dims)):
-            x = getattr(self, f"rff_{i}")(getattr(self, f"in_{i}")(x))
+            x = getattr(self, f"rff_{i}")(getattr(self, f"in_{i}")(x), drop)
         return self.out(x)
 
 
@@ -98,7 +119,8 @@ class SynthesisConfig:
 
     @staticmethod
     def from_yaml_dict(cfg: Dict[str, Any]) -> "SynthesisConfig":
-        """Reference-style ``sylber_resynthesis.yaml`` keys."""
+        """Reference-style ``sylber_resynthesis.yaml`` keys (and the port's
+        ``regressor_configs.precision``, "default" unless given)."""
         r = dict(cfg.get("regressor_configs", {}))
         reg = RegressorConfig(
             dim=r.get("dim", 512), depth=r.get("depth", 8),
@@ -106,7 +128,8 @@ class SynthesisConfig:
             dim_in_proj=r.get("dim_in_proj", 64),
             dim_cond_emb=r.get("dim_cond_emb", 256), sigma=r.get("sigma", 0.0),
             use_gateloop_layers=r.get("use_gateloop_layers", False),
-            use_unet_skip_connection=r.get("use_unet_skip_connection", False))
+            use_unet_skip_connection=r.get("use_unet_skip_connection", False),
+            precision=r.get("precision", "default"))
         i = dict(cfg.get("input_configs", {}))
         enc = cfg.get("encoding_layer", 9)
         return SynthesisConfig(
@@ -156,7 +179,7 @@ class SegmentSynthesis:
         c = self.config
         self.hubert = HubertModel(c.hubert)
         self.input_mlp = InputMLP(c.hubert.hidden_size + int(c.explicit_pitch_cond),
-                                  c.input_output_dim, c.input_hidden_dims)
+                                  c.input_output_dim, c.input_hidden_dims, c.input_dropout)
         self.regressor = Regressor(c.regressor)
         self.quantizer = quantizer
         self.pitch_quantizer = pitch_quantizer
@@ -190,7 +213,7 @@ class SegmentSynthesis:
         # channel; a VQ tokenizer's output width), as flax infers it
         c = self.config
         self.input_mlp = InputMLP(sds["input_mlp"]["in_0.weight"].shape[1],
-                                  c.input_output_dim, c.input_hidden_dims)
+                                  c.input_output_dim, c.input_hidden_dims, c.input_dropout)
         self.input_mlp.load_state_dict(sds["input_mlp"])
         self.regressor.load_state_dict(sds["regressor"])
         for m in (self.hubert, self.input_mlp, self.regressor):
@@ -265,11 +288,16 @@ class SegmentSynthesis:
                      normthreshold: Optional[float] = None, seed: int = 0,
                      method: str = "midpoint", cond_scale: float = 1.0, pitch_cond=None):
         """(art (B, L, 14) numpy, segments or None): the reference signature.
+        ``features`` and ``pitch_cond`` may be arrays or device tensors.
 
         Explicit-pitch models measure the pitch channel from
         ``input_values`` on the wav path; on the feature path pass
         ``pitch_cond`` (B, L) frame-filled log(F0 / pitch_cond_mean)."""
-        as_t = lambda a: torch.as_tensor(np.asarray(a, np.float32)).to(self.device)  # noqa: E731
+        def as_t(a):
+            if torch.is_tensor(a):
+                return a.to(self.device, torch.float32)
+            return torch.as_tensor(np.asarray(a, np.float32)).to(self.device)
+
         res = None
         if features is None:
             if input_values is None:
@@ -348,6 +376,156 @@ class SegmentSynthesis:
                 "not speech; pass a trained SparcDecoder (a converted torch HiFi-GAN "
                 "checkpoint or a JAX .npz)", stacklevel=2)
         return vocoder(art, spk_emb, pitch_mean)
+
+
+    # ------------------------------------------------------------ training
+
+    def trainable_modules(self) -> Tuple[nn.Module, nn.Module]:
+        return self.input_mlp, self.regressor
+
+    def train_conditioning(self, features: torch.Tensor, pitch_cond: Optional[torch.Tensor] = None,
+                           drop: Dropout = Dropout.OFF) -> torch.Tensor:
+        """The conditioning of the training path, differentiable: the input
+        MLP on ``features`` (with the pitch channel appended for
+        explicit-pitch models), frames whose features' norm is below 1e-4
+        zeroed (``_cond_from_features_params``)."""
+        norms = torch.sqrt((features ** 2).sum(-1))
+        if self.config.explicit_pitch_cond:
+            if pitch_cond is None:
+                raise ValueError("explicit_pitch_cond model: the batch needs a pitch_cond (B, L)")
+            features = torch.cat([features, pitch_cond[..., None].to(features.dtype)], -1)
+        cond = self.input_mlp(features, drop)
+        return torch.where((norms < 1e-4)[..., None], 0.0, cond)
+
+    def loss(self, batch: Mapping[str, torch.Tensor], draws: CFMDraws, train: bool = True,
+             cond_fn: Optional[Callable[[Dropout], torch.Tensor]] = None) -> torch.Tensor:
+        """The CFM loss of a batch of ``features`` (B, L, d) averaged and
+        blanked hidden states, ``art`` (B, L, 14) targets, optional
+        ``mask`` (B, L) prefix mask and ``pitch_cond`` (B, L); channel 12 of
+        the target is multiplied by ``pitch_amp``. The conditioning is
+        ``train_conditioning``'s, or ``cond_fn(dropout)``'s where given (the
+        joint-VQ trainer's quantized features). It and the regressor draw
+        their dropout masks, in that order, from one ``Dropout`` seeded
+        with ``draws.dropout_seed`` (in train mode)."""
+        c = self.config
+        drop = Dropout(draws.dropout_seed, batch["features"].device) if train else Dropout.OFF
+        if cond_fn is None:
+            cond = self.train_conditioning(batch["features"], batch.get("pitch_cond"), drop)
+        else:
+            cond = cond_fn(drop)
+        art = batch["art"].float()
+        art = torch.cat([art[..., :12], art[..., 12:13] * c.pitch_amp, art[..., 13:]], -1)
+
+        def apply_fn(w, times, x1, cond_emb, mask, cond_mask, _seed, is_train):
+            return self.regressor(w, times, cond=x1, cond_emb=cond_emb, self_attn_mask=mask,
+                                  cond_mask=cond_mask, dropout=drop if is_train else Dropout.OFF)
+
+        return cfm_loss(apply_fn, draws, art, cond_emb=cond, mask=batch.get("mask"),
+                        sigma=c.regressor.sigma, frac_lengths_mask=c.regressor.frac_lengths_mask,
+                        train=train)
+
+    def jax_tree(self) -> Dict[str, Any]:
+        """``{"hubert", "input_mlp", "regressor"}`` as flax-layout trees of
+        numpy arrays (``io/checkpoint.py::save_tree_npz`` writes them as the
+        JAX package's ``load_params_npz`` reads them)."""
+        return {"hubert": jax_params_from_state_dict(self.hubert.state_dict()),
+                "input_mlp": tree_from_state_dict(self.input_mlp.state_dict()),
+                "regressor": tree_from_state_dict(self.regressor.state_dict())}
+
+
+@dataclasses.dataclass(frozen=True)
+class SynthesisOptimizer:
+    """The reference trainer's recipe: the global-norm clip, then AdamW
+    (betas 0.9 / 0.95, eps 1e-4, weight decay 0.1) on the warmup-cosine
+    schedule (``make_synthesis_optimizer``). The clip, the decay and the
+    single micro-batch are the recipe's constants, read by
+    ``train/distill.py``'s ``make_optimizer`` and ``apply_gradients``."""
+    lr: float = 1e-4
+    warmup_steps: int = 5000
+    total_steps: int = 500_000
+    min_factor: float = 0.05
+    grad_clip: ClassVar[float] = 0.5
+    weight_decay: ClassVar[float] = 0.1
+    accumulate_grad_batches: ClassVar[int] = 1
+
+    def schedule(self):
+        return cosine_warmup_schedule(self.lr, self.warmup_steps, self.total_steps,
+                                      self.min_factor)
+
+
+def make_synthesis_optimizer(lr: float = 1e-4, warmup_steps: int = 5000,
+                             total_steps: int = 500_000,
+                             min_factor: float = 0.05) -> SynthesisOptimizer:
+    return SynthesisOptimizer(lr=lr, warmup_steps=warmup_steps, total_steps=total_steps,
+                              min_factor=min_factor)
+
+
+@dataclasses.dataclass
+class SynthesisTrainState:
+    step: int                          # updates taken, a host count
+    params: list                       # the input MLP's, then the regressor's parameters
+    optimizer: torch.optim.AdamW
+    synth: Any = None                  # the SegmentSynthesis whose modules hold them
+
+
+def init_synthesis_train_state(synth: SegmentSynthesis,
+                               optimizer: SynthesisOptimizer) -> SynthesisTrainState:
+    """AdamW slots for the input MLP and the regressor only: the encoder is
+    frozen (no gradient, no slot)."""
+    synth.hubert.requires_grad_(False)
+    params = [p for m in synth.trainable_modules() for p in m.parameters()]
+    for p in params:
+        p.requires_grad_(True)
+    return SynthesisTrainState(0, params, make_optimizer(optimizer, params), synth)
+
+
+def train_update(synth: SegmentSynthesis, state, optimizer: SynthesisOptimizer, schedule,
+                 loss_fn: Callable[[], Tuple[torch.Tensor, Dict[str, torch.Tensor]]]):
+    """One update of ``state.params`` in place: the synth's trainable
+    modules in train mode, ``loss_fn() -> (loss, aux)`` and its backward
+    under the regressor's precision, then the global-norm clip and AdamW
+    (``train/distill.py::apply_gradients``) at ``state.step``. Returns
+    ``(loss, aux, grad_norm)``; the caller advances ``state.step``."""
+    for p in state.params:
+        p.grad = None
+    for m in synth.trainable_modules():
+        m.train()
+    try:
+        with matmul_precision(synth.config.regressor.precision):
+            loss, aux = loss_fn()
+            loss.backward()
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                     for p in state.params]
+            grad_norm = global_norm(grads)
+            apply_gradients(state.params, grads, state.optimizer, None, state.step,
+                            optimizer, schedule)
+    finally:
+        for m in synth.trainable_modules():
+            m.eval()
+    return loss, aux, grad_norm
+
+
+def make_synthesis_train_step(synth: SegmentSynthesis, optimizer: SynthesisOptimizer,
+                              loss_scale: float = 1.0):
+    """Returns ``(state, batch, seed, draws=None) -> metrics``: one update in
+    place, its draws from ``step_generators(seed, state.step)`` unless
+    given; ``cfm_loss`` (times ``loss_scale``) and ``grad_norm`` are device
+    tensors."""
+    schedule = optimizer.schedule()
+
+    def train_step(state: SynthesisTrainState, batch: Mapping[str, torch.Tensor], seed: int,
+                   draws: Optional[CFMDraws] = None) -> Dict[str, torch.Tensor]:
+        if draws is None:
+            device = state.params[0].device
+            g = step_generators(seed, state.step, device)
+            draws = cfm_draws(batch["art"].shape, g.noise, g.mask, g.drop, device)
+        loss, _, grad_norm = train_update(
+            synth, state, optimizer, schedule,
+            lambda: (loss_scale * synth.loss(batch, draws, train=True), {}))
+        state.step += 1
+        return {"cfm_loss": loss.detach(), "grad_norm": grad_norm}
+
+    return train_step
 
 
 def fill_from_segment_features(seg_feats: torch.Tensor, segments: torch.Tensor,

@@ -1,4 +1,4 @@
-"""Agreement metrics between two segmentations."""
+"""Agreement metrics: between two segmentations, and of resynthesized pitch."""
 
 from __future__ import annotations
 
@@ -17,3 +17,31 @@ def boundary_f1(pred: np.ndarray, ref: np.ndarray, tol_frames: int = 1) -> float
     precision = float((gap.min(axis=1) <= tol_frames).mean())
     recall = float((gap.min(axis=0) <= tol_frames).mean())
     return 2 * precision * recall / max(precision + recall, 1e-9)
+
+
+def pearson(a: np.ndarray, b: np.ndarray) -> float:
+    """Pearson correlation (1e-12 added to the denominator)."""
+    a = a - a.mean()
+    b = b - b.mean()
+    den = np.sqrt((a * a).sum() * (b * b).sum()) + 1e-12
+    return float((a * b).sum() / den)
+
+
+def per_utterance_pitch_modulation(art: np.ndarray, truth: np.ndarray,
+                                   min_voiced: int = 20) -> float:
+    """Mean over utterances of the Pearson correlation of the log-pitch
+    channel (12) over voiced frames (truth loudness, channel 13, above 0.02),
+    each utterance's mean removed first: the fidelity of the pitch contour
+    within an utterance, blind to its register. Utterances with fewer than
+    ``min_voiced`` voiced frames are skipped; 0.0 when none is left.
+    art, truth: (B, L, >= 14)."""
+    rs = []
+    for a, t in zip(art, truth):
+        v = t[..., 13] > 0.02
+        if v.sum() < min_voiced:
+            continue
+        x = a[..., 12][v] - a[..., 12][v].mean()
+        y = t[..., 12][v] - t[..., 12][v].mean()
+        den = np.sqrt((x * x).sum() * (y * y).sum()) + 1e-12
+        rs.append(float((x * y).sum() / den))
+    return float(np.mean(rs)) if rs else 0.0

@@ -56,20 +56,28 @@ def mel_filterbank(sample_rate: int, n_fft: int, n_mels: int, fmin: float,
     return fb.astype(np.float32)
 
 
+def compute_dtype(t: torch.Tensor) -> torch.dtype:
+    """The vocoder's arithmetic type for ``t``: float64 for float64 (the
+    card-against-CPU check of ``chip_smoke.py``), else float32."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
 def log_mel(wav: torch.Tensor, cfg: MelConfig = MelConfig()) -> torch.Tensor:
-    """(B, L) waveform -> (B, frames, n_mels) log-mel spectrogram."""
+    """(B, L) waveform -> (B, frames, n_mels) log-mel spectrogram, in
+    float32 (float64 for a float64 waveform)."""
     if cfg.win_length > cfg.n_fft:
         raise ValueError(f"win_length {cfg.win_length} > n_fft {cfg.n_fft}")
     pad = (cfg.n_fft - cfg.hop_length) // 2
-    x = torch.nn.functional.pad(wav.float()[:, None], (pad, pad), mode="reflect")[:, 0]
+    x = torch.nn.functional.pad(wav.to(compute_dtype(wav))[:, None], (pad, pad),
+                                mode="reflect")[:, 0]
     frames = x.unfold(1, cfg.n_fft, cfg.hop_length)                 # (B, F, n_fft)
     # a win_length window centred in n_fft (torch.stft / librosa semantics)
     w = np.hanning(cfg.win_length + 1)[:-1].astype(np.float32)
     lpad = (cfg.n_fft - cfg.win_length) // 2
     w = np.pad(w, (lpad, cfg.n_fft - cfg.win_length - lpad))
-    win = torch.from_numpy(w).to(wav.device)
+    win = torch.from_numpy(w).to(wav.device, x.dtype)
     spec = torch.abs(torch.fft.rfft(frames * win, dim=-1))
     fb = torch.from_numpy(mel_filterbank(cfg.sample_rate, cfg.n_fft, cfg.n_mels,
-                                         cfg.fmin, cfg.fmax)).to(wav.device)
+                                         cfg.fmin, cfg.fmax)).to(wav.device, x.dtype)
     mel = torch.einsum("bfk,mk->bfm", spec, fb)
     return torch.log(mel.clamp_min(cfg.eps))

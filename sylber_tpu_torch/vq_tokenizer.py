@@ -6,8 +6,8 @@ adapts a trained :class:`~sylber_tpu_torch.flow.quantizer.QuantizerState` to
 the ``get_indices`` / ``decode`` protocol, so
 ``SegmentSynthesis(quantizer=TrainedVQTokenizer(...))`` runs the wav ->
 tokens -> CFM chain. A token is the concatenated art + pitch code tuple of a
-segment. The joint trainer (``make_vq_synthesis_train_step``, the EMA
-codebook update) is not ported yet.
+segment. The joint trainer that produces the state is
+``train/vq_synthesis.py``.
 """
 
 from __future__ import annotations

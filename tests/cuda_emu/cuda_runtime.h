@@ -117,6 +117,13 @@ inline float __int_as_float(unsigned x) {
   return f;
 }
 inline size_t __cvta_generic_to_shared(const void* p) { return (size_t)p; }
+inline int atomicMin(int* p, int v) {
+  int old = __atomic_load_n(p, __ATOMIC_SEQ_CST);
+  while (v < old && !__atomic_compare_exchange_n(p, &old, v, false, __ATOMIC_SEQ_CST,
+                                                 __ATOMIC_SEQ_CST)) {
+  }
+  return old;
+}
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
 

@@ -3,14 +3,15 @@
 A CUDA kernel has no interpret mode, so the tests of ``test_torch_kernels.py``
 reach only the plain versions. Here every source of
 ``sylber_tpu_torch/csrc`` (``smallattn.cu`` and ``flash.cu`` with
-``attn_tile.cuh``, ``segment_scan.cu``, ``frontend.cu``) is compiled by g++
+``attn_tile.cuh``, ``segment_scan.cu``, ``frontend.cu``, ``kmeanspp.cu``) is
+compiled by g++
 against the host stand-in of ``tests/cuda_emu``: every CUDA thread is a host
 thread, and the PTX helpers of the headers (cp.async, ldmatrix, mma.sync, the
 bulk copy with its mbarrier, the approximate reciprocal and square root) are
 replaced by emulations written after the PTX ISA. The wrappers' own launch
-code (``ops/_attn_launch.py``, ``ops/segment.py``, ``ops/frontend.py``:
-scratch, strides, output layout) then drives the emulated kernels on CPU
-tensors. The same numpy inputs go through the JAX package (Pallas kernels in
+code (``ops/_attn_launch.py``, ``ops/segment.py``, ``ops/frontend.py``,
+``flow/kmeans.py``: scratch, strides, output layout) then drives the
+emulated kernels on CPU tensors. The same numpy inputs go through the JAX package (Pallas kernels in
 interpret mode, ``segment_batch``, the numpy oracle), and the emulated
 kernels are held against those and against the port's plain versions at the
 tolerances the card is held to (attention fp32 2e-5, bf16 2e-2; conv0 2e-4;
@@ -40,6 +41,7 @@ from sylber_tpu.ops.pallas import flash as jax_flash
 from sylber_tpu.ops.pallas.frontend import fused_conv0_gn_gelu
 from sylber_tpu.ops.pallas.smallattn import fused_attention_small
 from sylber_tpu.ops.segment_np import segment_oracle
+from sylber_tpu_torch.flow import kmeans as port_kmeans
 from sylber_tpu_torch.kernels import _build
 from sylber_tpu_torch.ops import _attn_launch
 from sylber_tpu_torch.ops import frontend as port_frontend
@@ -96,7 +98,8 @@ inline void mbar_wait(uint64_t* bar, int parity) {
 """),
 }
 _ENTRY_POINTS = ["sylber_small_attention", "sylber_flash_attention", "sylber_segment_pass1",
-                 "sylber_segment_pass2", "sylber_shared_divisor", "sylber_conv0_partials_size", "sylber_conv0_gn_gelu"]
+                 "sylber_segment_pass2", "sylber_shared_divisor", "sylber_conv0_partials_size",
+                 "sylber_conv0_gn_gelu", "sylber_kmeanspp_blocks", "sylber_kmeanspp"]
 
 
 def _host_sources(out: Path) -> list:
@@ -106,7 +109,7 @@ def _host_sources(out: Path) -> list:
     host threads; the attention kernels' dynamic array is defined in emu.cpp)."""
     sources = []
     names = ("common.cuh", "attn_tile.cuh", "smallattn.cu", "flash.cu", "segment_scan.cu",
-             "frontend.cu")
+             "frontend.cu", "kmeanspp.cu")
     for src in (_build.CSRC / n for n in names):
         text = src.read_text()
         for name in _PTX_HELPERS.get(src.name, ()):
@@ -117,7 +120,7 @@ def _host_sources(out: Path) -> list:
             anchor, decl = _DECLARATIONS[src.name]
             assert anchor in text, f"{anchor!r} not found in {src.name}"
             text = text.replace(anchor, decl + anchor, 1)
-        if src.name in ("segment_scan.cu", "frontend.cu"):
+        if src.name in ("segment_scan.cu", "frontend.cu", "kmeanspp.cu"):
             text = text.replace("extern __shared__ __align__(128) float ring[];",
                                 "static __align__(128) float ring[RING * MAX_DIM];")
             text = text.replace("__shared__", "static")
@@ -430,3 +433,46 @@ def test_emulated_conv0_matches_pallas(conv0_launch, name, L, D, pad_from, dc, d
         interpret=True))
     np.testing.assert_allclose(got.float().numpy().transpose(0, 2, 1), want,
                                rtol=tol, atol=tol)
+
+
+# ---------------------------------------------------------------- k-means++ seeding
+
+@pytest.fixture
+def kmeanspp_launch(emulated, monkeypatch):
+    """``flow/kmeans.py``'s launch code, bound to the host library."""
+    monkeypatch.setattr(port_kmeans, "lib", lambda: emulated)
+    monkeypatch.setattr(port_kmeans, "stream_of", lambda t: 0)
+    monkeypatch.setattr(port_kmeans, "check", _check)
+    return port_kmeans._launch
+
+
+KMEANSPP_CASES = [
+    # name, rows, width, centers, distinct points (each repeated) or None
+    ("two-blocks", 128, 24, 24, None),      # float4 loads, the update's grid is 2 blocks
+    ("scalar-width", 128, 5, 16, None),     # d % 4 != 0: plain loads
+    ("awkward-rows", 150, 144, 12, None),   # 3 blocks of 50 rows
+    ("duplicates", 128, 8, 16, 16),         # 16 distinct points, 8 copies each
+]
+
+
+@pytest.mark.parametrize("name,n,d,k,distinct", KMEANSPP_CASES, ids=[c[0] for c in KMEANSPP_CASES])
+def test_emulated_kmeanspp_matches_plain(kmeanspp_launch, name, n, d, k, distinct):
+    """The two kernels of a seeding step (distance update, inverse-CDF draw)
+    against ``kmeanspp_plain`` on the same uniforms: the same rows (a row may
+    differ only where the uniform lands within float64 rounding of a prefix
+    boundary; none does here), and on a pool of k distinct points each
+    repeated, every distinct point once."""
+    rng = np.random.RandomState(n + d + k)
+    if distinct:
+        pts = rng.randn(distinct, d).astype(np.float32)
+        x = torch.from_numpy(pts[rng.permutation(np.repeat(np.arange(distinct), n // distinct))])
+    else:
+        x = torch.from_numpy(rng.randn(n, d).astype(np.float32))
+    u = port_kmeans.seeding_uniforms(n + k, k)
+    assert port_kmeans.lib is not _build.lib and (n + 63) // 64 >= 2
+    centers, rows = kmeanspp_launch(x, u)
+    want_centers, want_rows = port_kmeans.kmeanspp_plain(x, u)
+    np.testing.assert_array_equal(rows.numpy(), want_rows.numpy())
+    torch.testing.assert_close(centers, want_centers, rtol=0, atol=0)
+    if distinct:
+        assert len({tuple(r) for r in centers.numpy().tolist()}) == distinct

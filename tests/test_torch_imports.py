@@ -2,8 +2,8 @@
 
 A fresh interpreter imports every module of ``sylber_tpu_torch`` (walked
 with ``pkgutil``) and checks ``sys.modules``; then, with no GPU, the entry
-points (the resynthesis chain's included) refuse to run unless the caller
-asks for the CPU.
+points (the resynthesis chain's and its trainers', ``fit_kmeans`` and
+``Sylber`` included) refuse to run unless the caller asks for the CPU.
 """
 
 import subprocess
@@ -37,11 +37,22 @@ from sylber_tpu_torch.synthesis import SegmentSynthesis
 from sylber_tpu_torch.vocoder import SparcDecoder
 from sylber_tpu_torch.vq_tokenizer import TrainedVQTokenizer
 from sylber_tpu_torch.flow.quantizer import load_quantizer
+from sylber_tpu_torch.flow.kmeans import fit_kmeans
+from sylber_tpu_torch.models.sylber import Sylber
+from sylber_tpu_torch.train.synthesis_loop import train_synthesis
+from sylber_tpu_torch.train.vq_synthesis import train_vq_synthesis
+from sylber_tpu_torch.train_synthesis import main as train_synthesis_cli
+from sylber_tpu_torch.vocoder import VocoderTrainConfig, make_vocoder_train_step
 for make in (lambda: LongFormSegmenter(Segmenter()), lambda: KMQuantizer([[0.0, 1.0]]),
              lambda: train({"data": {"synthetic": True}}, out_dir="/nonexistent"),
              lambda: train_cli(["--config", "/nonexistent.yaml"]),
              lambda: SegmentSynthesis(), lambda: SparcDecoder(),
-             lambda: TrainedVQTokenizer(None, None), lambda: load_quantizer({})):
+             lambda: TrainedVQTokenizer(None, None), lambda: load_quantizer({}),
+             lambda: fit_kmeans([[0.0, 1.0]] * 4, 2), lambda: Sylber(),
+             lambda: train_synthesis({}, out_dir="/nonexistent"),
+             lambda: train_vq_synthesis({"speech_model_ckpt": "x"}, out_dir="/nonexistent"),
+             lambda: train_synthesis_cli(["--config", "/nonexistent.yaml"]),
+             lambda: make_vocoder_train_step(VocoderTrainConfig())[0]()):
     try:
         make()
     except RuntimeError as e:
@@ -60,7 +71,7 @@ def test_port_imports_no_jax_and_needs_a_gpu_or_cpu_choice():
     count, ok = run.stdout.split("\n")[:2]
     assert ok == "ok"
     # the modules this test must reach, whatever else the package holds
-    # (the trainer's train/, data/ and utils/ modules, and the resynthesis
+    # (the trainer's train/, data/ and utils/ modules, the resynthesis
     # chain's flow/, vocoder/, models/voicebox, ops/pitch, synthesis and
-    # vq_tokenizer included)
-    assert int(count.split()[0]) >= 50, count
+    # vq_tokenizer, and its trainers, flow/kmeans and models/sylber included)
+    assert int(count.split()[0]) >= 55, count
