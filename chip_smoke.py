@@ -100,7 +100,26 @@ Phases, each of which fails the script when it fails:
    (losses, gradients with the leaf of the largest difference named,
    updated parameters). ``--only-synthesis-training`` runs phases 1 and 8
    alone, ``--reproduce-synthesis`` phase 1 and the 6,000-step mini recipe
-   against ``mini_synth.json``'s recorded eval; neither prints a result.
+   against ``mini_synth.json``'s recorded eval; neither prints a result;
+9. the int8 serving mode and the gateloop regressor: the row quantizer and
+   the int8 GEMM of ``csrc/int8_gemm.cu`` bit for bit against their plain
+   versions at the encoder's four products (M 7,968 and 31,968; K 768 and
+   3,072; N 768-3,072), fp32 and bf16, timed beside the plain versions, the
+   bounds, ``torch._int_mm`` + the rescale and the bf16 ``F.linear`` (both
+   yardsticks only); both at awkward shapes (K 20, 48, 144, 576, M 1, N 13,
+   a strided output); the GateLoop kernel bit for bit against its plain walk
+   at the regressor's B8 L265 and B1 L1015, width 512, timed beside its byte
+   and chain bounds; the full-width Segmenter in fp32, bf16 and int8 + bf16
+   on phase 3's batches (RTFx of five calls, launches from 0 with the int8
+   kernels required, under 1,000 a call, the segmentation under
+   ``set_sync_debug_mode("error")``, the per-frame cosine of the int8 and
+   bf16 hidden states against fp32); ``mini_ckpt.npz`` int8 + bf16 against
+   fp32 exact on the card over phase 4's 18 held-out utterances (boundary F1
+   at tolerance 0 at least 0.995) and against int8 on the CPU; the HTTP shim
+   with ``--int8``; ``resynthesize`` + ``decode_audio`` at full width on 8 x
+   5 s with the gateloop layers off and on (RTFx, launches from 0, the
+   GateLoop kernel required). ``--only-int8`` runs phases 1 and 9 alone and
+   prints no result.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit
 (``nvidia-smi``), and as its last line
@@ -125,7 +144,8 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 FIXTURES = ROOT / "tests" / "fixtures"
 H100_BYTES_PER_S = 3.35e12
-H100_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}  # fp32 CUDA cores; bf16 tensor cores
+# fp32 CUDA cores; bf16 and int8 tensor cores (dense)
+H100_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 # Least dependent latency of one frame of the pass-1 scan, in SM cycles, from
 # assumed (not measured) instruction latencies: 4 for a dependent fp32 add,
 # multiply or FMA, 24 for a warp shuffle, 40 for an IEEE square root or
@@ -671,14 +691,18 @@ def forbid_host_syncs(torch, fn):
     return guarded
 
 
-def main_path(torch, Segmenter, HubertConfig, counters):
+def main_path(torch, Segmenter, HubertConfig, counters, modes=None, label="main path"):
+    """Each mode's Segmenter (default: fp32 parity and bf16 fast) on the
+    32 x 5 s and 32 x 12-20 s batches: a warm-up, five timed calls, a
+    profiled one, with ``counters`` from 0. Returns the runs, the launches
+    and every item's hidden states by (mode, batch)."""
     rng = np.random.RandomState(1)
     batches = {
         "small_32x5s": [speechlike(rng, 5 * 16000) for _ in range(32)],
         "flash_32x12-20s": [speechlike(rng, int(rng.uniform(12, 20) * 16000))
                             for _ in range(32)],
     }
-    modes = {
+    modes = modes or {
         "fp32_highest": HubertConfig(),
         "bf16_default": HubertConfig(dtype="bfloat16", frontend_dtype="bfloat16",
                                      precision="default"),
@@ -699,13 +723,13 @@ def main_path(torch, Segmenter, HubertConfig, counters):
             check_outputs(outs, wavs, cfg, 768)
             audio_s = sum(len(w) for w in wavs) / 16000.0
             rtfx = sorted(audio_s / w for w in walls)
-            hidden[(mode, bname)] = outs[0]["hidden_states"]
+            hidden[(mode, bname)] = [o["hidden_states"] for o in outs]
             runs.append(dict(mode=mode, batch=bname, audio_s=audio_s, wall_s=walls,
                              rtfx=rtfx[2], rtfx_min=rtfx[0], rtfx_max=rtfx[-1],
                              segments=int(sum(len(o["segments"]) for o in outs)),
                              profile=profile(torch, lambda: seg.process(wavs))))
             prof = runs[-1]["profile"]
-            log(f"main path {mode} {bname}: {audio_s:.1f} s audio, 5 timed calls: RTFx median "
+            log(f"{label} {mode} {bname}: {audio_s:.1f} s audio, 5 timed calls: RTFx median "
                 f"{rtfx[2]:.1f} (min {rtfx[0]:.1f}, max {rtfx[-1]:.1f}), "
                 f"{runs[-1]['segments']} segments; "
                 f"profiled run: device busy {prof['device_ms']:.1f} of "
@@ -720,9 +744,11 @@ def main_path(torch, Segmenter, HubertConfig, counters):
         torch.cuda.empty_cache()
     launches = {fn.__name__: fn.launches for fn in counters}
     for bname in batches:
-        a, b = hidden[("fp32_highest", bname)], hidden[("bf16_default", bname)]
-        log(f"bf16 vs fp32 hidden, {bname}: max abs diff {np.abs(a - b).max():.4g}")
-    return runs, launches
+        for mode in modes:
+            if mode != "fp32_highest" and ("fp32_highest", bname) in hidden:
+                a, b = hidden[("fp32_highest", bname)][0], hidden[(mode, bname)][0]
+                log(f"{mode} vs fp32 hidden, {bname}: max abs diff {np.abs(a - b).max():.4g}")
+    return runs, launches, hidden
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1217,20 +1243,24 @@ def longform_steps_ms(lf, wav):
                     (float(x) for x in np.diff(marks) * 1e3)))
 
 
-def http_shim(codebook, device):
-    """Start ``python -m sylber_tpu_torch.serve_http`` on a free port (bf16,
-    seeded random weights, ``codebook`` for /tokenize), send it one int16
-    body on /segment, /tokenize and /resynthesize, read /stats, stop it."""
+def http_shim(codebook, device, mode="--bf16"):
+    """Start ``python -m sylber_tpu_torch.serve_http`` on a free port (``mode``
+    ``--bf16`` or ``--int8``, seeded random weights, ``codebook`` for
+    /tokenize), send it one int16 body on /segment, /tokenize and
+    /resynthesize, read /stats, stop it. Without a codebook /tokenize must
+    answer 503."""
     import urllib.error
     import urllib.request
 
     out_dir = ROOT / "build" / "smoke"
     out_dir.mkdir(parents=True, exist_ok=True)
-    np.save(out_dir / "codebook_10000.npy", codebook)
-    proc = subprocess.Popen([sys.executable, "-m", "sylber_tpu_torch.serve_http", "--device",
-                             device, "--bf16", "--no-warmup", "--port", "0", "--centroids",
-                             str(out_dir / "codebook_10000.npy")],
-                            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    args = [sys.executable, "-m", "sylber_tpu_torch.serve_http", "--device", device, mode,
+            "--no-warmup", "--port", "0"]
+    if codebook is not None:
+        np.save(out_dir / "codebook_10000.npy", codebook)
+        args += ["--centroids", str(out_dir / "codebook_10000.npy")]
+    proc = subprocess.Popen(args, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
     lines = []
 
     def read():
@@ -1272,12 +1302,15 @@ def http_shim(codebook, device):
         except subprocess.TimeoutExpired:
             proc.kill()
             proc.wait()
-    log(f"phase 5 HTTP shim (python -m sylber_tpu_torch.serve_http --device {device} --bf16, up in "
+    log(f"{'phase 5' if mode == '--bf16' else 'phase 9'} HTTP shim (python -m "
+        f"sylber_tpu_torch.serve_http --device {device} {mode}, up in "
         f"{started:.1f} s): /segment {codes['segment']} ({seg.get('num_segments')} segments), "
         f"/tokenize {codes['tokenize']} ({len(tok.get('tokens', []))} tokens), /resynthesize "
         f"{codes['resynthesize']}, /stats {codes['stats']} ({stats['completed']} completed)")
-    if (codes != {"segment": 200, "tokenize": 200, "resynthesize": 503, "stats": 200}
-            or seg["num_segments"] != len(tok["tokens"]) or not seg["num_segments"]):
+    tokenized = codebook is None or seg["num_segments"] == len(tok["tokens"])
+    if (codes != {"segment": 200, "tokenize": 200 if codebook is not None else 503,
+                  "resynthesize": 503, "stats": 200}
+            or not tokenized or not seg["num_segments"]):
         raise AssertionError(f"HTTP shim answered {codes}")
     return dict(codes=codes, segments=seg["num_segments"], startup_s=started)
 
@@ -2680,6 +2713,374 @@ def reproduce_synthesis(torch, smi):
     return ev
 
 
+# ---------------------------------------------------------------- phase 9
+
+# the encoder's four int8 products (M, K, N) at the 5 s and the 12-20 s
+# buckets' rows (32 x 249 and 32 x 999 frames): the fused q/k/v projection,
+# the out projection, and the feed-forward pair
+INT8_GEMM_SHAPES = [(M, K, N) for M in (7968, 31968)
+                    for K, N in ((768, 2304), (768, 768), (768, 3072), (3072, 768))]
+# awkward shapes, correctness only: the mini widths (K 144, 576), the tests'
+# K 48, K 20 (not a multiple of 16: the padded row), one row, N off the
+# 8-wide tile, and a strided output (the last)
+INT8_EDGE_SHAPES = [(1000, 144, 432), (1000, 576, 144), (333, 48, 100), (300, 20, 70),
+                    (1, 768, 2304), (517, 144, 13), (700, 768, 300)]
+# the GateLoop recurrence at the regressor's shapes: 8 x 5 s and 1 x 20 s,
+# 16 register tokens included, width 512
+GATELOOP_SHAPES = [(8, 265, 512), (1, 1015, 512)]
+# least cycles of one GateLoop step's dependent chain: a multiply and an add
+# (4 each, assumed instruction latencies)
+GATELOOP_CHAIN_CYCLES = 8
+
+
+def int8_records(torch, i8):
+    """Both int8 kernels against their plain versions (bit for bit) at the
+    encoder's products, fp32 and bf16 activations and output, timed (CUDA
+    graphs of 20 launches) beside the plain versions, the bounds and the
+    yardsticks: ``torch._int_mm`` with the same rescale in torch ops
+    (``library_ms``), ``_int_mm`` alone, and the bf16 ``F.linear`` of the
+    shape (what the bf16 fast mode pays for the product)."""
+    F = torch.nn.functional
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    quant, gemm = [], []
+    for M, K, N in INT8_GEMM_SHAPES:
+        w = torch.randn(N, K, device=dev, generator=gen) * 0.02
+        b = torch.randn(N, device=dev, generator=gen) * 0.1
+        wq, sw = i8.quantize_rows(w)
+        for dt in ("float32", "bfloat16"):
+            tdt = getattr(torch, dt)
+            x = torch.randn(M, K, device=dev, generator=gen).to(tdt)
+            xq, sx = i8.quantize_rows(x)
+            bad, qerr = 0, 0.0
+            for src, q, sc in ((x, xq, sx), (w, wq, sw)):
+                pq, ps = i8.quantize_symmetric_plain(src)
+                bad += int((q != pq).sum()) + int(
+                    (sc.view(torch.int32) != ps[:, 0].contiguous().view(torch.int32)).sum())
+                qerr = max(qerr, (q.float() - pq.float()).abs().max().item(),
+                           (sc - ps[:, 0]).abs().max().item())
+            out = i8.int8_gemm(xq, sx, wq, sw, b, tdt)
+            want = i8.int8_gemm_plain(xq, sx, wq, sw, b, tdt)
+            torch.cuda.synchronize()
+            err = (out.float() - want.float()).abs().max().item()
+            gbad = int((out.float() != want.float()).sum())
+            seen = [r for r in quant if r["shape"] == [M, K] and r["dtype"] == dt]
+            if not seen:
+                # x read once, a byte a value and a scale a row written
+                qb_ms, qb_by = bound_ms(M * K * (x.element_size() + 1) + 4 * M, 3.0 * M * K,
+                                        "float32")
+                quant.append(dict(shape=[M, K], dtype=dt, mismatches=bad, ok=bad == 0,
+                                  max_abs_err=qerr,
+                                  ms=graph_time_ms(torch, lambda: i8.quantize_rows(x), 20),
+                                  eager_ms=time_ms(torch, lambda: i8.quantize_rows(x), 20),
+                                  plain_ms=graph_time_ms(
+                                      torch, lambda: i8.quantize_symmetric_plain(x), 5),
+                                  library_ms=None, bound_ms=qb_ms, bound_by=qb_by))
+            else:  # the shape is timed already; its check still counts
+                seen[0]["mismatches"] += bad
+                seen[0]["max_abs_err"] = max(seen[0]["max_abs_err"], qerr)
+                seen[0]["ok"] = seen[0]["mismatches"] == 0
+            nbytes = M * K + N * K + M * N * out.element_size() + 4 * (M + N)
+            gb_ms, gb_by = bound_ms(nbytes, 2.0 * M * N * K, "int8")
+            run = lambda: i8.int8_gemm(xq, sx, wq, sw, b, tdt)  # noqa: E731
+            rec = dict(shape=[M, K, N], dtype=dt, max_abs_err=err, mismatches=gbad, tol=0.0,
+                       ok=gbad == 0 and bool(torch.isfinite(out).all()),
+                       ms=graph_time_ms(torch, run, 20), eager_ms=time_ms(torch, run, 20),
+                       plain_ms=graph_time_ms(
+                           torch, lambda: i8.int8_gemm_plain(xq, sx, wq, sw, b, tdt), 3),
+                       bound_ms=gb_ms, bound_by=gb_by,
+                       library="torch._int_mm + the rescale in torch ops")
+            a_mm, b_mm = xq.contiguous(), wq.contiguous()
+            try:
+                rec["int_mm_ms"] = graph_time_ms(torch, lambda: torch._int_mm(a_mm, b_mm.t()), 20)
+                rec["library_ms"] = graph_time_ms(torch, lambda: (
+                    torch._int_mm(a_mm, b_mm.t()).float() * sx[:, None] * sw[None, :] + b
+                ).to(tdt), 20)
+            except RuntimeError as e:  # a yardstick only: recorded, not a failure
+                rec.update(int_mm_ms=None, library_ms=None, library_error=str(e)[:200])
+            xb, wb, bb = x.bfloat16(), w.bfloat16(), b.bfloat16()
+            rec["bf16_linear_ms"] = graph_time_ms(torch, lambda: F.linear(xb, wb, bb), 20)
+            gemm.append(rec)
+        del x, xq, w, wq
+    torch.cuda.empty_cache()
+    return quant, gemm
+
+
+def int8_edges(torch, i8):
+    """Both int8 kernels at ``INT8_EDGE_SHAPES``, fp32 and bf16, bit for bit
+    against the plain versions; the last shape writes into columns 3 ..
+    3 + N of a wider buffer, whose other columns must stay as they were."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(10)
+    records = []
+    for i, (M, K, N) in enumerate(INT8_EDGE_SHAPES):
+        strided = i == len(INT8_EDGE_SHAPES) - 1
+        for dt in ("float32", "bfloat16"):
+            tdt = getattr(torch, dt)
+            x = torch.randn(M, K, device=dev, generator=gen).to(tdt)
+            w = torch.randn(N, K, device=dev, generator=gen) / K ** 0.5
+            b = torch.randn(N, device=dev, generator=gen) * 0.1
+            xq, sx = i8.quantize_rows(x)
+            wq, sw = i8.quantize_rows(w)
+            pq, ps = i8.quantize_symmetric_plain(x)
+            qbad = int((xq != pq).sum()) + int((sx != ps[:, 0]).sum())
+            wide = torch.full((M, N + 7), -7.0, device=dev, dtype=tdt)
+            out = wide[:, 3:3 + N] if strided else None
+            got = i8.int8_gemm(xq, sx, wq, sw, b, tdt, out=out)
+            want = i8.int8_dense_plain(x, w, b, tdt)
+            torch.cuda.synchronize()
+            gbad = int((got.float() != want.float()).sum())
+            kept = not strided or bool((wide[:, :3] == -7).all() and (wide[:, 3 + N:] == -7).all())
+            records.append(dict(shape=[M, K, N], dtype=dt, strided=strided,
+                                quantize_mismatches=qbad, gemm_mismatches=gbad,
+                                neighbours_kept=kept,
+                                max_abs_err=(got.float() - want.float()).abs().max().item(),
+                                ok=qbad == 0 and gbad == 0 and kept))
+    return records
+
+
+def gateloop_records(torch, gl):
+    """The GateLoop kernel against its plain version (bit for bit) on thirds
+    of one (B, L, 3D) product at the regressor's shapes, timed beside its
+    byte bound and its chain bound (L dependent multiply-add pairs)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    clock = sm_clock_hz()
+    records = []
+    for B, L, D in GATELOOP_SHAPES:
+        q, kv, g = torch.randn(B, L, 3 * D, device=dev, generator=gen).chunk(3, dim=-1)
+        a = torch.sigmoid(g)
+        run = lambda: gl.gate_loop_operator(q, kv, a)  # noqa: E731
+        plain = lambda: gl.gate_loop_operator_plain(q, kv, a)  # noqa: E731
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        bad = int((got != want).sum())
+        b_ms, b_by = bound_ms(16.0 * B * L * D, 3.0 * B * L * D, "float32")
+        records.append(dict(shape=[B, L, D], dtype="float32", mismatches=bad, tol=0.0,
+                            max_abs_err=(got - want).abs().max().item(),
+                            ok=bad == 0 and bool(torch.isfinite(got).all()),
+                            ms=graph_time_ms(torch, run, 20), eager_ms=time_ms(torch, run, 20),
+                            plain_ms=graph_time_ms(torch, plain, 2), library_ms=None,
+                            bound_ms=b_ms, bound_by=b_by,
+                            chain_bound_ms=L * GATELOOP_CHAIN_CYCLES / clock * 1e3))
+    return records
+
+
+def int8_mini_agreement(torch, Segmenter, HubertConfig):
+    """``mini_ckpt.npz`` in int8 + bf16 on the card against its fp32 exact
+    program on the card (phase 4's 18 held-out utterances: boundary F1 at
+    tolerance 0 must reach 0.995), and against the same int8 program on the
+    CPU (the utterances whose segments differ are reported; F1 >= 0.995)."""
+    from sylber_tpu_torch.utils.metrics import boundary_f1
+
+    meta = json.loads((FIXTURES / "mini_ckpt.json").read_text())
+    hub = {k: tuple(v) if isinstance(v, list) else v for k, v in meta["hubert"].items()}
+    kw = dict(model_ckpt=str(FIXTURES / "mini_ckpt.npz"), norm_threshold=meta["norm_threshold"],
+              merge_threshold=meta["merge_threshold"])
+    layers = meta["encoding_layer"]
+    int8_cfg = HubertConfig(num_hidden_layers=layers, dtype="bfloat16",
+                            frontend_dtype="bfloat16", precision="default", int8_encoder=True,
+                            **hub)
+    rng = np.random.RandomState(9999)
+    held = [speechlike(rng, int(rng.uniform(3.0, 8.0) * 16000)) for _ in range(16)]
+    held += [speechlike(rng, int(s * 16000)) for s in (11.0, 14.0)]
+    outs = {}
+    for name, cfg, dev in (("exact", HubertConfig(num_hidden_layers=layers, **hub), "cuda"),
+                           ("int8", int8_cfg, "cuda"), ("int8_cpu", int8_cfg, "cpu")):
+        seg = Segmenter(device=dev, hubert_config=cfg, **kw)
+        outs[name] = seg.process(held, in_second=False, return_hidden=False)
+
+    def f1(a, b):
+        return float(np.mean([boundary_f1(x["segments"], y["segments"], tol_frames=0)
+                              for x, y in zip(outs[a], outs[b])]))
+
+    nseg = int(sum(len(o["segments"]) for o in outs["exact"]))
+    differ = [i for i, (x, y) in enumerate(zip(outs["int8"], outs["int8_cpu"]))
+              if x["segments"].tolist() != y["segments"].tolist()]
+    rec = dict(utterances=len(held), segments=nseg, f1_int8_vs_exact=f1("int8", "exact"),
+               f1_card_vs_cpu=f1("int8", "int8_cpu"), utterances_differing_card_vs_cpu=differ)
+    rec["ok"] = rec["f1_int8_vs_exact"] >= 0.995 and rec["f1_card_vs_cpu"] >= 0.995 and nseg > 0
+    log(f"phase 9 mini_ckpt int8 + bf16 vs fp32 exact on the card: boundary F1 (tol 0) "
+        f"{rec['f1_int8_vs_exact']:.5f} over {len(held)} utterances, {nseg} segments; int8 card "
+        f"vs CPU: F1 {rec['f1_card_vs_cpu']:.5f}, utterances whose segments differ {differ} "
+        f"ok={rec['ok']}")
+    return rec
+
+
+def gateloop_resynthesis(torch, counters, smi):
+    """``resynthesize`` + ``decode_audio`` at full width on seeded random
+    weights (``configs/sylber_resynthesis.yaml`` at "default" precision,
+    ``SparcDecoderConfig()``), 8 x 5 s, midpoint with 5 steps, cond_scale 1:
+    the gateloop layers off and on, five timed calls each; the gateloop run
+    counts every launch from 0 (the GateLoop kernel, conv0, small attention
+    and both segmentation passes must launch)."""
+    import dataclasses
+    import warnings
+
+    import yaml
+
+    from sylber_tpu_torch.synthesis import SegmentSynthesis, SynthesisConfig
+    from sylber_tpu_torch.vocoder import SparcDecoder
+
+    yaml_cfg = yaml.safe_load((ROOT / "configs" / "sylber_resynthesis.yaml").read_text())
+    base = SynthesisConfig.from_yaml_dict(yaml_cfg)
+    wavs = [speechlike(np.random.RandomState(7), 5 * 16000) for _ in range(8)]
+    wav_np, spk = np.stack(wavs), np.zeros((8, 64), np.float32)
+    dev = torch.device("cuda")
+    vocoder = SparcDecoder(device=dev)
+    runs, launches = {}, None
+    for gated in (False, True):
+        cfg = dataclasses.replace(base, regressor=dataclasses.replace(
+            base.regressor, use_gateloop_layers=gated))
+        synth = SegmentSynthesis(config=cfg, thresholder_configs=yaml_cfg["thresholder_configs"],
+                                 device=dev)
+
+        def call():
+            art, segs = synth.resynthesize(input_values=wav_np, steps=5)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # random-init vocoder: noise, not speech
+                return art, segs, synth.decode_audio(art, spk, vocoder=vocoder)
+
+        call()  # warm-up
+        torch.cuda.synchronize()
+        if gated:
+            for fn in counters:
+                fn.launches = 0
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            art, segs, audio = call()
+            walls.append(time.perf_counter() - t0)
+        if gated:
+            launches = {fn.__name__: fn.launches for fn in counters}
+        check_resynthesis_outputs(art, segs, audio, wavs, cfg)
+        rtfx = sorted(wav_np.size / 16000.0 / w for w in walls)
+        prof = profile(torch, call)
+        name = "gateloop" if gated else "no_gateloop"
+        runs[name] = dict(rtfx=rtfx[2], rtfx_min=rtfx[0], rtfx_max=rtfx[-1], wall_s=walls,
+                          profile=prof)
+        log(f"phase 9 resynthesis 8 x 5 s, {name}: wav -> wav RTFx median of 5 {rtfx[2]:.1f} "
+            f"(min {rtfx[0]:.1f}, max {rtfx[-1]:.1f}); profiled call: device busy "
+            f"{prof['device_ms']:.1f} of {prof['wall_ms']:.1f} ms, {prof['launches']} launches; "
+            f"the port's kernels: " + ", ".join(f"{k} {v:.2f} ms"
+                                                for k, v in prof["port_kernels_ms"].items())
+            + f"  [{smi}]")
+        del synth
+        torch.cuda.empty_cache()
+    needed = ("gate_loop_operator", "conv0_gn_gelu", "small_attention", "segment_pass1",
+              "segment_pass2")
+    idle = [n for n in needed if launches[n] == 0]
+    if idle:
+        raise AssertionError(f"kernels never launched on the gateloop resynthesis path: {idle}")
+    return runs, launches
+
+
+def int8_phase(torch, ops, counters, smi):
+    """Phase 9: the int8 serving path and the gateloop regressor on the
+    card. Any failed check raises."""
+    from sylber_tpu_torch import Segmenter
+    from sylber_tpu_torch.models.hubert import HubertConfig, matmul_precision
+
+    i8, gl = ops.int8, ops.gateloop
+    with matmul_precision("highest"):
+        quant, gemm = int8_records(torch, i8)
+        edges = int8_edges(torch, i8)
+        gates = gateloop_records(torch, gl)
+    for name, recs in (("quantize_rows", quant), ("int8_gemm", gemm)):
+        for r in recs:
+            yard = "" if name == "quantize_rows" else (
+                f"  library_ms (_int_mm + rescale) {r['library_ms']}  int_mm_ms "
+                f"{r['int_mm_ms']}  bf16_linear_ms {r['bf16_linear_ms']:.4f}")
+            log(f"phase 9: {name} {r['dtype']} {r['shape']}: {r['mismatches']} mismatches "
+                f"(tol 0) ok={r['ok']}  kernel_ms {r['ms']:.4f} (eager {r['eager_ms']:.4f})  "
+                f"plain_ms {r['plain_ms']:.4f}  bound_ms {r['bound_ms']:.4f} ({r['bound_by']})"
+                f"{yard}  [{smi}]")
+    log(f"phase 9: int8 edge shapes {len(edges)} calls, "
+        f"{sum(e['quantize_mismatches'] + e['gemm_mismatches'] for e in edges)} mismatches, "
+        f"strided output kept its neighbours "
+        f"{all(e['neighbours_kept'] for e in edges if e['strided'])}")
+    for r in gates:
+        log(f"phase 9: gate_loop_operator {r['shape']}: {r['mismatches']} mismatches (tol 0) "
+            f"ok={r['ok']}  kernel_ms {r['ms']:.4f} (eager {r['eager_ms']:.4f})  plain_ms "
+            f"{r['plain_ms']:.3f}  bound_ms {r['bound_ms']:.4f} ({r['bound_by']}), chain "
+            f"{r['chain_bound_ms']:.4f}  [{smi}]")
+    bad = [r for r in quant + gemm + edges + gates if not r["ok"]]
+    if bad:
+        raise AssertionError(f"phase 9 kernels disagree with their plain versions: {bad}")
+
+    int8_counters = counters + [i8.quantize_rows, i8.int8_gemm]
+    fast = dict(dtype="bfloat16", frontend_dtype="bfloat16", precision="default")
+    modes = {"fp32_highest": HubertConfig(), "bf16_default": HubertConfig(**fast),
+             "int8_bf16": HubertConfig(int8_encoder=True, **fast)}
+    import sylber_tpu_torch.api as api
+
+    segment_batch = api.segment_batch
+    api.segment_batch = forbid_host_syncs(torch, segment_batch)
+    try:
+        runs, launches, hidden = main_path(torch, Segmenter, HubertConfig, int8_counters,
+                                           modes=modes, label="phase 9")
+    finally:
+        api.segment_batch = segment_batch
+    cosines = {}
+    for bname in ("small_32x5s", "flash_32x12-20s"):
+        a = np.concatenate(hidden[("int8_bf16", bname)]).astype(np.float64)
+        b = np.concatenate(hidden[("fp32_highest", bname)]).astype(np.float64)
+        cos = (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1) + 1e-30)
+        fb = np.concatenate(hidden[("bf16_default", bname)]).astype(np.float64)
+        cos_bf16 = (fb * b).sum(-1) / (np.linalg.norm(fb, axis=-1) * np.linalg.norm(b, axis=-1)
+                                       + 1e-30)
+        cosines[bname] = dict(int8_min=float(cos.min()), int8_mean=float(cos.mean()),
+                              bf16_min=float(cos_bf16.min()), bf16_mean=float(cos_bf16.mean()))
+        log(f"phase 9 per-frame cosine of the hidden states against fp32, {bname}: int8 min "
+            f"{cos.min():.5f} mean {cos.mean():.6f}; bf16 min {cos_bf16.min():.5f} mean "
+            f"{cos_bf16.mean():.6f}")
+    del hidden
+    log(f"phase 9: launches over the three modes' runs: {launches}  [{smi}]")
+    idle = [n for n, c in launches.items() if c == 0]
+    if idle:
+        raise AssertionError(f"kernels never launched on the int8 path: {idle}")
+    mini = int8_mini_agreement(torch, Segmenter, HubertConfig)
+    if not mini["ok"]:
+        raise AssertionError(f"phase 9 mini_ckpt int8: {mini}")
+    http = http_shim(None, "cuda", "--int8")
+    resynthesis, gate_launches = gateloop_resynthesis(torch, counters + [gl.gate_loop_operator],
+                                                      smi)
+    log(f"phase 9: launches over the gateloop resynthesis runs: {gate_launches}  [{smi}]")
+    return dict(quantize=quant, gemm=gemm, edges=edges, gateloop=gates, runs=runs,
+                cosines=cosines, launches=launches, mini=mini, http=http,
+                resynthesis=resynthesis, gateloop_launches=gate_launches)
+
+
+def int8_kernel_entries(p9):
+    """The ``{"kernels": [...]}`` rows of phase 9's kernels: the headline
+    shape is the 5 s bucket's fused q/k/v product (bf16, as the serving mode
+    runs it), every shape beside it."""
+    keys = ("shape", "dtype", "max_abs_err", "ms", "eager_ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by")
+    rows = []
+    for name, fn, recs, src, replaces in (
+            ("int8_quantize", "quantize_rows", p9["quantize"], "int8_gemm.cu",
+             "sylber_tpu/ops/int8.py:43"),
+            ("int8_gemm", "int8_gemm", p9["gemm"], "int8_gemm.cu", "sylber_tpu/ops/int8.py:56")):
+        head = next(r for r in recs if r["shape"][:2] == [7968, 768] and r["dtype"] == "bfloat16"
+                    and (name == "int8_quantize" or r["shape"][2] == 2304))
+        row = dict(name=name, route="cuda", source=f"sylber_tpu_torch/csrc/{src}",
+                   replaces=replaces, launches=p9["launches"][fn],
+                   **{k: head[k] for k in keys})
+        row["shapes"] = [{k: r[k] for k in keys + ("int_mm_ms", "bf16_linear_ms") if k in r}
+                         for r in recs]
+        rows.append(row)
+    head = p9["gateloop"][0]
+    rows.append(dict(name="gate_loop", route="cuda", source="sylber_tpu_torch/csrc/gateloop.cu",
+                     replaces="sylber_tpu/ops/gateloop.py:26",
+                     launches=p9["gateloop_launches"]["gate_loop_operator"],
+                     chain_bound_ms=head["chain_bound_ms"],
+                     shapes=[{k: r[k] for k in keys + ("chain_bound_ms",)}
+                             for r in p9["gateloop"]],
+                     **{k: head[k] for k in keys}))
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the full report as JSON to this path")
@@ -2688,6 +3089,9 @@ def main() -> int:
                          "working on the resynthesis chain); prints no result line")
     ap.add_argument("--only-synthesis-training", action="store_true",
                     help="build the kernels and run phase 8 alone; prints no result line")
+    ap.add_argument("--only-int8", action="store_true",
+                    help="build the kernels and run phase 9 alone (the int8 serving path and "
+                         "the gateloop regressor); prints no result line")
     ap.add_argument("--reproduce-synthesis", action="store_true",
                     help="build the kernels, then train configs/sylber_resynthesis_mini.yaml "
                          "(6,000 steps) on the card and evaluate it with 50 ODE steps against "
@@ -2700,6 +3104,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    import sylber_tpu_torch.ops.gateloop  # noqa: F401  (the phase-9 kernels' wrappers)
+    import sylber_tpu_torch.ops.int8  # noqa: F401
     from sylber_tpu_torch import Segmenter, kernels, ops
     from sylber_tpu_torch.models.hubert import HubertConfig, matmul_precision
 
@@ -2724,6 +3130,9 @@ def main() -> int:
         return 0
     if args.reproduce_synthesis:
         reproduce_synthesis(torch, smi)
+        return 0
+    if args.only_int8:
+        int8_phase(torch, ops, counters, smi)
         return 0
 
     with matmul_precision("highest"):
@@ -2785,7 +3194,7 @@ def main() -> int:
     segment_batch = api.segment_batch
     api.segment_batch = forbid_host_syncs(torch, segment_batch)
     try:
-        runs, launches = main_path(torch, Segmenter, HubertConfig, counters)
+        runs, launches, _ = main_path(torch, Segmenter, HubertConfig, counters)
     finally:
         api.segment_batch = segment_batch
     log(f"phase 3: launches over the main path ({len(runs)} configurations x "
@@ -2813,6 +3222,10 @@ def main() -> int:
     log(f"phase 8: launches over the full-width CFM runs: {synthesis_training['launches']}; "
         f"kmeanspp over fit_kmeans: {synthesis_training['kmeanspp_launches']}  [{smi}]")
     launches = {k: v + synthesis_training["launches"][k] for k, v in launches.items()}
+
+    t9 = time.perf_counter()
+    int8 = int8_phase(torch, ops, counters, smi)
+    log(f"phase 9 took {time.perf_counter() - t9:.1f} s  [{smi}]")
 
     sources = {"conv0_gn_gelu": ("frontend.cu", "sylber_tpu/ops/pallas/frontend.py:122"),
                "small_attention": ("smallattn.cu", "sylber_tpu/ops/pallas/smallattn.py:78"),
@@ -2887,6 +3300,10 @@ def main() -> int:
                                                 "plain_ms", "bound_ms", "ok")}
                              for r in seeding],
                      fit_kmeans=synthesis_training["fit_kmeans"]))
+    # the int8 serving path's kernels and the GateLoop kernel (phase 9)
+    line += int8_kernel_entries(int8)
+    for entry in line[:-3]:  # the earlier kernels' launches over phase 9's runs
+        entry["int8_path_launches"] = int8["launches"].get(entry["name"])
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         build_log = kernels.BUILD_DIR / "build.log"  # registers, shared memory, spills
@@ -2901,7 +3318,8 @@ def main() -> int:
                                                   mini_ckpt=mini, consumers=consumers,
                                                   training=training,
                                                   resynthesis=resynthesis,
-                                                  synthesis_training=synthesis_training),
+                                                  synthesis_training=synthesis_training,
+                                                  int8=int8),
                                              indent=1))
     log(json.dumps({"kernels": line}))
     log(smi)

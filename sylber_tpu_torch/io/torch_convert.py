@@ -103,7 +103,12 @@ def regressor_params_from_torch(sd: Mapping[str, Any], depth: int = 8,
                                 prefix: str = "regressor.") -> Dict[str, torch.Tensor]:
     """The reference ``Regressor`` state dict (``flowmatching.py:474-560``)
     -> the port's ``Regressor``. The text-embedding (``to_cond_emb``) and
-    ``null_cond`` entries, unused by SegmentSynthesis, are skipped."""
+    ``null_cond`` entries, unused by SegmentSynthesis, are skipped. So is
+    each layer's slot 1, the ``gateloop-transformer`` package's
+    ``SimpleGateLoopLayer``, as ``sylber_tpu/io/torch_convert.py`` skips it
+    (every shipped reference config leaves ``use_gateloop_layers`` off): a
+    gateloop regressor's ``gateloop_{i}`` weights come from a JAX-layout
+    checkpoint (``io/checkpoint.py::synthesis_state_dict_from_jax``)."""
     g = lambda k: _t(sd[prefix + k])  # noqa: E731
     out = {"proj_in.weight": g("proj_in.weight"), "proj_in.bias": g("proj_in.bias"),
            "time_freqs": g("sinu_pos_emb.0.weights"),

@@ -29,7 +29,7 @@ BUILD_DIR = CSRC.parent.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _S = ctypes.POINTER(ctypes.c_longlong)  # element strides, an array on the host
 # entry point -> (argtypes, restype)
 _SIGNATURES = {
@@ -46,6 +46,9 @@ _SIGNATURES = {
     "sylber_segment_pass2": ([_P] * 11 + [_I, _I, _I, _F, _P], _I),
     "sylber_kmeanspp_blocks": ([_I], _I),
     "sylber_kmeanspp": ([_P] * 6 + [_I, _I, _I, _P], _I),
+    "sylber_quantize_rows": ([_P, _P, _P, _I, _I, _L, _I, _I, _I, _P], _I),
+    "sylber_int8_gemm": ([_P] * 6 + [_I, _I, _I, _I, _I, _L, _I, _P], _I),
+    "sylber_gate_loop": ([_P] * 4 + [_I, _I, _I, _S, _P], _I),
 }
 
 _lib = None

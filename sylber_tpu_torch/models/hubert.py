@@ -12,6 +12,14 @@ Port of ``sylber_tpu/models/hubert.py`` (itself HF ``modeling_hubert`` with
   trailing frame dropped for the even kernel) + GELU, added;
 - encoder LayerNorm, then post-LN transformer layers.
 
+Two serving forms of the encoder layers, as in JAX: ``fused_qkv`` (one
+(3d, d) product for q/k/v) and ``int8_encoder`` (dynamic W8A8 for the
+attention projections and the feed-forward pair, ``ops/int8.py``, on the
+int8 kernels of ``csrc/int8_gemm.cu``; the parameters stay float32 and are
+quantized in every forward). ``int8_encoder`` is an inference mode: the
+rounding has no gradient, so the model refuses it in train mode or where
+autograd records.
+
 Key padding reaches attention as per-item frame counts (``kv_len``). Linear
 layers and convs compute in the configured dtype from fp32 parameters, as
 flax ``Dense(dtype=...)`` does; LayerNorm statistics are fp32.
@@ -43,6 +51,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import Dropout, MultiHeadSelfAttention, linear
 from ..ops.frontend import KERNEL_SIZE, STRIDE, analytic_moments_plain, conv0_gn_gelu
+from ..ops.int8 import int8_dense
 
 DType = Union[torch.dtype, str]
 
@@ -99,8 +108,6 @@ class HubertConfig:
     def __post_init__(self):
         object.__setattr__(self, "dtype", as_dtype(self.dtype))
         object.__setattr__(self, "frontend_dtype", as_dtype(self.frontend_dtype))
-        if self.int8_encoder or self.fused_qkv:
-            raise NotImplementedError("int8_encoder and fused_qkv are not ported yet")
         if self.conv_bias or (self.conv_kernel[0], self.conv_stride[0]) != (
                 KERNEL_SIZE, STRIDE):
             raise NotImplementedError(
@@ -314,7 +321,8 @@ class EncoderLayer(nn.Module):
         super().__init__()
         self.cfg = cfg
         d = cfg.hidden_size
-        self.attention = MultiHeadSelfAttention(d, cfg.num_attention_heads)
+        self.attention = MultiHeadSelfAttention(d, cfg.num_attention_heads, cfg.fused_qkv,
+                                                cfg.int8_encoder)
         self.layer_norm = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
         self.intermediate_dense = nn.Linear(d, cfg.intermediate_size)
         self.output_dense = nn.Linear(cfg.intermediate_size, d)
@@ -331,10 +339,15 @@ class EncoderLayer(nn.Module):
                               dropout=drop, dropout_rate=cfg.attention_dropout)
         x = x + drop(attn, cfg.hidden_dropout)
         x = _layer_norm(x, self.layer_norm, dt)
-        h = _gelu(linear(x, self.intermediate_dense, dt), cfg.gelu_approximate)
+        h = _gelu(self._dense(x, self.intermediate_dense), cfg.gelu_approximate)
         h = drop(h, cfg.activation_dropout)
-        x = x + drop(linear(h, self.output_dense, dt), cfg.hidden_dropout)
+        x = x + drop(self._dense(h, self.output_dense), cfg.hidden_dropout)
         return _layer_norm(x, self.final_layer_norm, dt)
+
+    def _dense(self, x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
+        if self.cfg.int8_encoder:
+            return int8_dense(x, layer.weight, layer.bias, self.cfg.dtype)
+        return linear(x, layer, self.cfg.dtype)
 
 
 class HubertModel(nn.Module):
@@ -368,6 +381,10 @@ class HubertModel(nn.Module):
     def _forward(self, input_values, attention_mask, mask_time_indices, generator):
         cfg = self.cfg
         differentiable = self.training or torch.is_grad_enabled()
+        if cfg.int8_encoder and differentiable:
+            raise RuntimeError("int8_encoder is an inference/serving mode (its rounding has "
+                               "no gradient): run it under torch.no_grad() or "
+                               "torch.inference_mode() in eval mode, and train in bf16")
         seeds = [None] * (cfg.num_hidden_layers + 1)
         if self.training:
             seeds = torch.randint(0, 2 ** 62, (len(seeds),), generator=generator).tolist()

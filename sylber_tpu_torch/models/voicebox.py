@@ -32,9 +32,13 @@ the registers at -10000 would magnify), then ``1 / x`` in float32. The
 angles are ``positions * inv`` in float32 on the device, as JAX computes
 them.
 
-Only float32 is ported (JAX's ``dtype`` field has no counterpart); the
-gateloop layers are not (``ROADMAP.md`` section 2), and asking for them
-raises.
+With ``use_gateloop_layers`` a ``SimpleGateLoop`` block (RMSNorm, a
+bias-free ``to_qkva`` product, a sigmoid gate, the GateLoop recurrence of
+``ops/gateloop.py``, a LayerNorm of epsilon 1e-6) is added as a residual
+before each attention block: on the card the recurrence is the kernel of
+``csrc/gateloop.cu``, under autograd JAX's associative scan in torch ops.
+
+Only float32 is ported (JAX's ``dtype`` field has no counterpart).
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import Dropout, attention, attention_xla
+from ..ops.gateloop import gate_loop_operator
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,12 +81,6 @@ class RegressorConfig:
     ff_dropout: float = 0.0
     # "default": TF32 matmuls and convs on the card; "highest": full fp32
     precision: str = "default"
-
-    def __post_init__(self):
-        if self.use_gateloop_layers:
-            raise NotImplementedError(
-                "use_gateloop_layers: the gateloop scan (sylber_tpu/ops/gateloop.py) is "
-                "not ported yet (ROADMAP.md section 2, gate_loop_operator)")
 
     @property
     def time_hidden(self) -> int:
@@ -192,6 +191,25 @@ class GEGLUFeedForward(nn.Module):
         return self.proj_out(dropout(_gelu(gate) * val, self.ff_dropout))
 
 
+class SimpleGateLoop(nn.Module):
+    """One-headed GateLoop block (JAX ``SimpleGateLoop``): RMSNorm, one
+    bias-free product to (q, kv, gate), a sigmoid gate, the per-channel
+    recurrence, then a LayerNorm (flax's default epsilon, 1e-6). The caller
+    adds the residual. q, kv and the gate are views of the product; the
+    kernel reads them in place. Where autograd records, the operator takes
+    JAX's associative scan in torch ops (``ops/gateloop.py``)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.norm = RMSNorm(dim)
+        self.to_qkva = nn.Linear(dim, 3 * dim, bias=False)
+        self.post_ln = nn.LayerNorm(dim, eps=1e-6)
+
+    def forward(self, x):
+        q, kv, a = self.to_qkva(self.norm(x)).chunk(3, dim=-1)
+        return self.post_ln(gate_loop_operator(q, kv, torch.sigmoid(a)))
+
+
 class VoiceboxTransformer(nn.Module):
     """Pre-norm transformer with AdaptiveRMSNorm, register tokens, RoPE."""
 
@@ -206,6 +224,8 @@ class VoiceboxTransformer(nn.Module):
         for ind in range(cfg.depth):
             if self._has_skip(ind):
                 self.add_module(f"skip_combiner_{ind}", nn.Linear(2 * cfg.dim, cfg.dim))
+            if cfg.use_gateloop_layers:
+                self.add_module(f"gateloop_{ind}", SimpleGateLoop(cfg.dim))
             self.add_module(f"attn_norm_{ind}", AdaptiveRMSNorm(cfg.dim, cfg.time_hidden))
             self.add_module(f"attn_{ind}", Attention(cfg))
             self.add_module(f"ff_norm_{ind}", AdaptiveRMSNorm(cfg.dim, cfg.time_hidden))
@@ -235,6 +255,8 @@ class VoiceboxTransformer(nn.Module):
             else:
                 skip = skips.pop() * skip_scale
                 x = getattr(self, f"skip_combiner_{ind}")(torch.cat([x, skip], dim=-1))
+            if c.use_gateloop_layers:
+                x = getattr(self, f"gateloop_{ind}")(x) + x
             attn_in = getattr(self, f"attn_norm_{ind}")(x, time_cond)
             x = getattr(self, f"attn_{ind}")(attn_in, kv_len, rope, differentiable) + x
             ff_in = getattr(self, f"ff_norm_{ind}")(x, time_cond)

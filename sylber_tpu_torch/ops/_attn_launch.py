@@ -26,9 +26,11 @@ def _row_dense(t: torch.Tensor) -> torch.Tensor:
 
 def empty_like_heads(q: torch.Tensor) -> torch.Tensor:
     """An uninitialised (B, H, L, D) output: a view of (B, L, H, D) memory
-    where ``q`` is one, contiguous otherwise."""
+    where ``q``'s heads lie side by side in a row (a view of a (B, L, H, D)
+    projection, or of a (B, L, 3, H, D) fused q/k/v one), contiguous
+    otherwise."""
     B, H, L, D = q.shape
-    if q.stride() == (L * H * D, D, H * D, 1):
+    if q.stride(1) == D and q.stride(3) == 1:
         return q.new_empty((B, L, H, D)).transpose(1, 2)
     return q.new_empty((B, H, L, D))
 

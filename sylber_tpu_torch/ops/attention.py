@@ -17,6 +17,16 @@ dropout is on.
 Key padding travels as a per-item valid length ``kv_len`` (B,) int32, taken
 from the frame lengths, never as a materialised bias. The heads are split as
 strided views of the projections, which the kernels read in place.
+
+Two serving forms of the projections, as JAX's layer has them (the
+parameter tree stays the four separate ``nn.Linear`` layers):
+
+- ``fused_qkv``: one (3d, d) ``F.linear`` on the concatenated q/k/v weights
+  and biases; q, k and v are views of its (B, L, 3d) output;
+- ``int8``: dynamic W8A8 (``ops/int8.py``): the three weights quantized row
+  by row into one (3d, d) int8 operand (per-output-channel scales make that
+  the quantization of the concatenation), one int8 product, and the out
+  projection in int8 too.
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .flash import flash_attention
+from .int8 import int8_dense, int8_linear, quantize_weights
 from .smallattn import MAX_SEQ, small_attention, small_attention_plain
 
 
@@ -94,15 +105,31 @@ def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tenso
 class MultiHeadSelfAttention(nn.Module):
     """HF ``HubertAttention`` parameterisation."""
 
-    def __init__(self, d_model: int, num_heads: int):
+    def __init__(self, d_model: int, num_heads: int, fused_qkv: bool = False,
+                 int8: bool = False):
         super().__init__()
         if d_model % num_heads:
             raise ValueError(f"d_model {d_model} not divisible by {num_heads} heads")
         self.num_heads = num_heads
+        self.fused_qkv, self.int8 = fused_qkv, int8
         self.q_proj = nn.Linear(d_model, d_model)
         self.k_proj = nn.Linear(d_model, d_model)
         self.v_proj = nn.Linear(d_model, d_model)
         self.out_proj = nn.Linear(d_model, d_model)
+
+    def _qkv(self, x: torch.Tensor, dtype: torch.dtype):
+        """q, k, v (B, L, d) in ``dtype``: three products, or views of one."""
+        projs = (self.q_proj, self.k_proj, self.v_proj)
+        if not (self.int8 or self.fused_qkv):
+            return [linear(x, p, dtype) for p in projs]
+        bias = torch.cat([p.bias for p in projs])
+        if self.int8:
+            wq, sw = quantize_weights([p.weight for p in projs])
+            qkv = int8_linear(x, wq, sw, bias, dtype)
+        else:
+            weight = torch.cat([p.weight for p in projs])
+            qkv = F.linear(x.to(dtype), weight.to(dtype), bias.to(dtype))
+        return qkv.chunk(3, dim=-1)
 
     def forward(self, x: torch.Tensor, kv_len: torch.Tensor, dtype: torch.dtype,
                 differentiable: bool = False, dropout: Dropout = Dropout.OFF,
@@ -111,13 +138,15 @@ class MultiHeadSelfAttention(nn.Module):
         (which alone applies ``dropout`` to the probabilities)."""
         B, L, d = x.shape
         h = self.num_heads
-        q, k, v = (linear(x, p, dtype) for p in (self.q_proj, self.k_proj, self.v_proj))
+        q, k, v = self._qkv(x, dtype)
         # (B, H, L, D) views of the projections: the kernels take strides and
-        # write the output in the same layout, so nothing is copied here
+        # write the output with its heads side by side, so nothing is copied here
         split = lambda t: t.view(B, L, h, d // h).transpose(1, 2)  # noqa: E731
         if differentiable:
             out = attention_xla(split(q), split(k), split(v), kv_len, dropout, dropout_rate)
         else:
             out = attention(split(q), split(k), split(v), kv_len)
         out = out.transpose(1, 2).reshape(B, L, d)
+        if self.int8:
+            return int8_dense(out, self.out_proj.weight, self.out_proj.bias, dtype)
         return linear(out, self.out_proj, dtype)

@@ -30,7 +30,7 @@ driven by the one dispatcher thread of ``sylber_tpu_torch.serve``).
 
 Usage:
   python -m sylber_tpu_torch.serve_http --device cuda --ckpt sylber.ckpt \\
-      --port 8787 [--max-batch 32] [--max-wait-ms 10] [--bf16] \\
+      --port 8787 [--max-batch 32] [--max-wait-ms 10] [--bf16 | --int8] \\
       [--centroids km.npy [--residual-centroids km2.npy]] \\
       [--synthesis-ckpt synth.npz|synthesis.ckpt [--synthesis-config cfg.yaml]] \\
       [--vocoder-ckpt vocoder.npz|generator.ckpt [--vocoder-config cfg.json]]
@@ -284,6 +284,18 @@ def build_synthesis_stack(synthesis_ckpt: str, synthesis_config: str, device,
     return synth, vocoder
 
 
+def segmenter_config(encoding_layer: int, bf16: bool = False, int8: bool = False):
+    """The served encoder's ``HubertConfig``: fp32 parity mode, the bf16 fast
+    mode, or (``int8``) the bf16 fast mode with dynamic W8A8 encoder
+    products (``scripts/serve_http.py``'s ``--int8``)."""
+    from .models.hubert import HubertConfig
+
+    if bf16 or int8:
+        return HubertConfig(num_hidden_layers=encoding_layer, dtype="bfloat16",
+                            frontend_dtype="bfloat16", precision="default", int8_encoder=int8)
+    return HubertConfig(num_hidden_layers=encoding_layer)
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--ckpt", default=None,
@@ -297,6 +309,9 @@ def main(argv=None) -> None:
     p.add_argument("--max-wait-ms", type=float, default=10.0)
     p.add_argument("--bf16", action="store_true",
                    help="bf16 fast mode (default: fp32 parity mode)")
+    p.add_argument("--int8", action="store_true",
+                   help="dynamic W8A8 int8 encoder products on the int8 kernels (implies "
+                        "the bf16 fast mode elsewhere)")
     p.add_argument("--encoding-layer", type=int, default=9,
                    help="encoder depth (reference Segmenter argument)")
     p.add_argument("--no-warmup", action="store_true")
@@ -325,15 +340,10 @@ def main(argv=None) -> None:
     args = p.parse_args(argv)
 
     from .api import Segmenter
-    from .models.hubert import HubertConfig
     from .quantizer import load_km_quantizer
     from .serve import SegmenterServer
 
-    if args.bf16:
-        cfg = HubertConfig(num_hidden_layers=args.encoding_layer, dtype="bfloat16",
-                           frontend_dtype="bfloat16", precision="default")
-    else:
-        cfg = HubertConfig(num_hidden_layers=args.encoding_layer)
+    cfg = segmenter_config(args.encoding_layer, args.bf16, args.int8)
     seg = Segmenter(model_ckpt=args.ckpt, hubert_config=cfg,
                     encoding_layer=args.encoding_layer, device=args.device)
     server = SegmenterServer(seg, max_batch=args.max_batch, max_wait_ms=args.max_wait_ms)

@@ -345,6 +345,11 @@ def apply_gradients(params: List[torch.Tensor], grads: List[torch.Tensor],
 def make_train_step(cfg: DistillConfig):
     """Returns ``(state, batch, seed) -> metrics``: one step, in place on
     ``state``; the metrics are device tensors."""
+    if cfg.model.int8_encoder:
+        # its rounding has no gradient and no straight-through estimator:
+        # training over it would barely move the projections (as JAX asserts)
+        raise ValueError("int8_encoder is an inference/serving mode (no straight-through "
+                         "estimator); train in bf16")
     schedule = cosine_warmup_schedule(cfg.lr, cfg.warmup_steps, cfg.total_steps,
                                       cfg.min_factor, cfg.hold_steps)
 

@@ -1,5 +1,6 @@
-// The launch loop and the PTX helpers of attn_tile.cuh, emulated on the host
-// after the PTX ISA's fragment layouts (ldmatrix, mma.m16n8k16).
+// The launch loop and the PTX helpers of attn_tile.cuh and int8_gemm.cu,
+// emulated on the host after the PTX ISA's fragment layouts (ldmatrix,
+// mma.m16n8k16 bf16, mma.m16n8k32 s8).
 #include "cuda_bf16.h"
 
 thread_local dim3 threadIdx, blockIdx, blockDim;
@@ -97,3 +98,38 @@ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
 }
 
 } }  // namespace sylber::attn
+
+namespace sylber { namespace i8 {
+
+void cp_async16(void* dst, const void* src, int bytes) { attn::cp_async16(dst, src, bytes); }
+void cp_async_commit() {}
+void ldmatrix_x4(uint32_t (&r)[4], const void* p) { attn::ldmatrix_x4(r, p); }
+
+// mma.m16n8k32.row.col.s32.s8.s8.s32: lane (g, t) = (lane / 4, lane % 4).
+// A (16 x 32): register i holds row g + 8 (i % 2), bytes 4t .. 4t + 3 of
+// k-half i / 2 (k = 16 (i / 2) + 4t + byte); B (32 x 8): register j holds
+// column g, k = 16 j + 4t + byte; C: rows g and g + 8, columns 2t, 2t + 1.
+static int8_t s8(uint64_t reg, int byte) { return (int8_t)((reg >> (8 * byte)) & 0xff); }
+
+void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  WarpCtx& w = emu_warp();
+  const int lane = emu_lane(), g = lane >> 2, t = lane & 3;
+  for (int i = 0; i < 4; ++i) w.buf[lane][i] = a[i];
+  w.buf[lane][4] = b0;
+  w.buf[lane][5] = b1;
+  w.bar.wait();
+  for (int i = 0; i < 4; ++i) {
+    const int row = g + 8 * (i / 2), col = 2 * t + (i % 2);
+    int32_t s = c[i];
+    for (int k = 0; k < 32; ++k) {
+      const int half = k / 16, tk = (k % 16) / 4, byte = k % 4;
+      const int8_t av = s8(w.buf[(row % 8) * 4 + tk][(row >= 8) + 2 * half], byte);
+      const int8_t bv = s8(w.buf[col * 4 + tk][4 + half], byte);
+      s += (int32_t)av * (int32_t)bv;
+    }
+    c[i] = s;
+  }
+  w.bar.wait();
+}
+
+} }  // namespace sylber::i8

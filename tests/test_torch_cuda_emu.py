@@ -56,6 +56,7 @@ _PTX_HELPERS = {
                       "ldmatrix_x4", "mma_bf16", "fast_exp2"],
     "common.cuh": ["ex2_approx", "rcp_approx", "mbar_init", "fence_mbar_init", "mbar_expect_tx",
                    "bulk_copy_to_shared", "mbar_wait", "rsqrt_approx"],
+    "int8_gemm.cu": ["cp_async16", "cp_async_commit", "cp_async_wait", "ldmatrix_x4", "mma_s8"],
 }
 _DECLARATIONS = {
     "attn_tile.cuh": ("struct Args {", """
@@ -65,6 +66,12 @@ void ldmatrix_x4(uint32_t (&r)[4], const void* p);
 void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p);
 void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1);
 float fast_exp2(float x);
+"""),
+    "int8_gemm.cu": ("// V values of T", """
+void cp_async16(void* dst, const void* src, int bytes); void cp_async_commit();
+template <int N> void cp_async_wait() {}
+void ldmatrix_x4(uint32_t (&r)[4], const void* p);
+void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1);
 """),
     "common.cuh": ("constexpr int MAX_COUNT", """
 inline float ex2_approx(float x) { return exp2f(x); }
@@ -102,14 +109,17 @@ _ENTRY_POINTS = ["sylber_small_attention", "sylber_flash_attention", "sylber_seg
                  "sylber_conv0_gn_gelu", "sylber_kmeanspp_blocks", "sylber_kmeanspp"]
 
 
-def _host_sources(out: Path) -> list:
-    """Copies of the kernel sources that g++ takes: the PTX helpers renamed
-    away, ``<<<...>>>`` launches turned into calls of ``emu_launch``, and the
-    ``__shared__`` arrays inside kernels made static (one copy for the block's
-    host threads; the attention kernels' dynamic array is defined in emu.cpp)."""
+SOURCES = ("common.cuh", "attn_tile.cuh", "smallattn.cu", "flash.cu", "segment_scan.cu",
+           "frontend.cu", "kmeanspp.cu")
+
+
+def _host_sources(out: Path, names=SOURCES) -> list:
+    """Copies of the kernel sources ``names`` that g++ takes: the PTX helpers
+    renamed away, ``<<<...>>>`` launches turned into calls of ``emu_launch``,
+    and the ``__shared__`` arrays inside kernels made static (one copy for the
+    block's host threads; the attention kernels' dynamic array is defined in
+    emu.cpp)."""
     sources = []
-    names = ("common.cuh", "attn_tile.cuh", "smallattn.cu", "flash.cu", "segment_scan.cu",
-             "frontend.cu", "kmeanspp.cu")
     for src in (_build.CSRC / n for n in names):
         text = src.read_text()
         for name in _PTX_HELPERS.get(src.name, ()):
@@ -120,9 +130,11 @@ def _host_sources(out: Path) -> list:
             anchor, decl = _DECLARATIONS[src.name]
             assert anchor in text, f"{anchor!r} not found in {src.name}"
             text = text.replace(anchor, decl + anchor, 1)
-        if src.name in ("segment_scan.cu", "frontend.cu", "kmeanspp.cu"):
+        if src.name in ("segment_scan.cu", "frontend.cu", "kmeanspp.cu", "int8_gemm.cu"):
             text = text.replace("extern __shared__ __align__(128) float ring[];",
                                 "static __align__(128) float ring[RING * MAX_DIM];")
+            text = text.replace("extern __shared__ __align__(128) int8_t gemm_smem[];",
+                                "static __align__(128) int8_t gemm_smem[SMEM_BYTES];")
             text = text.replace("__shared__", "static")
         text = re.sub(r"\b(\w+(?:<[^<>;()]*>)?)\s*<<<(.*?)>>>\s*\((.*?)\);",
                       r"emu_launch([&] { \1(\3); }, \2);", text, flags=re.S)
@@ -134,24 +146,29 @@ def _host_sources(out: Path) -> list:
     return sources
 
 
-@pytest.fixture(scope="module")
-def emulated(tmp_path_factory):
-    """The kernel library built for the host, with the C entry points typed."""
+def build_host_library(out: Path, names=SOURCES, entry_points=_ENTRY_POINTS):
+    """The kernel sources ``names`` built for the host in ``out``, with the C
+    entry points typed; skips the test where there is no g++."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++ to build the host stand-in of the CUDA kernels")
-    out = tmp_path_factory.mktemp("cuda_emu")
     lib = out / "libkernels_host.so"
     cmd = [gxx, "-std=c++17", "-O1", "-fPIC", "-shared", "-pthread", f"-I{EMU}", f"-I{out}",
            "-Wno-unknown-pragmas", "-o", str(lib), str(EMU / "emu.cpp"),
-           *map(str, _host_sources(out))]
+           *map(str, _host_sources(out, names))]
     done = subprocess.run(cmd, capture_output=True, text=True)
     assert done.returncode == 0, done.stderr[-4000:]
     handle = ctypes.CDLL(str(lib))
-    for name in _ENTRY_POINTS:
+    for name in entry_points:
         fn = getattr(handle, name)
         fn.argtypes, fn.restype = _build._SIGNATURES[name]
     return handle
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    """The kernel library built for the host, with the C entry points typed."""
+    return build_host_library(tmp_path_factory.mktemp("cuda_emu"))
 
 
 def _check(code, name):
@@ -195,18 +212,26 @@ CASES = [
     ("flash", 150, 12, BF16, [0, 1, 149, 150], 0.3, False),
     ("flash", 300, 64, F32, [300, 191, 0], 0.3, False),
     ("flash", 150, 12, F32, [0, 1, 149, 150], None, True),
+    # q, k, v as views of one fused (B, L, 3, H, D) projection
+    ("small", 77, 64, BF16, [0, 1, 63, 64, 77], None, "fused"),
+    ("flash", 300, 64, F32, [300, 191, 0], 0.3, "fused"),
 ]
 
 
 def _tensors(arrays, dtype, strided):
-    """(B, H, L, D) tensors, as views of (B, L, H, D) memory where ``strided``."""
+    """(B, H, L, D) tensors, as views of (B, L, H, D) memory where ``strided``,
+    of one (B, L, 3, H, D) buffer where it is ``"fused"``."""
     out = [torch.from_numpy(a).to(dtype) for a in arrays]
+    if strided == "fused":
+        fused = torch.stack([t.transpose(1, 2) for t in out], dim=2)
+        return [fused[:, :, i].transpose(1, 2) for i in range(3)]
     return [t.transpose(1, 2).contiguous().transpose(1, 2) for t in out] if strided else out
 
 
 @pytest.mark.parametrize(
     "kind,L,D,dtype,lens,scale,strided", CASES,
-    ids=[f"{c[0]}-L{c[1]}-D{c[2]}-{str(c[3])[6:]}" for c in CASES])
+    ids=[f"{c[0]}-L{c[1]}-D{c[2]}-{str(c[3])[6:]}" + ("-fused" if c[6] == "fused" else "")
+         for c in CASES])
 def test_emulated_kernel_matches_plain(launch, flash_interpret, kind, L, D, dtype, lens,
                                        scale, strided):
     """The emulated kernel against the JAX kernel (Pallas interpret mode) and
@@ -234,7 +259,7 @@ def test_emulated_kernel_matches_plain(launch, flash_interpret, kind, L, D, dtyp
                                             scale=scale)
     assert got.shape == plain.shape and got.dtype == dtype
     if L > 1:  # the output is laid out as q is
-        assert got.transpose(1, 2).is_contiguous() == strided
+        assert got.transpose(1, 2).is_contiguous() == bool(strided)
     tol = 2e-5 if dtype == F32 else 2e-2
     np.testing.assert_allclose(got.float().numpy(), np.asarray(jax_out, np.float32),
                                rtol=tol, atol=tol)

@@ -7,8 +7,9 @@ of the largest, with U-Net skips on and off and with and without a prefix
 mask.
 Also: the RoPE inverse frequencies and angles equal JAX's bit for bit (the
 registers sit at position -10000), the weight carry of
-``io/checkpoint.py`` gives back the same arrays bit for bit, and a mask
-that is not a prefix and the gateloop layers raise.
+``io/checkpoint.py`` gives back the same arrays bit for bit, a mask
+that is not a prefix raises, and a regressor with gateloop layers builds
+and runs (``test_torch_gateloop.py`` holds it against JAX).
 """
 
 import dataclasses
@@ -112,8 +113,11 @@ def test_mask_must_be_a_prefix_and_other_refusals():
     with pytest.raises(RuntimeError, match="prefix"):
         model(torch.from_numpy(x), 0.5, cond_emb=torch.from_numpy(emb),
               self_attn_mask=torch.from_numpy(mask))
-    with pytest.raises(NotImplementedError, match="gateloop"):
-        tvb.RegressorConfig(use_gateloop_layers=True)
+    gated = tvb.Regressor(tvb.RegressorConfig(**SMALL, use_gateloop_layers=True)).eval()
+    assert len([m for m in gated.modules() if isinstance(m, tvb.SimpleGateLoop)]) == 4
+    with torch.no_grad():
+        out = gated(torch.from_numpy(x), 0.5, cond_emb=torch.from_numpy(emb))
+    assert out.shape == (1, 9, 14) and torch.isfinite(out).all()
 
 
 def test_synthesis_weight_carry_round_trip_is_bit_exact(tmp_path):
