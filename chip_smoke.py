@@ -20,14 +20,18 @@ Phases, each of which fails the script when it fails:
    and the segmentation at the consumers' shapes (a long-form window batch
    of 8 x 496,000 samples, L 1549; a streaming hop of 64,000, L 199), and
    the division of pass 1's merged mean against the IEEE division for
-   every frame count;
+   every frame count; pass 2 is timed at each of its shapes beside its byte
+   bound and its chain bound (the longest chain of mid boundaries, a chain
+   being boundaries each of whose segment index is the one before's + 1,
+   times ``pass2_chain_cycles``), with the chains counted;
 3. run the ``Segmenter`` at full hubert-base width (768 wide, 9 layers,
    seeded random weights) in fp32 parity mode and bf16 fast mode on a
    32 x 5 s batch (small-attention path) and a 32 x 12-20 s batch (flash
    path), with every launch counter set to 0 just before and read just
    after; every kernel must have launched; the segmentation runs with
    ``torch.cuda.set_sync_debug_mode("error")``, so a wait for the host
-   inside it fails the run; prints the real-time factor of five timed calls;
+   inside it fails the run; prints the real-time factor of five timed calls
+   and the chains of mid boundaries that pass 2 meets there;
 4. run the trained ``tests/fixtures/mini_ckpt.npz`` Segmenter on the card
    and on the CPU; the segments must be identical; then its bf16 fast mode
    against its fp32 parity mode, both on the card: boundary F1 at tolerance
@@ -101,10 +105,13 @@ Phases, each of which fails the script when it fails:
    updated parameters). ``--only-synthesis-training`` runs phases 1 and 8
    alone, ``--reproduce-synthesis`` phase 1 and the 6,000-step mini recipe
    against ``mini_synth.json``'s recorded eval; neither prints a result;
-9. the int8 serving mode and the gateloop regressor: the row quantizer and
+9. the int8 serving mode and the gateloop regressor: ``cuobjdump -sass`` of
+   the built library must show IGMMA (``wgmma``'s integer form) in the int8
+   GEMM's functions; the row quantizer and
    the int8 GEMM of ``csrc/int8_gemm.cu`` bit for bit against their plain
    versions at the encoder's four products (M 7,968 and 31,968; K 768 and
-   3,072; N 768-3,072), fp32 and bf16, timed beside the plain versions, the
+   3,072; N 768-3,072), fp32 and bf16, timed (with the TOP/s reached) beside
+   the plain versions, the
    bounds, ``torch._int_mm`` + the rescale and the bf16 ``F.linear`` (both
    yardsticks only); both at awkward shapes (K 20, 48, 144, 576, M 1, N 13,
    a strided output); the GateLoop kernel bit for bit against its plain walk
@@ -153,8 +160,25 @@ H100_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 # the square root of |curr|^2 (40), two divisions (80), compare and select
 # (8), the update of the mean (4 + 4 + 40).
 PASS1_CHAIN_CYCLES = 4 + 5 * (24 + 4) + 40 + 80 + 8 + 48
+
+
+def pass2_chain_cycles(d: int) -> int:
+    """Least dependent latency of one link of a pass-2 chain (a mid boundary
+    that reads the segment the one before left), in SM cycles, on the same
+    assumed latencies, for a lane holding d / 32 elements of a row: the means
+    (a subtraction and a division, 4 + 40), the lane's products (4 each),
+    a 5-step warp reduction of dot, |a|^2 and |b|^2, two square roots and two
+    divisions, the compare (8); then the least window's (2 frames): the
+    lane's products, a 5-step reduction, a frame's cosine (a product and a
+    division), and the walk of 2 frames (two passes of an add, a compare and a
+    select, 16 each)."""
+    lane = -(-d // 32) * 4
+    return (44 + lane + 5 * (24 + 4) + 80 + 80 + 8) + (lane + 5 * (24 + 4) + 44 + 2 * 16)
 # phase 2's record of flash attention at the long-form windows' shape
 LONGFORM_FLASH = "flash_attention_B8_L1549"
+# phase 2's segmentation cases at the consumers' shapes: a long-form window
+# batch and a streaming hop
+CONSUMER_SEGMENTATION = ("longform_B8_L1549", "streaming_B1_L199")
 # phase 6's fp32 training run: the batch, and whether the encoder layers are
 # recomputed in the backward pass
 FP32_BATCH, FP32_REMAT = 100, False
@@ -317,27 +341,45 @@ def segmentation_records(torch, seg, states, voiced, norms, thr=0.8):
         bound_ms=b_ms, bound_by=b_by, shape=[B, L, d],
         eager_ms=time_ms(torch, run, 10),
         chain_bound_ms=L * PASS1_CHAIN_CYCLES / sm_clock_hz() * 1e3)}
-
-    P = seg._prefix_sums(states)
     p1e = seg.segment_pass1(states, voiced, thr)  # equal to the plain version's, see above
-    args = (states, norms, P, p1e.segs, p1e.nseg, p1e.mids, p1e.nmid, thr)
+    return p1, {"float32": pass2_record(torch, seg, states, norms, p1e, thr)}
+
+
+def pass2_record(torch, seg, states, norms, p1, thr):
+    """Pass 2 + compaction on pass 1's buffers ``p1``: segments and counts
+    against the plain version (0 mismatches), times, the byte bound and the
+    chain bound (the longest chain of mid boundaries, link by link)."""
+    B, L, d = states.shape
+    P = seg._prefix_sums(states)
+    args = (states, norms, P, p1.segs, p1.nseg, p1.mids, p1.nmid, thr)
     run = lambda: seg.segment_pass2(*args)  # noqa: E731
     plain = lambda: seg.segment_pass2_plain(*args)  # noqa: E731
     (got_segs, got_n), (want_segs, want_n) = run(), plain()
     mism = int((got_segs != want_segs).sum().item() + (got_n != want_n).sum().item())
     p_rows, win_frames = pass2_traffic(*(a.cpu().numpy() for a in args[:1] + args[3:7]), thr)
+    chains = chain_counts(*(t.cpu().numpy() for t in (p1.mids, p1.nseg, p1.nmid)))
     nbytes = (4 * d * (p_rows + win_frames) + 4 * win_frames       # rows of P and states, norms
               + 2 * 8 * B * (L + 1) + 2 * 4 * B                   # segs, mids, nseg, nmid
               + 8 * B * (L + 1) + 4 * B)                          # segments, counts
     b_ms, b_by = bound_ms(nbytes, 2.5 * d * p_rows + 4.0 * d * win_frames, "float32")
-    p2 = {"float32": dict(
+    return dict(
         max_abs_err=float(mism), tol=0, ok=mism == 0, ms=graph_time_ms(torch, run, 5),
         eager_ms=time_ms(torch, run, 10),
         plain_ms=time_ms(torch, plain, 1, warmup=0), library_ms=None,
         bound_ms=b_ms, bound_by=b_by, shape=[B, L, d],
-        mid_boundaries=int(p1e.nmid.sum().item()), segments=int(got_n.sum().item()),
-        p_rows_read=p_rows, window_frames=win_frames)}
-    return p1, p2
+        mid_boundaries=int(p1.nmid.sum().item()), segments=int(got_n.sum().item()),
+        p_rows_read=p_rows, window_frames=win_frames, chains=chains["chains"],
+        longest_chain=chains["longest_chain"],
+        chain_bound_ms=chains["longest_chain"] * pass2_chain_cycles(d) / sm_clock_hz() * 1e3)
+
+
+def log_pass2(label, r, smi):
+    log(f"{label}: segment_pass2 {r['shape']}: {r['max_abs_err']:.0f} mismatches ok={r['ok']}  "
+        f"kernel_ms {r['ms']:.4f} (eager {r['eager_ms']:.4f})  plain_ms {r['plain_ms']:.3f}  "
+        f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})  chain_bound_ms "
+        f"{r['chain_bound_ms']:.4f}; {r['mid_boundaries']} mid boundaries in {r['chains']} "
+        f"chains, longest_chain {r['longest_chain']}; read {r['p_rows_read']} rows of prefix "
+        f"sums and {r['window_frames']} window frames, left {r['segments']} segments  [{smi}]")
 
 
 def check_kernels(torch, ops):
@@ -388,10 +430,9 @@ def sm_clock_hz() -> float:
 
 
 def pass2_traffic(states, segs, nseg, mids, nmid, thr):
-    """What pass 2 must read for this data: the rows of the prefix sums (4 per
-    mid boundary it looks at) and the window frames of its sweeps, counted by
-    walking the refinement on the host in numpy as the oracle of the JAX
-    package walks it."""
+    """What pass 2 must do for this data, walked on the host in numpy as the
+    oracle of the JAX package walks it: the rows of the prefix sums it reads
+    (4 per mid boundary it looks at) and the window frames of its sweeps."""
     def cos(x, y):
         return (x * y).sum(-1) / np.sqrt((x * x).sum(-1) + 1e-8) / np.sqrt((y * y).sum(-1) + 1e-8)
 
@@ -411,10 +452,31 @@ def pass2_traffic(states, segs, nseg, mids, nmid, thr):
             ws = max(a0, bd - max(1, (a1 - a0) // 2))
             we = min(b1, bd + max(1, (b1 - b0) // 2))
             win_frames += we - ws
-            prev, nxt = cos(states[b, ws:we], mean_a), cos(states[b, ws:we], mean_b)
-            opt = ws + int(np.argmax([prev[:j].sum() + nxt[j:].sum() for j in range(we - ws)]))
+            prev_c, nxt = cos(states[b, ws:we], mean_a), cos(states[b, ws:we], mean_b)
+            opt = ws + int(np.argmax([prev_c[:j].sum() + nxt[j:].sum() for j in range(we - ws)]))
             row[gi], row[gi + 1] = [a0, opt], [opt, b1]
     return int(p_rows), int(win_frames)
+
+
+def chain_counts(mids, nseg, nmid):
+    """The chains of mid boundaries in pass 1's buffers (numpy): a boundary
+    continues a chain when its segment index is the previous boundary's + 1
+    (it reads the segment that one left), and one whose segment is the last
+    is skipped. Their number, the longest, the boundaries, and the most in a
+    row."""
+    chains, longest = 0, 0
+    for b in range(len(nmid)):
+        prev, length = None, 0
+        for _, gi in mids[b, :nmid[b]]:
+            if gi >= nseg[b] - 1:
+                prev = None
+                continue
+            if prev is None or gi != prev + 1:
+                chains, length = chains + 1, 0
+            prev, length = gi, length + 1
+            longest = max(longest, length)
+    return dict(chains=int(chains), longest_chain=int(longest),
+                mid_boundaries=int(nmid.sum()), most_in_a_row=int(nmid.max()) if len(nmid) else 0)
 
 
 def segment_batch_plain(torch, seg, states, norm_threshold, merge_threshold, frame_valid=None):
@@ -488,7 +550,9 @@ def check_segmentation_edges(torch, ops):
     cases = [("L1", rows(2, 1, 768), None), ("L249_rows", mixed, valid),
              ("L249_plateaus", rows(4, 249, 768), valid),
              ("L4000", rows(2, 4000, 768), None), ("d144", rows(4, 300, 144), None),
-             ("d1024", rows(2, 300, 1024), None), ("d50", rows(3, 300, 50), None)]
+             ("d1024", rows(2, 300, 1024), None), ("d50", rows(3, 300, 50), None),
+             # sums of frames past 2^60: pass 2 takes its means' IEEE fallback
+             ("huge_values", rows(2, 300, 16) * np.float32(1e17), None)]
     longform_valid = np.ones((8, 1549), bool)
     longform_valid[7, 374:] = False
     cases += [("longform_B8_L1549", rows(8, 1549, 768), longform_valid),
@@ -505,9 +569,15 @@ def check_segmentation_edges(torch, ops):
         mism = int((got.segments != want.segments).sum().item()
                    + (got.num_segments != want.num_segments).sum().item())
         err = (got.features - want.features).abs().max().item()
-        records.append(dict(case=name, shape=list(states.shape), mismatches=mism,
-                            feature_err=err, ok=mism == 0 and err <= 1e-5, launches=launches,
-                            segments=got.num_segments.tolist()))
+        rec = dict(case=name, shape=list(states.shape), mismatches=mism,
+                   feature_err=err, ok=mism == 0 and err <= 1e-5, launches=launches,
+                   segments=got.num_segments.tolist())
+        if name in CONSUMER_SEGMENTATION:  # pass 2 timed there, beside its bounds
+            voiced = ((got.norms >= 2.6) & fv).contiguous()
+            rec["pass2"] = pass2_record(torch, seg, x, got.norms,
+                                        seg.segment_pass1(x, voiced, 0.8), 0.8)
+            rec["ok"] = rec["ok"] and rec["pass2"]["ok"]
+        records.append(rec)
     return records
 
 
@@ -712,6 +782,7 @@ def main_path(torch, Segmenter, HubertConfig, counters, modes=None, label="main 
         fn.launches = 0
     for mode, cfg in modes.items():
         seg = Segmenter(hubert_config=cfg)
+        thresholds = (seg.norm_threshold, seg.merge_threshold)
         for bname, wavs in batches.items():
             seg.process(wavs, in_second=False)  # warm-up: cuDNN plans, kernel build
             torch.cuda.synchronize()
@@ -743,12 +814,39 @@ def main_path(torch, Segmenter, HubertConfig, counters, modes=None, label="main 
         del seg
         torch.cuda.empty_cache()
     launches = {fn.__name__: fn.launches for fn in counters}
+    for run in runs:  # after the counts: the plain pass 1 launches no kernel of the port
+        run["pass2_chains"] = hidden_chains(torch, hidden[(run["mode"], run["batch"])],
+                                            *thresholds)
+        c = run["pass2_chains"]
+        log(f"{label} {run['mode']} {run['batch']}: pass 2 meets {c['mid_boundaries']} mid "
+            f"boundaries in {c['chains']} chains, the longest {c['longest_chain']} links "
+            f"(at most {c['most_in_a_row']} boundaries in a row; voiced frames "
+            f"{c['voiced_share']:.4f} of the valid ones)")
     for bname in batches:
         for mode in modes:
             if mode != "fp32_highest" and ("fp32_highest", bname) in hidden:
                 a, b = hidden[("fp32_highest", bname)][0], hidden[(mode, bname)][0]
                 log(f"{mode} vs fp32 hidden, {bname}: max abs diff {np.abs(a - b).max():.4g}")
     return runs, launches, hidden
+
+
+def hidden_chains(torch, hidden, norm_threshold, merge_threshold):
+    """The chains of mid boundaries that pass 2 meets on a batch of returned
+    hidden states (numpy, one (T, d) array an item), from the plain pass 1
+    on the card, padded as ``segment_batch`` pads."""
+    from sylber_tpu_torch.ops import segment as seg
+
+    L = max(len(h) for h in hidden)
+    x = np.zeros((len(hidden), L, hidden[0].shape[1]), np.float32)
+    valid = np.zeros((len(hidden), L), bool)
+    for b, h in enumerate(hidden):
+        x[b, :len(h)], valid[b, :len(h)] = h, True
+    x, valid = torch.from_numpy(x).cuda(), torch.from_numpy(valid).cuda()
+    voiced = (seg.frame_norms(x) >= norm_threshold) & valid
+    p1 = seg.segment_pass1_plain(x, voiced, merge_threshold)
+    out = chain_counts(*(t.cpu().numpy() for t in (p1.mids, p1.nseg, p1.nmid)))
+    out["voiced_share"] = float(voiced.sum().item() / valid.sum().item())
+    return out
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1639,6 +1737,7 @@ def training_phase(torch, ops, counters, smi, tmp):
                 f"{r['max_abs_err']:.3g} (tol {r['tol']}) ok={r['ok']}  kernel_ms "
                 f"{r['ms']:.4f}  plain_ms {r['plain_ms']:.4f}  library_ms {r['library_ms']}  "
                 f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})  [{smi}]")
+    log_pass2("phase 6 (the trainer's shape)", shapes["segment_pass2"]["float32"], smi)
     sb = shapes["segment_batch"]
     log(f"phase 6: segment_batch at {sb['shape']} with a device-tensor norm threshold, under "
         f"set_sync_debug_mode('error'): {sb['mismatches']} mismatches, feature err "
@@ -2800,10 +2899,36 @@ def int8_records(torch, i8):
                 rec.update(int_mm_ms=None, library_ms=None, library_error=str(e)[:200])
             xb, wb, bb = x.bfloat16(), w.bfloat16(), b.bfloat16()
             rec["bf16_linear_ms"] = graph_time_ms(torch, lambda: F.linear(xb, wb, bb), 20)
+            rec["tops"] = 2.0 * M * N * K / (rec["ms"] * 1e-3) / 1e12  # int8 TOP/s reached
             gemm.append(rec)
         del x, xq, w, wq
     torch.cuda.empty_cache()
     return quant, gemm
+
+
+def gemm_sass(kernels):
+    """The matrix instructions in the int8 GEMM's functions of the built
+    library, from ``cuobjdump -sass``: wgmma's integer form is IGMMA
+    (``mma.sync``'s would be IMMA). ``ok`` when every instance has IGMMA."""
+    import re
+    import shutil
+
+    tool = Path(kernels._build._nvcc()).parent / "cuobjdump"
+    exe = str(tool) if tool.exists() else shutil.which("cuobjdump")
+    if exe is None:
+        raise AssertionError("cuobjdump not found: the GEMM's instructions cannot be checked")
+    sass = subprocess.run([exe, "-sass", str(kernels.build())], capture_output=True, text=True,
+                          check=True).stdout
+    funcs, name = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = set()
+        elif name is not None:
+            funcs[name].update(re.findall(r"\b([A-Z]*GMMA|[A-Z]MMA)\b", line))
+    gemm = {n: sorted(ops) for n, ops in funcs.items() if "int8_gemm_kernel" in n}
+    return dict(functions=gemm, ok=bool(gemm) and all("IGMMA" in o for o in gemm.values()))
 
 
 def int8_edges(torch, i8):
@@ -2978,10 +3103,15 @@ def gateloop_resynthesis(torch, counters, smi):
 def int8_phase(torch, ops, counters, smi):
     """Phase 9: the int8 serving path and the gateloop regressor on the
     card. Any failed check raises."""
-    from sylber_tpu_torch import Segmenter
+    from sylber_tpu_torch import Segmenter, kernels
     from sylber_tpu_torch.models.hubert import HubertConfig, matmul_precision
 
     i8, gl = ops.int8, ops.gateloop
+    sass = gemm_sass(kernels)
+    log(f"phase 9: cuobjdump -sass, matrix instructions of the int8 GEMM's functions: "
+        f"{sass['functions']} (IGMMA in each: {sass['ok']})")
+    if not sass["ok"]:
+        raise AssertionError(f"the int8 GEMM's SASS has no IGMMA (wgmma): {sass}")
     with matmul_precision("highest"):
         quant, gemm = int8_records(torch, i8)
         edges = int8_edges(torch, i8)
@@ -2989,8 +3119,8 @@ def int8_phase(torch, ops, counters, smi):
     for name, recs in (("quantize_rows", quant), ("int8_gemm", gemm)):
         for r in recs:
             yard = "" if name == "quantize_rows" else (
-                f"  library_ms (_int_mm + rescale) {r['library_ms']}  int_mm_ms "
-                f"{r['int_mm_ms']}  bf16_linear_ms {r['bf16_linear_ms']:.4f}")
+                f"  {r['tops']:.1f} TOP/s  library_ms (_int_mm + rescale) {r['library_ms']}  "
+                f"int_mm_ms {r['int_mm_ms']}  bf16_linear_ms {r['bf16_linear_ms']:.4f}")
             log(f"phase 9: {name} {r['dtype']} {r['shape']}: {r['mismatches']} mismatches "
                 f"(tol 0) ok={r['ok']}  kernel_ms {r['ms']:.4f} (eager {r['eager_ms']:.4f})  "
                 f"plain_ms {r['plain_ms']:.4f}  bound_ms {r['bound_ms']:.4f} ({r['bound_by']})"
@@ -3046,7 +3176,7 @@ def int8_phase(torch, ops, counters, smi):
     resynthesis, gate_launches = gateloop_resynthesis(torch, counters + [gl.gate_loop_operator],
                                                       smi)
     log(f"phase 9: launches over the gateloop resynthesis runs: {gate_launches}  [{smi}]")
-    return dict(quantize=quant, gemm=gemm, edges=edges, gateloop=gates, runs=runs,
+    return dict(quantize=quant, gemm=gemm, edges=edges, gateloop=gates, sass=sass, runs=runs,
                 cosines=cosines, launches=launches, mini=mini, http=http,
                 resynthesis=resynthesis, gateloop_launches=gate_launches)
 
@@ -3067,8 +3197,11 @@ def int8_kernel_entries(p9):
         row = dict(name=name, route="cuda", source=f"sylber_tpu_torch/csrc/{src}",
                    replaces=replaces, launches=p9["launches"][fn],
                    **{k: head[k] for k in keys})
-        row["shapes"] = [{k: r[k] for k in keys + ("int_mm_ms", "bf16_linear_ms") if k in r}
-                         for r in recs]
+        row["shapes"] = [{k: r[k] for k in keys + ("int_mm_ms", "bf16_linear_ms", "tops")
+                          if k in r} for r in recs]
+        if name == "int8_gemm":
+            row.update(tops=head["tops"], bf16_linear_ms=head["bf16_linear_ms"],
+                       int_mm_ms=head["int_mm_ms"], sass=p9["sass"]["functions"])
         rows.append(row)
     head = p9["gateloop"][0]
     rows.append(dict(name="gate_loop", route="cuda", source="sylber_tpu_torch/csrc/gateloop.cu",
@@ -3146,9 +3279,7 @@ def main() -> int:
     p1, p2 = checks["segment_pass1"]["float32"], checks["segment_pass2"]["float32"]
     log(f"phase 2: segment_pass1 eager {p1['eager_ms']:.4f} ms; chain bound "
         f"{p1['chain_bound_ms']:.4f} ms  [{smi}]")
-    log(f"phase 2: segment_pass2 looked at {p2['mid_boundaries']} mid boundaries, read "
-        f"{p2['p_rows_read']} rows of prefix sums and {p2['window_frames']} window frames, "
-        f"left {p2['segments']} segments")
+    log_pass2("phase 2", p2, smi)
     bad = [f"{n} {dt}" for n, rec in checks.items() for dt, r in rec.items() if not r["ok"]]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
@@ -3173,6 +3304,8 @@ def main() -> int:
         log(f"phase 2: segment_batch {e['case']} {e['shape']}: {e['mismatches']} mismatches, "
             f"feature err {e['feature_err']:.3g}, {e['launches']} launches, segments "
             f"{e['segments']} ok={e['ok']}")
+        if "pass2" in e:
+            log_pass2(f"phase 2 ({e['case']})", e["pass2"], smi)
     log(f"phase 2: segment_pass1 with a cosine on the threshold and one ulp below it: "
         f"{len(ties)} calls, {sum(t['mismatches'] for t in ties)} mismatches, boundaries "
         f"{[t['boundary'] for t in ties]}")
@@ -3244,7 +3377,8 @@ def main() -> int:
                      bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                      library_ms=r["library_ms"], dtype="float32", shape=r["shape"])
         extra = tuple(k for k in ("eager_ms", "library_eager_ms", "chain_bound_ms",
-                                  "mid_boundaries", "p_rows_read", "window_frames") if k in r)
+                                  "mid_boundaries", "p_rows_read", "window_frames", "chains",
+                                  "longest_chain") if k in r)
         entry.update({k: r[k] for k in extra})
         if "bfloat16" in rec:
             entry["bfloat16"] = {k: rec["bfloat16"][k] for k in
@@ -3265,10 +3399,15 @@ def main() -> int:
     for name in ("segment_pass1", "segment_pass2"):  # both run in each segment_batch call
         entries[name]["consumer_shapes"] = [
             {k: e[k] for k in ("case", "shape", "mismatches", "feature_err", "ok")}
-            for e in seg_edges if e["case"] in ("longform_B8_L1549", "streaming_B1_L199")]
+            for e in seg_edges if e["case"] in CONSUMER_SEGMENTATION]
+    for rec, e in zip(entries["segment_pass2"]["consumer_shapes"],
+                      [e for e in seg_edges if e["case"] in CONSUMER_SEGMENTATION]):
+        rec.update({k: e["pass2"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                               "chain_bound_ms", "chains", "longest_chain",
+                                               "mid_boundaries")})
     # the trainer's shapes (phase 6): times, bounds and the plain versions there
     keys = ("shape", "max_abs_err", "ms", "plain_ms", "library_ms", "eager_ms", "bound_ms",
-            "bound_by")
+            "bound_by", "chain_bound_ms", "chains", "longest_chain")
     for name in ("conv0_gn_gelu", "small_attention", "segment_pass1", "segment_pass2"):
         entries[name]["training_shapes"] = {
             dt: {k: r[k] for k in keys if k in r} for dt, r in training["kernels"][name].items()}

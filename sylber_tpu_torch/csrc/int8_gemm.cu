@@ -15,21 +15,35 @@
 //   divisions (as XLA divides; no reciprocal multiply), rintf (half to even,
 //   as jnp.round). The int8 output is bit-equal to JAX's. Its row stride is
 //   a multiple of 16 bytes and the columns from K to the stride are written
-//   as zeros, so the GEMM copies whole 16-byte chunks of any row. Bound:
-//   bytes (the input read once, a byte a value written).
+//   as zeros: the stride is what TMA's global stride must be. Bound: bytes
+//   (the input read once, a byte a value written).
 // sylber_int8_gemm: out (M, N) = epilogue(A (M, K) . B (N, K)^T), both int8
-//   and K-contiguous: the "TN" layout that mma.sync.m16n8k32.row.col.s8.s8
-//   takes without a transpose. Blocks of 128 x 128 outputs, 8 warps of 64 x
-//   32, K in steps of 64 bytes through a 3-stage ring of cp.async copies
-//   (16 bytes a copy, zero-filled past M, N and K: int8 zeros add nothing),
-//   fragments by ldmatrix (an m16n8k32 s8 fragment has the bytes of an
-//   m16n8k16 b16 one). The int32 sums are exact in any order. The epilogue
-//   computes float(acc) * sx[m] * sw[n] + b[n] in that order with rounded
-//   operations (no fused multiply-add), so the output is bit-equal to the
-//   plain version's. Bound at the encoder's shapes: about even between the
-//   bytes (operands and output) and the int8 tensor-core rate; mma.sync
-//   reaches part of that rate only, which wgmma would lift (a later change,
-//   like quantizing the activations inside the GEMM's prologue).
+//   and K-contiguous, the layout wgmma takes for 8-bit operands (both must be
+//   K-major). Bound at the encoder's shapes: about even between the bytes
+//   (operands and output) and the int8 tensor-core rate, which only wgmma
+//   reaches. One kernel for every shape: blocks of 128 x 128 outputs; a
+//   producer warp keeps a ring of 5 stages full with TMA 2-D tile loads
+//   (cp.async.bulk.tensor, 128 x 128 bytes of A and of B a stage, the
+//   128-byte swizzle, out-of-bounds elements filled with zeros past M, N and
+//   the true K: int8 zeros add nothing), each stage's full and empty
+//   mbarriers ordering it; two consumer warpgroups of 64 rows each run
+//   wgmma.mma_async m64n128k32 s8 with both operands read from shared memory
+//   through descriptors (K-major, 128-byte swizzle, the k32 steps 32 bytes
+//   apart within a row), one k-tile in flight while the previous tile's
+//   stage goes back to the producer. A persistent grid, a block an SM: the
+//   ring runs across a block's tiles, so the next tile's loads overlap this
+//   tile's epilogue. The int32 sums are exact in any order.
+//   The epilogue maps the accumulator fragment (row 16 warp + lane / 4
+//   (+ 8), column 8 i + 2 (lane % 4) (+ 1)) to the output and computes
+//   float(acc) * sx[m] * sw[n] + b[n] in that order with rounded operations
+//   (no fused multiply-add), so the output is bit-equal to the plain
+//   version's; each warp stages its rows in shared memory and writes them
+//   out in 16-byte pieces (stored straight from the fragment, two values a
+//   lane, the epilogue took longer than the products at K 768). The
+//   tensor maps are encoded on the host per call, the encoder looked up at
+//   run time (cudaGetDriverEntryPointByVersion): nothing new is linked.
+#include <cuda.h>
+
 #include "common.cuh"
 
 namespace sylber {
@@ -39,45 +53,77 @@ constexpr int Q_THREADS = 256;  // 8 warps, a row per warp
 constexpr float MIN_AMAX = 1e-8f;
 constexpr float QMAX = 127.f;
 
-constexpr int BM = 128, BN = 128, BK = 64;  // block tile; BK in bytes
-constexpr int STAGES = 3;
-constexpr int PITCH = BK + 16;  // bytes a row in shared memory: ldmatrix conflict-free
-constexpr int G_THREADS = 256;  // 2 x 4 warps of 64 x 32 outputs
-constexpr int WM = 64, WN = 32;
-constexpr int MI = WM / 16, NI = WN / 8;
-constexpr int STAGE_BYTES = (BM + BN) * PITCH;
-constexpr int SMEM_BYTES = STAGES * STAGE_BYTES;
+constexpr int BM = 128, BN = 128, BK = 128;  // block tile; BK in bytes: one swizzled row
+constexpr int STAGES = 5;
+constexpr int CONSUMERS = 2;  // warpgroups of 64 rows
+constexpr int CONSUMER_WARPS = 4 * CONSUMERS;
+constexpr int G_THREADS = (CONSUMER_WARPS + 1) * 32;  // and the producer warp, the last
+constexpr int TILE_A = BM * BK, TILE_B = BN * BK;
+constexpr int STAGE_BYTES = TILE_A + TILE_B;
+// a consumer warp's 16 rows x 64 columns of output on their way out, padded
+// (a row's 16-byte chunks off the banks of the next row's)
+constexpr int OUT_PITCH = 64 * 4 + 16;  // bytes a staged row (fp32; bf16 uses half)
+constexpr int OUT_BYTES = CONSUMER_WARPS * 16 * OUT_PITCH;
+constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + OUT_BYTES + 1024;  // + slack to align to 1024
 
+// Shared-memory helpers of the GEMM: addresses, TMA and wgmma.
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// Wait until at most N of the committed groups are still in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-// c += a (16 x 32, row) . b (32 x 8, col), int8 in, int32 sums.
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
+// A box of the tensor map at (c0 along K, c1 along rows) into shared memory,
+// its bytes reported to `bar`; elements outside the tensor arrive as zeros.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            uint64_t* bar) {
   asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+      "l"(map), "r"(c0), "r"(c1), "r"(smem_addr(bar))
+      : "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most N committed wgmma groups of this warpgroup are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// d (64 x 128, s32) += a (64 x 32 bytes) . b (128 x 32 bytes)^T, s8, both
+// K-major in shared memory as their descriptors name them.
+__device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+// The descriptor of a K-major operand that TMA wrote with the 128-byte
+// swizzle: 128-byte rows, 8-row groups 1024 bytes apart (stride byte offset),
+// the leading byte offset unused by this layout (1), layout type 1.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+// Keeps the compiler from moving accesses of the accumulators across a wait.
+__device__ __forceinline__ void fence_acc(int (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // V values of T (16 bytes, or one value) to float.
@@ -123,124 +169,131 @@ __global__ void __launch_bounds__(Q_THREADS)
   for (int c = K + lane; c < ldq; c += 32) qr[c] = 0;  // the zero tail
 }
 
-// Copy rows [r0, r0 + rows) x bytes [k0, k0 + BK) of a (R, K) int8 matrix
-// (row stride ld, a multiple of 16, zeros from K to ld) into shared memory;
-// chunks past R or K are zero-filled.
-template <int ROWS>
-__device__ __forceinline__ void load_tile(int8_t* s, const int8_t* g, int ld, int R, int K,
-                                          int r0, int k0) {
-  constexpr int CHUNKS = BK / 16;
-  for (int i = threadIdx.x; i < ROWS * CHUNKS; i += G_THREADS) {
-    const int r = i / CHUNKS, kc = k0 + (i % CHUNKS) * 16;
-    const bool ok = r0 + r < R && kc < K;
-    const int8_t* src = ok ? g + (long long)(r0 + r) * ld + kc : g;
-    cp_async16(s + r * PITCH + (i % CHUNKS) * 16, src, ok ? 16 : 0);
-  }
-}
-
+// A persistent grid: block b takes the output tiles b, b + gridDim.x, ...
+// (N tiles fastest, so the blocks at work share A's rows and all of B in L2).
+// The ring runs across tiles: while the consumers write a tile out, the
+// producer already fills the stages with the next tile's k-tiles.
 template <typename T>
-__device__ __forceinline__ void store_pair(T* p, float a, float b, bool second, bool pair) {
-  if (pair && second) {
-    if constexpr (sizeof(T) == 4) {
-      *reinterpret_cast<float2*>(p) = make_float2(a, b);
-    } else {
-      __nv_bfloat162 v;
-      v.x = from_float<T>(a);
-      v.y = from_float<T>(b);
-      *reinterpret_cast<__nv_bfloat162*>(p) = v;
-    }
-  } else {
-    p[0] = from_float<T>(a);
-    if (second) p[1] = from_float<T>(b);
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(G_THREADS)
-    int8_gemm_kernel(const int8_t* __restrict__ A, int lda, const int8_t* __restrict__ B,
-                     int ldb, const float* __restrict__ sx, const float* __restrict__ sw,
+__global__ void __launch_bounds__(G_THREADS, 1)
+    int8_gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+                     const float* __restrict__ sx, const float* __restrict__ sw,
                      const float* __restrict__ bias, T* __restrict__ out, long long ldo, int M,
-                     int N, int K, bool pair) {
-  extern __shared__ __align__(128) int8_t gemm_smem[];
+                     int N, int K, bool vec) {
+  extern __shared__ __align__(1024) int8_t gemm_smem[];
+  __shared__ __align__(8) uint64_t full[STAGES];   // a stage's tiles have landed
+  __shared__ __align__(8) uint64_t empty[STAGES];  // the consumers are done with a stage
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / (BN / WN), wn = warp % (BN / WN);
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int ktiles = (K + BK - 1) / BK;
-
-  int acc[MI][NI][4];
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int j = 0; j < NI; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0;
-
-  auto stage = [&](int s) { return gemm_smem + s * STAGE_BYTES; };
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < ktiles) {
-      load_tile<BM>(stage(s), A, lda, M, K, m0, s * BK);
-      load_tile<BN>(stage(s) + BM * PITCH, B, ldb, N, K, n0, s * BK);
+  const int tiles_n = (N + BN - 1) / BN, tiles = tiles_n * ((M + BM - 1) / BM);
+  int8_t* ring = gemm_smem + ((1024 - (smem_addr(gemm_smem) & 1023)) & 1023);
+  auto tile_a = [&](int s) { return ring + s * STAGE_BYTES; };
+  auto tile_b = [&](int s) { return ring + s * STAGE_BYTES + TILE_A; };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMER_WARPS);
     }
-    cp_async_commit();
+    fence_mbar_init();
   }
-  for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // tile kt has landed; everyone is done with tile kt - 1
-    const int nt = kt + STAGES - 1;
-    if (nt < ktiles) {  // refill the stage that tile kt - 1 left
-      load_tile<BM>(stage(nt % STAGES), A, lda, M, K, m0, nt * BK);
-      load_tile<BN>(stage(nt % STAGES) + BM * PITCH, B, ldb, N, K, n0, nt * BK);
-    }
-    cp_async_commit();
-    const int8_t* As = stage(kt % STAGES) + wm * WM * PITCH;
-    const int8_t* Bs = stage(kt % STAGES) + BM * PITCH + wn * WN * PITCH;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 32) {
-      uint32_t af[MI][4], bf[NI][2];
-#pragma unroll
-      for (int i = 0; i < MI; ++i)  // rows lane % 16, bytes +16 for lanes 16-31
-        ldmatrix_x4(af[i], As + (i * 16 + (lane & 15)) * PITCH + kk + (lane >> 4) * 16);
-#pragma unroll
-      for (int j = 0; j < NI; j += 2) {  // two n8 tiles: (n, k0-15), (n, k16-31) each
-        uint32_t r[4];
-        ldmatrix_x4(r, Bs + (j * 8 + (lane & 7) + ((lane >> 4) << 3)) * PITCH + kk +
-                           ((lane >> 3) & 1) * 16);
-        bf[j][0] = r[0];
-        bf[j][1] = r[1];
-        bf[j + 1][0] = r[2];
-        bf[j + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int i = 0; i < MI; ++i)
-#pragma unroll
-        for (int j = 0; j < NI; ++j) mma_s8(acc[i][j], af[i], bf[j][0], bf[j][1]);
-    }
-  }
-  cp_async_wait<0>();
+  __syncthreads();
 
-  // epilogue: lane (g, t) holds rows g and g + 8, columns 2t and 2t + 1
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < NI; ++j) {
-    const int n = n0 + wn * WN + j * 8 + 2 * t;
-    if (n >= N) continue;
-    const bool second = n + 1 < N;
-    const float w0 = sw[n], w1 = second ? sw[n + 1] : 0.f;
-    const float b0 = bias ? bias[n] : 0.f, b1 = bias && second ? bias[n + 1] : 0.f;
-#pragma unroll
-    for (int i = 0; i < MI; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = m0 + wm * WM + i * 16 + g + 8 * h;
-        if (m >= M) continue;
-        const float s = sx[m];
-        float y0 = __fmul_rn(__fmul_rn((float)acc[i][j][2 * h], s), w0);
-        float y1 = __fmul_rn(__fmul_rn((float)acc[i][j][2 * h + 1], s), w1);
-        if (bias) {
-          y0 = __fadd_rn(y0, b0);
-          y1 = __fadd_rn(y1, b1);
+  if (warp == CONSUMER_WARPS) {  // the producer: one thread keeps the ring full
+    if (lane == 0) {
+      int it = 0;  // k-tiles asked for, over all of this block's tiles
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = tile / tiles_n * BM, n0 = tile % tiles_n * BN;
+        for (int kt = 0; kt < ktiles; ++kt, ++it) {
+          const int s = it % STAGES;
+          if (it >= STAGES) mbar_wait(&empty[s], (it / STAGES - 1) & 1);
+          mbar_expect_tx(&full[s], STAGE_BYTES);
+          tma_load_2d(tile_a(s), &ta, kt * BK, m0, &full[s]);
+          tma_load_2d(tile_b(s), &tb, kt * BK, n0, &full[s]);
         }
-        store_pair(out + m * ldo + n, y0, y1, second, pair);
       }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: rows 64 wg .. + 64 of each tile, all its columns
+  const int wg = warp / 4;
+  const int g = lane >> 2, t = lane & 3;
+  int acc[64];
+  int it = 0;  // k-tiles taken, over all of this block's tiles
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int m0 = tile / tiles_n * BM, n0 = tile % tiles_n * BN;
+    // the epilogue's scales and biases, asked for before the products: the
+    // lane's rows mr, mr + 8 and columns 8 i + 2 (lane % 4) (+ 1)
+    const int mr = m0 + wg * 64 + (warp % 4) * 16 + g;
+    const float s0 = mr < M ? sx[mr] : 0.f, s1 = mr + 8 < M ? sx[mr + 8] : 0.f;
+    float w[BN / 8][2], bv[BN / 8][2];
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int n = n0 + i * 8 + 2 * t + c;
+        w[i][c] = n < N ? sw[n] : 0.f;
+        bv[i][c] = bias && n < N ? bias[n] : 0.f;
+      }
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0;
+    for (int kt = 0; kt < ktiles; ++kt, ++it) {
+      const int s = it % STAGES;
+      mbar_wait(&full[s], (it / STAGES) & 1);
+      const uint32_t a0 = smem_addr(tile_a(s) + wg * 64 * BK), b0 = smem_addr(tile_b(s));
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < BK / 32; ++k)
+        wgmma_s8(acc, smem_desc(a0 + 32 * k), smem_desc(b0 + 32 * k));
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous k-tile's products are done: give its stage back
+      fence_acc(acc);
+      if (kt > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+    if (lane == 0) mbar_arrive(&empty[(it - 1) % STAGES]);  // the tile's last k-tile
+
+    // epilogue, 64 columns at a time: register 4 i + 2 h + c holds row 16
+    // (warp % 4) + lane / 4 + 8 h, column 8 i + 2 (lane % 4) + c of the
+    // warpgroup's 64 x 128; the warp stages its 16 rows in shared memory and
+    // writes them out as 16-byte pieces of rows
+    T* staged = reinterpret_cast<T*>(ring + STAGES * STAGE_BYTES + warp * 16 * OUT_PITCH);
+    constexpr int PITCH = OUT_PITCH / (int)sizeof(T);  // values a staged row
+    constexpr int VALUES = 16 / (int)sizeof(T), PIECES = 64 / VALUES;  // a row's 16-byte pieces
+    const int row0 = m0 + wg * 64 + (warp % 4) * 16;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+#pragma unroll
+      for (int i = 8 * half; i < 8 * half + 8; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float sm = h ? s1 : s0;
+          float y0 = __fmul_rn(__fmul_rn((float)acc[4 * i + 2 * h], sm), w[i][0]);
+          float y1 = __fmul_rn(__fmul_rn((float)acc[4 * i + 2 * h + 1], sm), w[i][1]);
+          if (bias) {
+            y0 = __fadd_rn(y0, bv[i][0]);
+            y1 = __fadd_rn(y1, bv[i][1]);
+          }
+          T* p = staged + (g + 8 * h) * PITCH + (i - 8 * half) * 8 + 2 * t;
+          p[0] = from_float<T>(y0);
+          p[1] = from_float<T>(y1);
+        }
+      __syncwarp();
+#pragma unroll
+      for (int q = lane; q < 16 * PIECES; q += 32) {
+        const int r = q / PIECES, c = (q % PIECES) * VALUES;
+        const int m = row0 + r, n = n0 + 64 * half + c;
+        if (m >= M || n >= N) continue;
+        const T* src = staged + r * PITCH + c;
+        T* dst = out + m * ldo + n;
+        if (vec && n + VALUES <= N) {
+          *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+        } else {
+          for (int e = 0; e < VALUES && n + e < N; ++e) dst[e] = src[e];
+        }
+      }
+      __syncwarp();  // the next half is staged where this one was read
+    }
   }
 }
 
@@ -258,18 +311,62 @@ int quantize_launch(const void* x, long long ldx, void* q, int ldq, void* scale,
   return (int)cudaGetLastError();
 }
 
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+
+// cuTensorMapEncodeTiled, looked up once through the CUDA runtime.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+#if CUDART_VERSION >= 12050
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault) != cudaSuccess)
+      p = nullptr;
+#endif
+    return (EncodeTiled)p;
+  }();
+  return fn;
+}
+
+// The tensor map of an (R, K) int8 operand with a row stride of ld bytes, in
+// boxes of `rows` rows by BK bytes with the 128-byte swizzle; the logical K
+// is the true K, so TMA fills the columns past it with zeros.
+bool tensor_map(CUtensorMap* map, const void* base, int R, int K, int ld, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)R};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld};
+  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <typename T>
 int gemm_launch(const void* a, int lda, const void* b, int ldb, const void* sx, const void* sw,
                 const void* bias, void* out, long long ldo, int M, int N, int K,
                 cudaStream_t stream) {
+  CUtensorMap ta, tb;
+  if (!tensor_map(&ta, a, M, K, lda, BM) || !tensor_map(&tb, b, N, K, ldb, BN))
+    return (int)cudaErrorInvalidValue;
   const cudaError_t err = cudaFuncSetAttribute(
       int8_gemm_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
-  const bool pair = ldo % 2 == 0 && (uintptr_t)out % (2 * sizeof(T)) == 0;
-  const dim3 grid(ceil_div(N, BN), ceil_div(M, BM));
+  int device = 0, sms = 0;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
+    return (int)cudaGetLastError();
+  // whole 16-byte pieces of output rows where every row starts 16-byte aligned
+  const bool vec = (ldo * (long long)sizeof(T)) % 16 == 0 && (uintptr_t)out % 16 == 0;
+  const int grid = min(ceil_div(N, BN) * ceil_div(M, BM), sms);  // a block an SM
   int8_gemm_kernel<T><<<grid, G_THREADS, SMEM_BYTES, stream>>>(
-      (const int8_t*)a, lda, (const int8_t*)b, ldb, (const float*)sx, (const float*)sw,
-      (const float*)bias, (T*)out, ldo, M, N, K, pair);
+      ta, tb, (const float*)sx, (const float*)sw, (const float*)bias, (T*)out, ldo, M, N, K, vec);
   return (int)cudaGetLastError();
 }
 
@@ -293,6 +390,7 @@ extern "C" int sylber_quantize_rows(const void* x, void* q, void* scale, int R, 
 // out (M, N), row stride ldo, float32 or bfloat16 = ((float)(A . B^T) * sx)
 // * sw + bias; A (M, K), B (N, K) int8 with row strides lda, ldb (multiples
 // of 16, zeros from K to the stride), 16-byte aligned; bias may be null.
+// Returns cudaErrorInvalidValue if a tensor map cannot be encoded.
 extern "C" int sylber_int8_gemm(const void* a, const void* b, const void* sx, const void* sw,
                                 const void* bias, void* out, int M, int N, int K, int lda,
                                 int ldb, long long ldo, int out_bf16, void* stream) {

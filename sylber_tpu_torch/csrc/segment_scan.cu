@@ -28,9 +28,12 @@
 //
 // Bound on the H100: latency, in both passes. The frames of a row are a chain
 // of dependent steps (one d-wide reduction, a square root, two divisions and
-// the update of the mean per frame), the mid boundaries of a row another (a
-// later one reads the segments as the earlier ones left them). The bytes
-// (B*L*d floats) would take microseconds.
+// the update of the mean per frame). In pass 2 a mid boundary depends on the
+// one before only when its segment index is that one's + 1 (it reads the
+// segment that one left): the boundaries of a row fall into independent
+// chains (794 at B32 L1000 on chip_smoke.py's synthetic states, 131 links
+// the longest, against 18,817 boundaries). The bytes (B*L*d floats) would
+// take microseconds.
 //
 // Design. Two launches, one block per batch row each, because the passes want
 // different blocks: pass 1 a narrow one (the chain pays for every shuffle
@@ -64,13 +67,33 @@
 //   segments by a prefix count. What is left is the latency of the shuffles,
 //   the barrier and some 200 dependent instructions a frame in warps that
 //   have an SM to themselves.
-//   Pass 2: each row loops over its own mid boundaries (the bound max(nmid)
-//   of the vectorised plain version exists only because that one is batched),
-//   so nothing returns to the host. Means are taken elementwise from P as
-//   the plain version takes them; the sweep computes the cosines of the
-//   window's frames only, one warp a frame, then thread 0 walks the window
-//   in order (the order of a sequential cumsum) and takes the first maximum.
-//   A merged segment is marked dead by start = -1 in the row's working copy.
+//   Pass 2: one block per row, so nothing returns to the host and the
+//   compaction stays in the launch. The block lists the chains' first
+//   boundaries (a ballot and a prefix count), queues the chains of at least
+//   a warp's share of the row's boundaries first, and its 8 warps take
+//   chains from the queue; a warp walks its chain link by link with no
+//   block barrier. Lanes hold 1/32 of each row in registers: the means are
+//   taken elementwise from P as the plain version takes them (the quotients
+//   by one shared reciprocal, IEEE-exact; __fdiv_rn for the rare numerator
+//   out of its range), the dot, |a|^2 and |b|^2 and each window frame's two
+//   dots are warp butterflies (every lane gets the same sums and takes the
+//   same decisions). Off the chain: the next link's P rows and pass-1
+//   entries are loaded a link ahead, and the window's first frames before
+//   the merge decision. The frames' cosines go to the warp's shared memory
+//   (a global scratch per warp past WIN frames); every lane walks them in
+//   order (the order of a sequential cumsum) and takes the first maximum.
+//   A merged segment is marked dead by start = -1 in the row's working
+//   copy; after a block barrier the live ones are compacted in order.
+//   A link is long straight-line code that one warp runs alone: 4,542
+//   cycles with every frame voiced at d 768 (scripts/pass2_probe.py's clock64
+//   stamps, H100), most in the window's cosines, the walk and the loads of
+//   the window's first frame. A branch inside it costs more than the work it
+//   skips, so the loads and the means' range test have none: __fdiv_rn for
+//   the means took 0.710 ms against 0.484 at B32 L249 (every frame voiced,
+//   248 links a chain), the range test written with || 0.809 (the same
+//   probe). L1 prefetches of the next window, asking for the next window's
+//   frames at the end of a link, and walking windows of up to FR frames in
+//   registers were tried and were not faster at d 768.
 #include "common.cuh"
 
 using namespace sylber;
@@ -396,170 +419,251 @@ int launch_pass1(const Pass1Args& a, int B, cudaStream_t stream) {
 
 constexpr int P2_WARPS = 8;
 constexpr int P2_THREADS = P2_WARPS * 32;
-constexpr int WIN = 512;  // window frames whose cosines fit in shared memory
+constexpr int WIN = 64;  // window frames whose cosines a warp keeps in shared memory
+constexpr int FR = 2;    // window frames whose rows a warp holds in registers at once
 
-// One lane of a segment mean from the prefix sums, rounded as the plain
-// version rounds it: a subtraction, then an IEEE division.
-__device__ __forceinline__ float mean_lane(float hi, float lo, float len) {
-  return __fdiv_rn(__fsub_rn(hi, lo), len);
+struct Pass2Args {
+  const float* states;  // (B, L, d)
+  const float* norms;   // (B, L)
+  const float* P;       // (B, L + 1, d) prefix sums
+  const int2* segs;     // (B, L + 1), nseg (B,): pass 1's segments
+  const int* nseg;
+  const int2* mids;     // (B, L + 1), nmid (B,): pass 1's mid boundaries
+  const int* nmid;
+  int2* work;           // (B, L + 1): the row's segments while they are refined
+  int* chains;          // (B, 2, L + 1): the chains' first boundaries, then the queue
+  float* win;           // (B, P2_WARPS, 2, L): a warp's cosines of a window past WIN
+  int2* out;            // (B, L + 1), nout (B,): the compacted segments
+  int* nout;
+  int L, d;
+  float thr;
+};
+
+// The lane's part of the mean of frames [lo, lo + frames) from the prefix
+// sums, rounded as the plain version rounds it: a subtraction, then the IEEE
+// quotient by the frame count (at least 1). `hi` and `lo` hold the lane's
+// part of the rows P[lo + frames] and P[lo], which lie at hi_row and lo_row.
+// The quotients come from one shared reciprocal (common.cuh's Divisor, as
+// pass 1 divides; chip_smoke.py checks it for every frame count) and the
+// range test from a minimum and a maximum, all branch-free: __fdiv_rn's
+// check and branch after every quotient keep a lane's quotients from
+// overlapping, and so does a test written with || (scripts/pass2_probe.py).
+// If a numerator of the warp is out of the reciprocal's range (zeros are
+// not), the warp divides the rows again with __fdiv_rn, element by element
+// through its scratch row in shared memory.
+template <int V, int NCH>
+__device__ __forceinline__ void segment_mean(float (&m)[NCH][V], const float (&hi)[NCH][V],
+                                             const float (&lo)[NCH][V], int frames,
+                                             const float* hi_row, const float* lo_row, int d,
+                                             float* scratch, int lane) {
+  const float len = (float)max(frames, 1);
+  float least = 1.f, most = 0.f;  // the least nonzero and the largest |numerator|
+#pragma unroll
+  for (int c = 0; c < NCH; ++c)
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      m[c][e] = __fsub_rn(hi[c][e], lo[c][e]);
+      const float ax = fabsf(m[c][e]);
+      least = fminf(least, ax == 0.f ? 1.f : ax);
+      most = fmaxf(most, ax);
+    }
+  const Divisor by(len);
+#pragma unroll
+  for (int c = 0; c < NCH; ++c)
+#pragma unroll
+    for (int e = 0; e < V; ++e) m[c][e] = by.divide(m[c][e]);
+  if (__any_sync(FULL, !(least >= 0x1p-60f && most <= 0x1p60f))) {
+    for (int i = lane; i < d; i += 32) scratch[i] = __fdiv_rn(__fsub_rn(hi_row[i], lo_row[i]), len);
+    __syncwarp();
+#pragma unroll
+    for (int c = 0; c < NCH; ++c)
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const int i = (c * 32 + lane) * V + e;
+        m[c][e] = i < d ? scratch[i] : 0.f;
+      }
+    __syncwarp();
+  }
 }
 
-__global__ void __launch_bounds__(P2_THREADS)
-    segment_pass2_kernel(const float* __restrict__ states,
-                         const float* __restrict__ norms,
-                         const float* __restrict__ P,
-                         const int2* __restrict__ segs_in,
-                         const int* __restrict__ nseg,
-                         const int2* __restrict__ mids_in,
-                         const int* __restrict__ nmid, int2* work, float* win,
-                         int2* __restrict__ out, int* __restrict__ nout, int L,
-                         int d, float thr, int vec) {
-  __shared__ __align__(16) float ma[MAX_DIM];
-  __shared__ __align__(16) float mb[MAX_DIM];
-  __shared__ float red[2][3][P2_WARPS];
-  __shared__ float swin[2][WIN];
-  __shared__ int wtot[P2_WARPS];
-  __shared__ int opt_s;
-  const int b = blockIdx.x, tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int MS = L + 1;
-  const float* xb = states + (size_t)b * L * d;
-  const float* nrm = norms + (size_t)b * L;
-  const float* Pb = P + (size_t)b * MS * d;
-  const int2* segs = segs_in + (size_t)b * MS;
-  const int2* mids = mids_in + (size_t)b * MS;
-  int2* wk = work + (size_t)b * MS;
-  const int n = nseg[b], m = nmid[b];
-
-  for (int k = tid; k < MS; k += P2_THREADS) wk[k] = segs[k];
-
-  // A mid boundary touches segments gi and gi + 1 only, and gi grows from one
-  // to the next: segment gi + 1 is still as pass 1 left it, and segment gi is
-  // too unless the boundary before was at gi - 1. So every thread carries
-  // that one segment along and reads the rest from pass 1's buffers, which
-  // nothing writes: the next boundary's entries are loaded one turn ahead.
-  int carried = -1, parity = 0;
-  int2 carry = make_int2(0, 0);
-  auto entries = [&](int j, int2& mid, int& gi, int2& sa, int2& sb) {
-    mid = mids[j];
-    gi = min(max(mid.y, 0), MS - 2);
-    sa = segs[gi];
-    sb = segs[gi + 1];
-  };
-  int2 mid_n = make_int2(0, 0), sa_n = mid_n, sb_n = mid_n;
-  int gi_n = 0;
-  if (m > 0) entries(0, mid_n, gi_n, sa_n, sb_n);
-
-  for (int j = 0; j < m; ++j) {
-    const int2 mid = mid_n, sb = sb_n;
-    const int gi = gi_n, bd = mid.x;
-    int2 sa = sa_n;
-    if (j + 1 < m) entries(j + 1, mid_n, gi_n, sa_n, sb_n);
-    if (mid.y >= n - 1) continue;  // the same for every thread of the block
-    if (gi == carried) sa = carry;
-
-    const float la = (float)max(sa.y - sa.x, 1);
-    const float lb = (float)max(sb.y - sb.x, 1);
-    const float* pa1 = Pb + (size_t)sa.y * d;
-    const float* pa0 = Pb + (size_t)sa.x * d;
-    const float* pb1 = Pb + (size_t)sb.y * d;
-    const float* pb0 = Pb + (size_t)sb.x * d;
-    float dot = 0.f, aa = 0.f, bb = 0.f;
-    if (vec) {
-      const int i = 4 * tid;
-      if (i < d) {
-        const float4 a1 = *reinterpret_cast<const float4*>(pa1 + i);
-        const float4 a0 = *reinterpret_cast<const float4*>(pa0 + i);
-        const float4 b1 = *reinterpret_cast<const float4*>(pb1 + i);
-        const float4 b0 = *reinterpret_cast<const float4*>(pb0 + i);
-        const float x[4] = {mean_lane(a1.x, a0.x, la), mean_lane(a1.y, a0.y, la),
-                            mean_lane(a1.z, a0.z, la), mean_lane(a1.w, a0.w, la)};
-        const float y[4] = {mean_lane(b1.x, b0.x, lb), mean_lane(b1.y, b0.y, lb),
-                            mean_lane(b1.z, b0.z, lb), mean_lane(b1.w, b0.w, lb)};
-        *reinterpret_cast<float4*>(ma + i) = make_float4(x[0], x[1], x[2], x[3]);
-        *reinterpret_cast<float4*>(mb + i) = make_float4(y[0], y[1], y[2], y[3]);
+// Lane `lane`'s part of a d-wide row: elements (32 c + lane) V + e, zeros past d.
+template <int V, int NCH>
+__device__ __forceinline__ void load_row(float (&r)[NCH][V], const float* row, int d,
+                                         int lane) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          dot = fmaf(x[e], y[e], dot);
-          aa = fmaf(x[e], x[e], aa);
-          bb = fmaf(y[e], y[e], bb);
-        }
-      }
+  for (int c = 0; c < NCH; ++c) {
+    const int i = (c * 32 + lane) * V;
+    if constexpr (V == 4) {
+      const float4 v = i < d ? __ldg(reinterpret_cast<const float4*>(row + i))
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+      r[c][0] = v.x, r[c][1] = v.y, r[c][2] = v.z, r[c][3] = v.w;
     } else {
-#pragma unroll
-      for (int k = 0; k < MAX_DIM / P2_THREADS; ++k) {
-        const int i = tid + k * P2_THREADS;
-        if (i < d) {
-          const float x = mean_lane(pa1[i], pa0[i], la);
-          const float y = mean_lane(pb1[i], pb0[i], lb);
-          ma[i] = x;
-          mb[i] = y;
-          dot = fmaf(x, y, dot), aa = fmaf(x, x, aa), bb = fmaf(y, y, bb);
-        }
-      }
+      r[c][0] = i < d ? __ldg(row + i) : 0.f;
     }
-    dot = warp_sum(dot);
-    aa = warp_sum(aa);
-    bb = warp_sum(bb);
-    parity ^= 1;  // two buffers: the merge branch has no second barrier
-    if (lane == 0) {
-      red[parity][0][warp] = dot;
-      red[parity][1][warp] = aa;
-      red[parity][2][warp] = bb;
-    }
-    __syncthreads();
-    dot = aa = bb = 0.f;
-#pragma unroll
-    for (int w = 0; w < P2_WARPS; ++w)
-    {
-      dot += red[parity][0][w];
-      aa += red[parity][1][w];
-      bb += red[parity][2][w];
-    }
-    const float na = sqrtf(aa + 1e-8f), nb = sqrtf(bb + 1e-8f);
-    carried = gi + 1;
-    if (dot / na / nb >= thr) {  // merge: gi dies, gi + 1 takes its start
-      carry = make_int2(sa.x, sb.y);
-      if (tid == 0) {
-        wk[gi] = make_int2(-1, -1);
-        wk[gi + 1] = carry;
-      }
-      continue;
-    }
+  }
+}
 
+template <int V, int NCH>
+__device__ __forceinline__ void copy_row(float (&dst)[NCH][V], const float (&src)[NCH][V]) {
+#pragma unroll
+  for (int c = 0; c < NCH; ++c)
+#pragma unroll
+    for (int e = 0; e < V; ++e) dst[c][e] = src[c][e];
+}
+
+// Sums each of v[0..N) over the warp's lanes; every lane gets the totals, the
+// same bits in each (the butterfly adds the same pairs in every lane).
+template <int N>
+__device__ __forceinline__ void warp_sum_n(float (&v)[N]) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] += __shfl_xor_sync(FULL, v[i], o);
+}
+
+// Order-preserving compaction over the block: dst[r] = val(k) for the r-th k
+// of [0, n) with keep(k). Every thread of the block calls it and gets the
+// count; it ends on a barrier when n > 0.
+template <class Keep, class Val, class T>
+__device__ __forceinline__ int block_compact(int n, Keep keep, Val val, T* dst, int* wtot) {
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  int base = 0;
+  for (int k0 = 0; k0 < n; k0 += P2_THREADS) {
+    const int k = k0 + tid;
+    const bool kept = k < n && keep(k);
+    const unsigned bal = __ballot_sync(FULL, kept);
+    if (lane == 0) wtot[warp] = __popc(bal);
+    __syncthreads();
+    int at = base + __popc(bal & ((1u << lane) - 1u));
+#pragma unroll
+    for (int w = 0; w < P2_WARPS; ++w) {
+      if (w < warp) at += wtot[w];
+      base += wtot[w];
+    }
+    if (kept) dst[at] = val(k);
+    __syncthreads();
+  }
+  return base;
+}
+
+// One warp walks the chain of mid boundaries that starts at boundary j. Every
+// lane holds its part of the rows (V floats in each of NCH chunks) and all
+// lanes take every decision alike; lane 0 writes the segments.
+template <int V, int NCH>
+__device__ __forceinline__ void walk_chain(const Pass2Args& a, int b, int j, int n, int m,
+                                           float* cps, float* cns, float* scratch, int warp,
+                                           int lane) {
+  const int L = a.L, d = a.d, MS = L + 1;
+  const float* xb = a.states + (size_t)b * L * d;
+  const float* nrm = a.norms + (size_t)b * L;
+  const float* Pb = a.P + (size_t)b * MS * d;
+  const int2* segs = a.segs + (size_t)b * MS;
+  const int2* mids = a.mids + (size_t)b * MS;
+  int2* wk = a.work + (size_t)b * MS;
+  float* cpg = a.win + ((size_t)b * P2_WARPS + warp) * 2 * L;
+  float* cng = cpg + L;
+  auto index = [&](int2 mid) { return min(max(mid.y, 0), MS - 2); };
+  auto row = [&](const float* base, int t) { return base + (size_t)t * d; };
+
+  int2 mid = mids[j];
+  int gi = index(mid);
+  int2 sa = segs[gi], sb = segs[gi + 1];
+  float pa0[NCH][V], pa1[NCH][V], pb0[NCH][V], pb1[NCH][V];
+  load_row<V, NCH>(pa0, row(Pb, sa.x), d, lane);
+  load_row<V, NCH>(pa1, row(Pb, sa.y), d, lane);
+  load_row<V, NCH>(pb0, row(Pb, sb.x), d, lane);
+  load_row<V, NCH>(pb1, row(Pb, sb.y), d, lane);
+  // the next boundary and pass 1's segment gi + 2, a link ahead
+  int2 mid_n = j + 1 < m ? mids[j + 1] : make_int2(0, n);
+  int2 sb_n = segs[min(gi + 2, MS - 1)];
+  for (;;) {
+    const bool more = j + 1 < m && mid_n.y < n - 1 && index(mid_n) == gi + 1;
+    float nb1[NCH][V];  // the next link's P[sb.y] (a row of P even without one)
+    load_row<V, NCH>(nb1, row(Pb, sb_n.y), d, lane);
+    const int2 mid_after = mids[min(j + 2, MS - 1)];
+    const int2 mid_nn = j + 2 < m ? mid_after : make_int2(0, n);
+    const int2 sb_nn = segs[min(gi + 3, MS - 1)];
+    // the sweep window, and its first frames, asked for before the decision
+    const int bd = mid.x;
     const int ws = max(sa.x, bd - max((sa.y - sa.x) / 2, 1));
     const int we = min(sb.y, bd + max((sb.y - sb.x) / 2, 1));
     const int nw = we - ws;
-    float* cpw = nw <= WIN ? swin[0] : win + (size_t)b * 2 * L;
-    float* cnw = nw <= WIN ? swin[1] : win + (size_t)b * 2 * L + L;
-    for (int u = ws + warp; u < we; u += P2_WARPS) {
-      const float* row = xb + (size_t)u * d;
-      float da = 0.f, db = 0.f;
-      if (vec) {
-        for (int i = lane * 4; i < d; i += 128) {
-          const float4 x = *reinterpret_cast<const float4*>(row + i);
-          const float4 p = *reinterpret_cast<const float4*>(ma + i);
-          const float4 q = *reinterpret_cast<const float4*>(mb + i);
-          da = fmaf(x.x, p.x, da), db = fmaf(x.x, q.x, db);
-          da = fmaf(x.y, p.y, da), db = fmaf(x.y, q.y, db);
-          da = fmaf(x.z, p.z, da), db = fmaf(x.z, q.z, db);
-          da = fmaf(x.w, p.w, da), db = fmaf(x.w, q.w, db);
-        }
-      } else {
-        for (int i = lane; i < d; i += 32) {
-          da = fmaf(row[i], ma[i], da);
-          db = fmaf(row[i], mb[i], db);
-        }
-      }
-      da = warp_sum(da);
-      db = warp_sum(db);
-      if (lane == 0) {
-        cpw[u - ws] = da / (nrm[u] * na);
-        cnw[u - ws] = db / (nrm[u] * nb);
-      }
+    // (a frame past the window is a frame of the row all the same, loaded
+    // without a branch and never read: branches in a link's straight-line
+    // code cost more here than loads)
+    float xw[FR][NCH][V], nr[FR];
+#pragma unroll
+    for (int f = 0; f < FR; ++f) {
+      const int u = min(ws + f, L - 1);
+      load_row<V, NCH>(xw[f], row(xb, u), d, lane);
+      nr[f] = __ldg(nrm + u);
     }
-    __syncthreads();
-    if (tid == 0) {
+
+    float ma[NCH][V], mb[NCH][V];
+    segment_mean(ma, pa1, pa0, sa.y - sa.x, row(Pb, sa.y), row(Pb, sa.x), d, scratch, lane);
+    segment_mean(mb, pb1, pb0, sb.y - sb.x, row(Pb, sb.y), row(Pb, sb.x), d, scratch, lane);
+    float s3[3] = {0.f, 0.f, 0.f};  // dot, |a|^2, |b|^2
+#pragma unroll
+    for (int c = 0; c < NCH; ++c)
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        s3[0] = fmaf(ma[c][e], mb[c][e], s3[0]);
+        s3[1] = fmaf(ma[c][e], ma[c][e], s3[1]);
+        s3[2] = fmaf(mb[c][e], mb[c][e], s3[2]);
+      }
+    warp_sum_n(s3);
+    const float na = sqrtf(s3[1] + 1e-8f), nb = sqrtf(s3[2] + 1e-8f);
+    int2 carry;
+    if (s3[0] / na / nb >= a.thr) {  // merge: gi dies, gi + 1 takes its start
+      carry = make_int2(sa.x, sb.y);
+      if (lane == 0) {
+        wk[gi] = make_int2(-1, -1);
+        wk[gi + 1] = carry;
+      }
+    } else {
+      // the cosines of the window's frames, FR at a time, the next FR asked
+      // for before this FR's sums are reduced
+      float* cpw = nw <= WIN ? cps : cpg;
+      float* cnw = nw <= WIN ? cns : cng;
+      for (int f0 = 0; f0 < nw; f0 += FR) {
+        float s[2 * FR];
+#pragma unroll
+        for (int f = 0; f < FR; ++f) {
+          float da = 0.f, db = 0.f;
+#pragma unroll
+          for (int c = 0; c < NCH; ++c)
+#pragma unroll
+            for (int e = 0; e < V; ++e) {
+              da = fmaf(xw[f][c][e], ma[c][e], da);
+              db = fmaf(xw[f][c][e], mb[c][e], db);
+            }
+          s[2 * f] = da, s[2 * f + 1] = db;
+        }
+        float nr_now[FR];
+#pragma unroll
+        for (int f = 0; f < FR; ++f) {
+          nr_now[f] = nr[f];
+          const int u = ws + f0 + FR + f;
+          if (u < we) {
+            load_row<V, NCH>(xw[f], row(xb, u), d, lane);
+            nr[f] = __ldg(nrm + u);
+          }
+        }
+        warp_sum_n(s);
+        // lane f divides frame f's two sums (the lanes past FR as frame 0)
+        float sp = s[0], sn = s[1], nf = nr_now[0];
+#pragma unroll
+        for (int f = 1; f < FR; ++f)
+          if (lane == f) sp = s[2 * f], sn = s[2 * f + 1], nf = nr_now[f];
+        const float cp = sp / (nf * na), cn = sn / (nf * nb);
+        if (lane < FR && f0 + lane < nw) {
+          cpw[f0 + lane] = cp;
+          cnw[f0 + lane] = cn;
+        }
+      }
+      __syncwarp();
+      // every lane walks the window in order (the order of a sequential
+      // cumsum) and takes the first maximum
       float cn_all = 0.f;
       for (int i = 0; i < nw; ++i) cn_all += cnw[i];
       float cp_run = 0.f, cn_run = 0.f, best = 0.f;
@@ -570,36 +674,112 @@ __global__ void __launch_bounds__(P2_THREADS)
         cp_run += cpw[i];
         cn_run += cnw[i];
       }
-      opt_s = opt;
-      wk[gi] = make_int2(sa.x, opt);
-      wk[gi + 1] = make_int2(opt, sb.y);
+      __syncwarp();  // the next window writes where this one was read
+      carry = make_int2(opt, sb.y);
+      if (lane == 0) {
+        wk[gi] = make_int2(sa.x, opt);
+        wk[gi + 1] = carry;
+      }
     }
-    __syncthreads();
-    carry = make_int2(opt_s, sb.y);
+    if (!more) return;
+    // the next link: segment gi + 1 as this one left it (P[carry.y] is pb1)
+    // and segment gi + 2 as pass 1 left it; P[carry.x] and P[sb_n.x] are
+    // loaded whether or not a register holds them already (L1 has them)
+    load_row<V, NCH>(pa0, row(Pb, carry.x), d, lane);
+    load_row<V, NCH>(pb0, row(Pb, sb_n.x), d, lane);
+    copy_row(pa1, pb1);
+    copy_row(pb1, nb1);
+    ++j, ++gi;
+    mid = mid_n, sa = carry, sb = sb_n;
+    mid_n = mid_nn, sb_n = sb_nn;
+  }
+}
+
+// Pass 2 of one batch row per block. The row's mid boundaries fall into
+// chains: a boundary depends on the one before only when its segment index is
+// that one's + 1 (it reads the segment that one left), so the chains are
+// independent and each writes its own segments. Thread blocks list the
+// chains' first boundaries, queue the long chains first, and the warps take
+// chains from the queue until it is empty; then the block compacts.
+template <int V, int NCH>
+__global__ void __launch_bounds__(P2_THREADS) segment_pass2_kernel(const Pass2Args a) {
+  __shared__ float swin[P2_WARPS][2][WIN];
+  __shared__ __align__(16) float scratch[P2_WARPS][MAX_DIM];  // a warp's row, rarely
+  __shared__ int wtot[P2_WARPS];
+  __shared__ int taken;
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int MS = a.L + 1;
+  const int2* segs = a.segs + (size_t)b * MS;
+  const int2* mids = a.mids + (size_t)b * MS;
+  int2* wk = a.work + (size_t)b * MS;
+  int* starts = a.chains + (size_t)b * 2 * MS;
+  int* queue = starts + MS;
+  const int n = a.nseg[b], m = a.nmid[b];
+
+  for (int k = tid; k < MS; k += P2_THREADS) wk[k] = segs[k];
+  if (tid == 0) taken = 0;
+  __syncthreads();
+  // A boundary is skipped when its segment is the last (gi >= nseg - 1); a
+  // chain starts at a boundary that is not, unless the boundary before is
+  // not skipped either and its segment index is one less.
+  auto index = [&](int j) { return min(max(mids[j].y, 0), MS - 2); };
+  auto active = [&](int j) { return mids[j].y < n - 1; };
+  const int nch = block_compact(
+      m,
+      [&](int j) {
+        return active(j) && (j == 0 || !active(j - 1) || index(j) != index(j - 1) + 1);
+      },
+      [](int j) { return j; }, starts, wtot);
+  // the queue: chains of at least a warp's share of the boundaries first
+  auto links = [&](int c) { return (c + 1 < nch ? starts[c + 1] : m) - starts[c]; };
+  const int nlong = block_compact(
+      nch, [&](int c) { return links(c) * P2_WARPS >= m; }, [&](int c) { return starts[c]; },
+      queue, wtot);
+  block_compact(
+      nch, [&](int c) { return links(c) * P2_WARPS < m; }, [&](int c) { return starts[c]; },
+      queue + nlong, wtot);
+  for (;;) {
+    int q = 0;
+    if (lane == 0) q = atomicAdd(&taken, 1);
+    q = __shfl_sync(FULL, q, 0);
+    if (q >= nch) break;
+    walk_chain<V, NCH>(a, b, queue[q], n, m, swin[warp][0], swin[warp][1], scratch[warp], warp,
+                       lane);
   }
   __syncthreads();
 
   // order-preserving compaction of the live segments below nseg
-  int2* orow = out + (size_t)b * MS;
-  int base = 0;
-  for (int k0 = 0; k0 < MS; k0 += P2_THREADS) {
-    const int k = k0 + tid;
-    const int2 s = k < MS ? wk[k] : make_int2(-1, -1);
-    const bool valid = k < n && s.x >= 0;
-    const unsigned bal = __ballot_sync(FULL, valid);
-    if (lane == 0) wtot[warp] = __popc(bal);
-    __syncthreads();
-    int at = base + __popc(bal & ((1u << lane) - 1u));
-#pragma unroll
-    for (int w = 0; w < P2_WARPS; ++w) {
-      if (w < warp) at += wtot[w];
-      base += wtot[w];
-    }
-    if (valid) orow[at] = s;
-    __syncthreads();
+  int2* orow = a.out + (size_t)b * MS;
+  const int live = block_compact(
+      MS, [&](int k) { return k < n && wk[k].x >= 0; }, [&](int k) { return wk[k]; }, orow,
+      wtot);
+  for (int k = live + tid; k < MS; k += P2_THREADS) orow[k] = make_int2(0, 0);
+  if (tid == 0) a.nout[b] = live;
+}
+
+template <int V, int NCH>
+int launch_pass2_with(const Pass2Args& a, int B, cudaStream_t stream) {
+  segment_pass2_kernel<V, NCH><<<B, P2_THREADS, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// Picks the instance whose lanes hold a row of d floats: float4 chunks where
+// rows are 16-byte aligned, single floats otherwise.
+int launch_pass2(const Pass2Args& a, int B, bool vec, cudaStream_t stream) {
+  if (vec) {
+    const int c = ceil_div(a.d, 128);
+    if (c <= 2) return launch_pass2_with<4, 2>(a, B, stream);
+    if (c <= 4) return launch_pass2_with<4, 4>(a, B, stream);
+    if (c <= 6) return launch_pass2_with<4, 6>(a, B, stream);
+    return launch_pass2_with<4, 8>(a, B, stream);
   }
-  for (int k = base + tid; k < MS; k += P2_THREADS) orow[k] = make_int2(0, 0);
-  if (tid == 0) nout[b] = base;
+  const int c = ceil_div(a.d, 32);
+  if (c <= 2) return launch_pass2_with<1, 2>(a, B, stream);
+  if (c <= 4) return launch_pass2_with<1, 4>(a, B, stream);
+  if (c <= 8) return launch_pass2_with<1, 8>(a, B, stream);
+  if (c <= 16) return launch_pass2_with<1, 16>(a, B, stream);
+  return launch_pass2_with<1, 32>(a, B, stream);
 }
 
 // q[i] = Divisor(c[i]).divide(x[i]) and r[i] = its reciprocal, for the checks.
@@ -646,18 +826,18 @@ extern "C" int sylber_shared_divisor(const float* x, const float* c, float* q,
 
 // Pass 2 and compaction. states (B, L, d), norms (B, L), P (B, L + 1, d) fp32;
 // segs, mids (B, L + 1, 2) and nseg, nmid (B,) as pass 1 wrote them; work
-// (B, L + 1, 2) int32 and win (B, 2, L) fp32 are scratch; out (B, L + 1, 2)
-// int32 and nout (B,) int32 are the compacted segments and their counts.
+// (B, L + 1, 2) int32, chains (B, 2, L + 1) int32 and win (B, 8, 2, L) fp32
+// are scratch; out (B, L + 1, 2) int32 and nout (B,) int32 are the compacted
+// segments and their counts.
 extern "C" int sylber_segment_pass2(const float* states, const float* norms,
                                     const float* P, const int* segs,
                                     const int* nseg, const int* mids,
-                                    const int* nmid, int* work, float* win,
-                                    int* out, int* nout, int B, int L, int d,
-                                    float thr, cudaStream_t stream) {
+                                    const int* nmid, int* work, int* chains,
+                                    float* win, int* out, int* nout, int B,
+                                    int L, int d, float thr,
+                                    cudaStream_t stream) {
   if (d > MAX_DIM || d < 1 || B < 1 || L < 1) return (int)cudaErrorInvalidValue;
-  const int vec = d % 4 == 0 && aligned16(states) && aligned16(P);
-  segment_pass2_kernel<<<B, P2_THREADS, 0, stream>>>(
-      states, norms, P, (const int2*)segs, nseg, (const int2*)mids, nmid,
-      (int2*)work, win, (int2*)out, nout, L, d, thr, vec);
-  return (int)cudaGetLastError();
+  const Pass2Args a{states, norms, P, (const int2*)segs, nseg, (const int2*)mids,
+                    nmid, (int2*)work, chains, win, (int2*)out, nout, L, d, thr};
+  return launch_pass2(a, B, d % 4 == 0 && aligned16(states) && aligned16(P), stream);
 }

@@ -43,7 +43,7 @@ _SIGNATURES = {
                                 _I, _P], _I),
     "sylber_segment_pass1": ([_P] * 10 + [_I, _I, _I, _F, _P], _I),
     "sylber_shared_divisor": ([_P] * 4 + [_I, _P], _I),
-    "sylber_segment_pass2": ([_P] * 11 + [_I, _I, _I, _F, _P], _I),
+    "sylber_segment_pass2": ([_P] * 12 + [_I, _I, _I, _F, _P], _I),
     "sylber_kmeanspp_blocks": ([_I], _I),
     "sylber_kmeanspp": ([_P] * 6 + [_I, _I, _I, _P], _I),
     "sylber_quantize_rows": ([_P, _P, _P, _I, _I, _L, _I, _I, _I, _P], _I),

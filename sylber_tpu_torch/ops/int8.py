@@ -31,7 +31,7 @@ from ..kernels import check, lib, require_cuda, stream_of
 
 MIN_AMAX = 1e-8
 QMAX = 127.0
-ROW_ALIGN = 16  # bytes: the kernels copy int8 rows in 16-byte chunks
+ROW_ALIGN = 16  # bytes: the GEMM's TMA loads take row strides in multiples of 16
 _DTYPES = (torch.float32, torch.bfloat16)
 
 

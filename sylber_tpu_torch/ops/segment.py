@@ -10,8 +10,10 @@ number of segments, and never waits for the host:
   segment and mid-boundary buffers itself;
 - pass 2, the boundary refinement at the recorded mid boundaries, and the
   compaction of the surviving segments: :func:`segment_pass2` launches the
-  second kernel of the same source, in which every row loops over its own
-  mid boundaries;
+  second kernel of the same source, in which a block splits its row's mid
+  boundaries into independent chains (a boundary depends on the one before
+  only when its segment index is that one's + 1) and its warps walk them
+  concurrently;
 - the prefix sums and the mean-pooling are a few torch ops.
 
 On a CPU tensor the two wrappers run their plain versions:
@@ -41,6 +43,7 @@ import torch
 from ..kernels import check, lib, require_cuda, stream_of
 
 MAX_DIM = 1024       # csrc/segment_scan.cu: the widest frame its blocks hold
+PASS2_WARPS = 8      # csrc/segment_scan.cu: the warps of a pass-2 block
 MAX_FRAMES = 1 << 20  # common.cuh: the largest frame count its division is checked for
 
 
@@ -292,13 +295,15 @@ def _launch_pass2(states, norms, P, segs, nseg, mids, nmid, merge_threshold):
     B, L, d = states.shape
     dev = states.device
     work = torch.empty_like(segs)  # the row's segments while they are refined
-    win = torch.empty(B, 2, L, dtype=torch.float32, device=dev)  # a sweep's cosines
+    chains = torch.empty(B, 2, L + 1, dtype=torch.int32, device=dev)  # starts, queue
+    # a warp's cosines of a sweep window too long for its shared memory
+    win = torch.empty(B, PASS2_WARPS, 2, L, dtype=torch.float32, device=dev)
     out = torch.empty_like(segs)
     nout = torch.empty_like(nseg)
     check(lib().sylber_segment_pass2(
         states.data_ptr(), norms.data_ptr(), P.data_ptr(), segs.data_ptr(),
         nseg.data_ptr(), mids.data_ptr(), nmid.data_ptr(), work.data_ptr(),
-        win.data_ptr(), out.data_ptr(), nout.data_ptr(), B, L, d,
+        chains.data_ptr(), win.data_ptr(), out.data_ptr(), nout.data_ptr(), B, L, d,
         merge_threshold, stream_of(states)), "segment_pass2")
     segment_pass2.launches += 1
     return out, nout

@@ -26,6 +26,8 @@
 #define __restrict__
 #define __launch_bounds__(...)
 #define __align__(x) __attribute__((aligned(x)))
+#define __grid_constant__
+#define CUDART_VERSION 12080
 
 struct dim3 {
   unsigned x, y, z;
@@ -48,6 +50,18 @@ cudaError_t cudaFuncSetAttribute(K, int, int bytes) {
   return (size_t)bytes > kMaxBlockSharedMemory ? cudaErrorInvalidValue : cudaSuccess;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+// a card of 3 SMs: a persistent grid walks several tiles a block
+enum { cudaDevAttrMultiProcessorCount = 16 };
+inline cudaError_t cudaGetDevice(int* device) { *device = 0; return cudaSuccess; }
+inline cudaError_t cudaDeviceGetAttribute(int* value, int, int) { *value = 3; return cudaSuccess; }
+enum cudaDriverEntryPointQueryResult { cudaDriverEntryPointSuccess = 0 };
+enum { cudaEnableDefault = 0 };
+// Hands out emu.cpp's cuTensorMapEncodeTiled for that name, fails for any other.
+cudaError_t cudaGetDriverEntryPointByVersion(const char* symbol, void** fn, unsigned version,
+                                             unsigned long long flags,
+                                             cudaDriverEntryPointQueryResult* found);
+// The kernels' dynamic shared memory (emu.cpp): every block's, one after the other.
+namespace sylber { namespace attn { extern unsigned char smem_raw[]; } }
 
 struct Barrier {
   std::mutex mu;
@@ -76,7 +90,7 @@ struct BlockCtx {
   Barrier* bar;
   std::vector<WarpCtx*> warps;
 };
-extern thread_local dim3 threadIdx, blockIdx, blockDim;
+extern thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 extern thread_local BlockCtx* emu_block;
 inline WarpCtx& emu_warp() { return *emu_block->warps[threadIdx.x / 32]; }
 inline int emu_lane() { return threadIdx.x % 32; }
@@ -94,6 +108,17 @@ inline V __shfl_xor_sync(unsigned, V v, int lane_mask) {
   w.bar.wait();
   return r;
 }
+template <typename V>
+inline V __shfl_sync(unsigned, V v, int src) {
+  WarpCtx& w = emu_warp();
+  const int lane = emu_lane();
+  memcpy(&w.buf[lane][0], &v, sizeof(V));
+  w.bar.wait();
+  V r;
+  memcpy(&r, &w.buf[src & 31][0], sizeof(V));
+  w.bar.wait();
+  return r;
+}
 inline unsigned __ballot_sync(unsigned, int pred) {
   WarpCtx& w = emu_warp();
   w.buf[emu_lane()][0] = pred != 0;
@@ -103,6 +128,7 @@ inline unsigned __ballot_sync(unsigned, int pred) {
   w.bar.wait();
   return r;
 }
+inline bool __any_sync(unsigned mask, int pred) { return __ballot_sync(mask, pred) != 0; }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __clz(int x) { return x ? __builtin_clz((unsigned)x) : 32; }
 // round-to-nearest single operations that the compiler may not contract
@@ -124,6 +150,9 @@ inline int atomicMin(int* p, int v) {
   }
   return old;
 }
+inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
+template <typename T>
+inline T __ldg(const T* p) { return *p; }
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
 

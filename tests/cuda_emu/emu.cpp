@@ -1,13 +1,129 @@
-// The launch loop and the PTX helpers of attn_tile.cuh and int8_gemm.cu,
-// emulated on the host after the PTX ISA's fragment layouts (ldmatrix,
-// mma.m16n8k16 bf16, mma.m16n8k32 s8).
+// The launch loop and the PTX helpers of common.cuh, attn_tile.cuh and
+// int8_gemm.cu, emulated on the host after the PTX ISA: mbarriers (arrivals
+// and transaction bytes, phases), the bulk copy, ldmatrix and mma.m16n8k16
+// bf16 fragment layouts, TMA 2-D tile loads with the 128-byte swizzle and
+// wgmma s8 through shared-memory descriptors.
+#include <unordered_map>
+
+#include "cuda.h"
 #include "cuda_bf16.h"
 
-thread_local dim3 threadIdx, blockIdx, blockDim;
+thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 thread_local BlockCtx* emu_block;
 namespace sylber { namespace attn {
-alignas(16) unsigned char smem_raw[256 * 1024];  // the kernels' extern __shared__ array
+// the kernels' extern __shared__ array; 1024-aligned, as the 128-byte swizzle wants
+alignas(1024) unsigned char smem_raw[256 * 1024];
 } }
+
+namespace sylber {
+namespace {
+// An mbarrier: arrivals still expected in this phase (of `count`), transaction
+// bytes still expected, phases completed. The state lives beside the
+// barrier's word, keyed by its address; a copy lands at once.
+struct EmuBarrier {
+  int count, pending;
+  long long tx;
+  unsigned long phase;
+};
+std::mutex bar_mu;
+std::unordered_map<const void*, EmuBarrier> bars;
+
+EmuBarrier& find_barrier(const void* bar) {
+  const auto it = bars.find(bar);
+  if (it == bars.end()) {
+    fprintf(stderr, "an mbarrier used before mbar_init\n");
+    abort();
+  }
+  return it->second;
+}
+void settle(EmuBarrier& b) {
+  if (b.pending == 0 && b.tx == 0) {
+    ++b.phase;
+    b.pending = b.count;
+  }
+}
+}  // namespace
+
+void mbar_init(uint64_t* bar, int count) {
+  std::lock_guard<std::mutex> lock(bar_mu);
+  bars[bar] = EmuBarrier{count, count, 0, 0};
+}
+void mbar_expect_tx(uint64_t* bar, unsigned bytes) {  // an arrival that expects bytes
+  std::lock_guard<std::mutex> lock(bar_mu);
+  EmuBarrier& b = find_barrier(bar);
+  b.tx += bytes;
+  --b.pending;
+  settle(b);
+}
+void mbar_arrive(uint64_t* bar) {
+  std::lock_guard<std::mutex> lock(bar_mu);
+  EmuBarrier& b = find_barrier(bar);
+  --b.pending;
+  settle(b);
+}
+void mbar_complete_tx(uint64_t* bar, unsigned bytes) {
+  std::lock_guard<std::mutex> lock(bar_mu);
+  EmuBarrier& b = find_barrier(bar);
+  b.tx -= bytes;
+  settle(b);
+}
+// Returns once the phase of this parity is complete (at once for the parity
+// of the phase before the current one).
+void mbar_wait(uint64_t* bar, int parity) {
+  for (long spins = 0;; ++spins) {
+    {
+      std::lock_guard<std::mutex> lock(bar_mu);
+      if ((int)(find_barrier(bar).phase & 1) != parity) return;
+    }
+    std::this_thread::yield();
+    if (spins > 20000000) {
+      fprintf(stderr, "a wait for a phase that never completes\n");
+      abort();
+    }
+  }
+}
+void bulk_copy_to_shared(void* dst, const void* src, unsigned bytes, uint64_t* bar) {
+  if (bytes % 16 || (uintptr_t)dst % 16 || (uintptr_t)src % 16) {
+    fprintf(stderr, "bulk copy of %u bytes: size or an address is not a multiple of 16\n", bytes);
+    abort();
+  }
+  memcpy(dst, src, bytes);
+  mbar_complete_tx(bar, bytes);
+}
+}  // namespace sylber
+
+// The tensor map of a 2-D uint8 tensor: the fields TMA's stand-in needs, after
+// the checks the real encoder makes of them (16-byte base and stride, a box of at
+// most 256 rows whose inner extent fits the 128-byte swizzle).
+CUresult cuTensorMapEncodeTiled(CUtensorMap* map, CUtensorMapDataType type, cuuint32_t rank,
+                                void* base, const cuuint64_t* dims, const cuuint64_t* strides,
+                                const cuuint32_t* box, const cuuint32_t* element_strides,
+                                CUtensorMapInterleave interleave, CUtensorMapSwizzle swizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill fill) {
+  if (type != CU_TENSOR_MAP_DATA_TYPE_UINT8 || rank != 2 || (uintptr_t)base % 16 ||
+      strides[0] % 16 || strides[0] < dims[0] || box[0] != 128 || box[1] < 1 || box[1] > 256 ||
+      element_strides[0] != 1 || element_strides[1] != 1 ||
+      interleave != CU_TENSOR_MAP_INTERLEAVE_NONE || swizzle != CU_TENSOR_MAP_SWIZZLE_128B ||
+      fill != CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE)
+    return CUDA_ERROR_INVALID_VALUE;
+  memset(map, 0, sizeof *map);
+  map->opaque[0] = (uintptr_t)base;
+  map->opaque[1] = dims[0];
+  map->opaque[2] = dims[1];
+  map->opaque[3] = strides[0];
+  map->opaque[4] = box[0];
+  map->opaque[5] = box[1];
+  return CUDA_SUCCESS;
+}
+
+cudaError_t cudaGetDriverEntryPointByVersion(const char* symbol, void** fn, unsigned,
+                                             unsigned long long,
+                                             cudaDriverEntryPointQueryResult* found) {
+  if (strcmp(symbol, "cuTensorMapEncodeTiled") != 0) return cudaErrorInvalidValue;
+  *fn = (void*)&cuTensorMapEncodeTiled;
+  *found = cudaDriverEntryPointSuccess;
+  return cudaSuccess;
+}
 
 void emu_launch(const std::function<void()>& body, dim3 grid, int threads, size_t smem,
                 cudaStream_t) {
@@ -29,6 +145,7 @@ void emu_launch(const std::function<void()>& body, dim3 grid, int threads, size_
           threadIdx = dim3(t);
           blockIdx = dim3(bx, by, bz);
           blockDim = dim3(threads);
+          gridDim = grid;
           emu_block = &ctx;
           body();
         });
@@ -101,35 +218,67 @@ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
 
 namespace sylber { namespace i8 {
 
-void cp_async16(void* dst, const void* src, int bytes) { attn::cp_async16(dst, src, bytes); }
-void cp_async_commit() {}
-void ldmatrix_x4(uint32_t (&r)[4], const void* p) { attn::ldmatrix_x4(r, p); }
-
-// mma.m16n8k32.row.col.s32.s8.s8.s32: lane (g, t) = (lane / 4, lane % 4).
-// A (16 x 32): register i holds row g + 8 (i % 2), bytes 4t .. 4t + 3 of
-// k-half i / 2 (k = 16 (i / 2) + 4t + byte); B (32 x 8): register j holds
-// column g, k = 16 j + 4t + byte; C: rows g and g + 8, columns 2t, 2t + 1.
-static int8_t s8(uint64_t reg, int byte) { return (int8_t)((reg >> (8 * byte)) & 0xff); }
-
-void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  WarpCtx& w = emu_warp();
-  const int lane = emu_lane(), g = lane >> 2, t = lane & 3;
-  for (int i = 0; i < 4; ++i) w.buf[lane][i] = a[i];
-  w.buf[lane][4] = b0;
-  w.buf[lane][5] = b1;
-  w.bar.wait();
-  for (int i = 0; i < 4; ++i) {
-    const int row = g + 8 * (i / 2), col = 2 * t + (i % 2);
-    int32_t s = c[i];
-    for (int k = 0; k < 32; ++k) {
-      const int half = k / 16, tk = (k % 16) / 4, byte = k % 4;
-      const int8_t av = s8(w.buf[(row % 8) * 4 + tk][(row >= 8) + 2 * half], byte);
-      const int8_t bv = s8(w.buf[col * 4 + tk][4 + half], byte);
-      s += (int32_t)av * (int32_t)bv;
-    }
-    c[i] = s;
+// A shared address is the offset into the dynamic shared memory (the only
+// shared memory whose address the GEMM takes).
+uint32_t smem_addr(const void* p) {
+  const long long off = (const unsigned char*)p - attn::smem_raw;
+  if (off < 0 || off >= (long long)sizeof attn::smem_raw) {
+    fprintf(stderr, "a shared address outside the dynamic shared memory\n");
+    abort();
   }
-  w.bar.wait();
+  return (uint32_t)off;
+}
+
+// The 128-byte swizzle as the hardware applies it to a shared address: the
+// 16-byte chunk (bits 4-6) XOR the row within a 1024-byte group (bits 7-9).
+static uint32_t swizzle128(uint32_t addr) { return addr ^ (((addr >> 7) & 7) << 4); }
+
+// cp.async.bulk.tensor.2d with the 128-byte swizzle: row r, byte x of the box
+// lands at dst + 128 r + x, swizzled; elements outside the tensor are zeros.
+void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1, uint64_t* bar) {
+  const int8_t* base = (const int8_t*)(uintptr_t)map->opaque[0];
+  const long long dim0 = map->opaque[1], dim1 = map->opaque[2], stride = map->opaque[3];
+  const unsigned box0 = map->opaque[4], box1 = map->opaque[5];
+  const uint32_t d0 = smem_addr(dst);
+  if (d0 % 1024) {
+    fprintf(stderr, "a TMA box with the 128-byte swizzle at a shared address off 1024 bytes\n");
+    abort();
+  }
+  for (unsigned r = 0; r < box1; ++r)
+    for (unsigned x = 0; x < box0; ++x) {
+      const long long row = (long long)c1 + r, col = (long long)c0 + x;
+      const bool inside = row >= 0 && row < dim1 && col >= 0 && col < dim0;
+      attn::smem_raw[swizzle128(d0 + r * box0 + x)] = inside ? base[row * stride + col] : 0;
+    }
+  mbar_complete_tx(bar, box0 * box1);
+}
+
+// Byte (r, kb) of a K-major operand that a descriptor names: the start
+// address (bits 0-13, in 16 bytes), 8-row groups the stride byte offset apart
+// (bits 32-45), 128-byte rows, the 128-byte swizzle (layout type 1, bits 62-63).
+static int8_t operand(uint64_t desc, int r, int kb) {
+  if ((desc >> 62) != 1) {
+    fprintf(stderr, "a wgmma descriptor of a layout other than the 128-byte swizzle\n");
+    abort();
+  }
+  const uint32_t start = (uint32_t)(desc & 0x3FFF) << 4;
+  const uint32_t sbo = (uint32_t)((desc >> 32) & 0x3FFF) << 4;
+  return (int8_t)attn::smem_raw[swizzle128(start + (r / 8) * sbo + (r % 8) * 128 + kb)];
+}
+
+// wgmma.mma_async m64n128k32 s32.s8.s8, both operands from shared memory:
+// thread t of the warpgroup (warp w = t / 32) holds, in register 4 i + 2 h + c,
+// row 16 w + lane / 4 + 8 h and column 8 i + 2 (lane % 4) + c. Computed when
+// issued: the operands must be in place then, as the kernel's barriers ensure.
+void wgmma_s8(int (&d)[64], uint64_t da, uint64_t db) {
+  const int t = threadIdx.x % 128, w = t / 32, lane = t % 32;
+  for (int i = 0; i < 16; ++i)
+    for (int q = 0; q < 4; ++q) {
+      const int row = 16 * w + lane / 4 + 8 * (q / 2), col = 8 * i + 2 * (lane % 4) + q % 2;
+      int32_t s = 0;
+      for (int k = 0; k < 32; ++k) s += (int32_t)operand(da, row, k) * operand(db, col, k);
+      d[4 * i + q] += s;
+    }
 }
 
 } }  // namespace sylber::i8

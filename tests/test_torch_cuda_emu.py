@@ -55,8 +55,9 @@ _PTX_HELPERS = {
     "attn_tile.cuh": ["cp_async16", "cp_async_commit", "cp_async_wait", "ldmatrix_x4_trans",
                       "ldmatrix_x4", "mma_bf16", "fast_exp2"],
     "common.cuh": ["ex2_approx", "rcp_approx", "mbar_init", "fence_mbar_init", "mbar_expect_tx",
-                   "bulk_copy_to_shared", "mbar_wait", "rsqrt_approx"],
-    "int8_gemm.cu": ["cp_async16", "cp_async_commit", "cp_async_wait", "ldmatrix_x4", "mma_s8"],
+                   "mbar_arrive", "bulk_copy_to_shared", "mbar_wait", "rsqrt_approx"],
+    "int8_gemm.cu": ["smem_addr", "tma_load_2d", "wgmma_fence", "wgmma_commit", "wgmma_wait",
+                     "wgmma_s8"],
 }
 _DECLARATIONS = {
     "attn_tile.cuh": ("struct Args {", """
@@ -67,41 +68,27 @@ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p);
 void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1);
 float fast_exp2(float x);
 """),
-    "int8_gemm.cu": ("// V values of T", """
-void cp_async16(void* dst, const void* src, int bytes); void cp_async_commit();
-template <int N> void cp_async_wait() {}
-void ldmatrix_x4(uint32_t (&r)[4], const void* p);
-void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1);
+    "int8_gemm.cu": ("// Shared-memory helpers of the GEMM", """
+uint32_t smem_addr(const void* p);
+void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1, uint64_t* bar);
+inline void wgmma_fence() {}
+inline void wgmma_commit() {}
+// wgmma's .sync.aligned: the whole warp has issued before any lane goes on
+template <int N> void wgmma_wait() { __syncwarp(); }
+void wgmma_s8(int (&d)[64], uint64_t da, uint64_t db);
 """),
     "common.cuh": ("constexpr int MAX_COUNT", """
 inline float ex2_approx(float x) { return exp2f(x); }
 inline float rcp_approx(float x) { return 1.f / x; }
 inline float rsqrt_approx(float x) { return 1.f / sqrtf(x); }
-// A barrier word on the host: bytes still expected below, completed phases above.
-// A copy lands at once; a wait spins until another host thread has made it.
-inline void mbar_init(uint64_t* bar, int) { __atomic_store_n(bar, 0, __ATOMIC_SEQ_CST); }
+// mbarriers and the bulk copy, emulated in emu.cpp: a copy lands at once; a
+// wait spins until other host threads have completed the phase
+void mbar_init(uint64_t* bar, int count);
 inline void fence_mbar_init() {}
-inline void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
-  __atomic_fetch_add(bar, (uint64_t)bytes, __ATOMIC_SEQ_CST);
-}
-inline void bulk_copy_to_shared(void* dst, const void* src, unsigned bytes, uint64_t* bar) {
-  if (bytes % 16 || (uintptr_t)dst % 16 || (uintptr_t)src % 16) {
-    fprintf(stderr, "bulk copy of %u bytes: size or an address is not a multiple of 16\\n", bytes);
-    abort();
-  }
-  memcpy(dst, src, bytes);
-  const uint64_t left = __atomic_sub_fetch(bar, (uint64_t)bytes, __ATOMIC_SEQ_CST);
-  if ((uint32_t)left == 0) __atomic_fetch_add(bar, 1ull << 32, __ATOMIC_SEQ_CST);
-}
-inline void mbar_wait(uint64_t* bar, int parity) {
-  for (long spins = 0; (int)((__atomic_load_n(bar, __ATOMIC_SEQ_CST) >> 32) & 1) == parity;) {
-    std::this_thread::yield();
-    if (++spins > 20000000) {
-      fprintf(stderr, "a wait for a copy that nobody asked for\\n");
-      abort();
-    }
-  }
-}
+void mbar_expect_tx(uint64_t* bar, unsigned bytes);
+void mbar_arrive(uint64_t* bar);
+void bulk_copy_to_shared(void* dst, const void* src, unsigned bytes, uint64_t* bar);
+void mbar_wait(uint64_t* bar, int parity);
 """),
 }
 _ENTRY_POINTS = ["sylber_small_attention", "sylber_flash_attention", "sylber_segment_pass1",
@@ -133,8 +120,8 @@ def _host_sources(out: Path, names=SOURCES) -> list:
         if src.name in ("segment_scan.cu", "frontend.cu", "kmeanspp.cu", "int8_gemm.cu"):
             text = text.replace("extern __shared__ __align__(128) float ring[];",
                                 "static __align__(128) float ring[RING * MAX_DIM];")
-            text = text.replace("extern __shared__ __align__(128) int8_t gemm_smem[];",
-                                "static __align__(128) int8_t gemm_smem[SMEM_BYTES];")
+            text = text.replace("extern __shared__ __align__(1024) int8_t gemm_smem[];",
+                                "int8_t* const gemm_smem = (int8_t*)::sylber::attn::smem_raw;")
             text = text.replace("__shared__", "static")
         text = re.sub(r"\b(\w+(?:<[^<>;()]*>)?)\s*<<<(.*?)>>>\s*\((.*?)\);",
                       r"emu_launch([&] { \1(\3); }, \2);", text, flags=re.S)
@@ -501,3 +488,4 @@ def test_emulated_kmeanspp_matches_plain(kmeanspp_launch, name, n, d, k, distinc
     torch.testing.assert_close(centers, want_centers, rtol=0, atol=0)
     if distinct:
         assert len({tuple(r) for r in centers.numpy().tolist()}) == distinct
+

@@ -2,8 +2,11 @@
 
 ``int8_gemm.cu`` (the row quantizer and the int8 GEMM) and ``gateloop.cu``
 are compiled by g++ against the host stand-in of ``tests/cuda_emu`` (built by
-``test_torch_cuda_emu.py``'s helper; the s8 ``mma.m16n8k32`` emulated after
-the PTX ISA's fragment layout in ``emu.cpp``) and driven through the
+``test_torch_cuda_emu.py``'s helper; ``emu.cpp`` emulates after the PTX ISA
+the GEMM's TMA 2-D tile loads with the 128-byte swizzle and out-of-bounds
+zeros, its full and empty mbarriers, ``wgmma`` m64n128k32 s8 through
+shared-memory descriptors with the accumulator fragment's layout, and
+``cuTensorMapEncodeTiled`` on the host) and driven through the
 wrappers' own launch code (``ops/int8.py``, ``ops/gateloop.py``). The same
 numpy inputs go through the JAX package (``quantize_symmetric``,
 ``int8_dense``, ``gate_loop_operator``) and the port's plain versions.
@@ -14,7 +17,10 @@ numpy inputs go through the JAX package (``quantize_symmetric``,
   epilogue rounds as it does), against JAX at 1e-6 of the largest output in
   float32 and one bf16 ulp in bf16, at K tails (20, 48, 144: not multiples
   of the 32-byte step, 20 not of 16 either), ragged M and N (M 1, N odd),
-  no bias and a strided output;
+  no bias, a strided output, a K of eight 128-byte tiles, so that the ring
+  of six stages wraps and the producer waits for stages to come back, and 9
+  output tiles on the stand-in's 3 SMs, so that a block of the persistent
+  grid takes 3 tiles and the ring runs on across them;
 - the GateLoop walk: bit-equal to the plain version on thirds of one
   (B, L, 3D) product, and within the scan-order gap of JAX's scan.
 
@@ -99,6 +105,8 @@ GEMM_CASES = [
     ("k-tail-of-20", 257, 20, 9, BF16, False, False),
     ("strided-out", 70, 144, 33, F32, True, True),
     ("strided-out-bf16", 70, 48, 40, BF16, False, True),
+    ("ring-wraps", 70, 916, 40, BF16, True, False),            # 8 k-tiles, 6 stages
+    ("persistent-tiles", 300, 300, 260, F32, True, False),  # 9 tiles on 3 emulated SMs
 ]
 
 
