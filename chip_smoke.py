@@ -114,19 +114,26 @@ Phases, each of which fails the script when it fails:
    the plain versions, the
    bounds, ``torch._int_mm`` + the rescale and the bf16 ``F.linear`` (both
    yardsticks only); both at awkward shapes (K 20, 48, 144, 576, M 1, N 13,
-   a strided output); the GateLoop kernel bit for bit against its plain walk
-   at the regressor's B8 L265 and B1 L1015, width 512, timed beside its byte
-   and chain bounds; the full-width Segmenter in fp32, bf16 and int8 + bf16
-   on phase 3's batches (RTFx of five calls, launches from 0 with the int8
-   kernels required, under 1,000 a call, the segmentation under
-   ``set_sync_debug_mode("error")``, the per-frame cosine of the int8 and
-   bf16 hidden states against fp32); ``mini_ckpt.npz`` int8 + bf16 against
+   a strided output); the quantizer on rows whose quotients lie at and next
+   to half-integers (``half_integer_rows``), fp32 and bf16, 16-byte and
+   scalar loads, K past the register-held width; the GateLoop kernel bit for
+   bit against its plain version (the chunked scan) at the regressor's B8
+   L265 and B1 L1015, width 512, timed beside its byte bound and its chain
+   bounds (the chunked design's and the sequential walk's), and at the
+   chunks' edges (``GATELOOP_EDGE_SHAPES``); the full-width Segmenter in
+   fp32, bf16 and int8 + bf16 on phase 3's batches (RTFx of five calls,
+   launches from 0 with the int8 kernels required, under 1,000 a call, the
+   segmentation under ``set_sync_debug_mode("error")``, the per-frame cosine
+   of the int8 and bf16 hidden states against fp32); the int8 Segmenter's
+   quantizer launches a ``process()`` call: 4 a layer and forward with the
+   weights cached, and the weights' quantizations again after a
+   ``load_state_dict``; ``mini_ckpt.npz`` int8 + bf16 against
    fp32 exact on the card over phase 4's 18 held-out utterances (boundary F1
    at tolerance 0 at least 0.995) and against int8 on the CPU; the HTTP shim
    with ``--int8``; ``resynthesize`` + ``decode_audio`` at full width on 8 x
    5 s with the gateloop layers off and on (RTFx, launches from 0, the
-   GateLoop kernel required). ``--only-int8`` runs phases 1 and 9 alone and
-   prints no result.
+   GateLoop kernel required). ``--only-int8`` runs phases 1 and 9 alone
+   (``--out`` writes phase 9's report) and prints no result.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit
 (``nvidia-smi``), and as its last line
@@ -702,10 +709,12 @@ def profile(torch, fn, top: int = 12):
     wall time of the profiled call; the profiler itself slows the host.
 
     ``device_ms`` is the time the device was busy: the union of the device
-    events' intervals, so events that overlap (on other streams) count once.
-    ``device_sum_ms`` is the plain sum of their durations, ``overlap_ms`` the
-    difference, and ``duplicate_events`` the events that share a name and a
-    start with another (events the profiler reported twice)."""
+    events' intervals, so events that overlap (on other streams) count once;
+    ``kernel_busy_ms`` the same without the copies and memsets (whose
+    pageable host copies vary by run). ``device_sum_ms`` is the plain sum of
+    their durations, ``overlap_ms`` the difference, and ``duplicate_events``
+    the events that share a name and a start with another (events the
+    profiler reported twice)."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -719,17 +728,23 @@ def profile(torch, fn, top: int = 12):
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
-    busy_us, reach = 0.0, float("-inf")
-    for start, end in sorted((e.time_range.start, e.time_range.end) for e in kernels):
-        if end > reach:
-            busy_us += end - max(start, reach)
-            reach = end
+
+    def busy_us(events):
+        total, reach = 0.0, float("-inf")
+        for start, end in sorted((e.time_range.start, e.time_range.end) for e in events):
+            if end > reach:
+                total += end - max(start, reach)
+                reach = end
+        return total
+
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
     ours = {k[:70]: v for k, v in ranked
             if any(tag in k for tag in ("sylber", "conv0_", "segment_pass"))}
     total = sum(by_name.values())
-    return dict(wall_ms=wall * 1e3, device_ms=busy_us / 1e3, device_sum_ms=total,
-                overlap_ms=total - busy_us / 1e3,
+    busy = busy_us(kernels) / 1e3
+    work = [e for e in kernels if not e.name.startswith(("Memcpy", "Memset"))]
+    return dict(wall_ms=wall * 1e3, device_ms=busy, kernel_busy_ms=busy_us(work) / 1e3,
+                device_sum_ms=total, overlap_ms=total - busy,
                 duplicate_events=len(kernels) - len({(e.name, e.time_range.start)
                                                      for e in kernels}),
                 launches=len(kernels), top_ms=[(k[:60], v) for k, v in ranked[:top]],
@@ -2827,9 +2842,71 @@ INT8_EDGE_SHAPES = [(1000, 144, 432), (1000, 576, 144), (333, 48, 100), (300, 20
 # the GateLoop recurrence at the regressor's shapes: 8 x 5 s and 1 x 20 s,
 # 16 register tokens included, width 512
 GATELOOP_SHAPES = [(8, 265, 512), (1, 1015, 512)]
+# the GateLoop lengths at the chunks' edges (chunks of 16 steps, 16 warps a
+# block, segments of 16 chunks): below, at and just past one chunk, more
+# chunks than a block has warps, five segments; widths off the 32 lanes
+GATELOOP_EDGE_SHAPES = [(2, 5, 40), (2, 16, 40), (2, 17, 40), (3, 300, 100), (1, 1100, 72)]
 # least cycles of one GateLoop step's dependent chain: a multiply and an add
 # (4 each, assumed instruction latencies)
 GATELOOP_CHAIN_CYCLES = 8
+GATELOOP_SEGMENT_CHUNKS = 16  # SEG of csrc/gateloop.cu: the chunks a block holds at once
+
+
+def gateloop_chain_steps(L: int, chunk: int) -> int:
+    """The multiply-add pairs on the chunked GateLoop kernel's chain: each
+    segment walks a chunk twice (phases 1 and 3) and combines its chunks'
+    carries in order (phase 2)."""
+    n = -(-L // chunk)
+    return 2 * chunk * -(-n // GATELOOP_SEGMENT_CHUNKS) + n
+
+
+def bf16_values(x: np.ndarray) -> np.ndarray:
+    """float32 ``x`` rounded to bfloat16 (nearest even), as float32."""
+    b = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    b = (b + 0x7FFF + ((b >> 16) & 1)) >> 16 << 16
+    return b.astype(np.uint32).view(np.float32)
+
+
+def half_integer_rows(rng, R: int, K: int, dtype: str) -> np.ndarray:
+    """(R, K) float32 rows whose quotients x / scale lie at or next to
+    half-integers, where the reciprocal's product and the IEEE quotient can
+    round to different integers: column 0 holds the row's max |x| (every
+    fourth row 127 * 2^e, so its quotients are exact and ties occur), the
+    others the values whose quotients lie nearest to k + 1/2 (float32:
+    fl((k + 1/2) scale) and two ulps either side, repeated where K asks for
+    more; ``dtype`` "bfloat16": every bf16 value up to the max), with random
+    signs."""
+    f32 = np.float32
+    finite_bf16 = (np.arange(0x7F80, dtype=np.uint32) << 16).view(f32)
+    rows = np.empty((R, K), f32)
+    for r in range(R):
+        amax = f32(127 * 2.0 ** rng.randint(-6, 3)) if r % 4 == 0 else f32(rng.uniform(0.05, 40))
+        scale = amax / f32(127)
+        if dtype == "bfloat16":
+            amax = bf16_values(amax)[()]
+            scale = amax / f32(127)
+            pos = finite_bf16[finite_bf16 <= amax]
+        else:
+            near = [(np.arange(127, dtype=f32) + f32(0.5)) * scale]
+            for way in (f32(np.inf), f32(-np.inf)):
+                near += [np.nextafter(near[0], way)]
+                near += [np.nextafter(near[-1], way)]
+            pos = np.unique(np.concatenate(near))
+            pos = pos[pos <= amax]
+        quot = pos / scale
+        gap = np.abs(np.abs(quot - np.floor(quot)) - f32(0.5))
+        pick = np.resize(pos[np.argsort(gap, kind="stable")[:K - 1]], K - 1)  # repeated if few
+        rows[r, 0] = amax if r % 2 else -amax
+        rows[r, 1:] = rng.permutation(pick * np.where(rng.rand(K - 1) < 0.5, f32(-1), f32(1)))
+    return rows
+
+
+def reciprocal_disagreements(x: np.ndarray) -> int:
+    """The values of float32 rows ``x`` whose rint(x * (1 / scale)) differs
+    from rint(x / scale): those the quantizer must take the IEEE quotient
+    for (the crafted rows' teeth)."""
+    scale = np.maximum(np.abs(x).max(1, keepdims=True), np.float32(1e-8)) / np.float32(127)
+    return int((np.rint(x * (np.float32(1) / scale)) != np.rint(x / scale)).sum())
 
 
 def int8_records(torch, i8):
@@ -2964,14 +3041,50 @@ def int8_edges(torch, i8):
     return records
 
 
+# the crafted rows of int8_half_integers: (dtype, rows, K) at 16-byte loads
+# held in registers, scalar loads, and a K past the register-held width
+HALF_INTEGER_SHAPES = [("float32", 512, 768), ("float32", 64, 50), ("float32", 64, 3200),
+                       ("bfloat16", 512, 768), ("bfloat16", 64, 44), ("bfloat16", 64, 6400)]
+
+
+def int8_half_integers(torch, i8):
+    """The quantizer bit for bit against its plain version (values and
+    scales) on ``half_integer_rows`` (quotients at and next to k + 1/2) at
+    ``HALF_INTEGER_SHAPES``; ``teeth``: the values there whose reciprocal
+    product alone would round otherwise (must be some)."""
+    dev = torch.device("cuda")
+    records = []
+    for dt, R, K in HALF_INTEGER_SHAPES:
+        x = half_integer_rows(np.random.RandomState(R + K), R, K, dt)
+        xt = torch.from_numpy(x).to(dev, getattr(torch, dt))
+        q, sc = i8.quantize_rows(xt)
+        pq, ps = i8.quantize_symmetric_plain(xt)
+        bad = int((q != pq).sum()) + int(
+            (sc.view(torch.int32) != ps[:, 0].contiguous().view(torch.int32)).sum())
+        teeth = reciprocal_disagreements(x)
+        records.append(dict(dtype=dt, shape=[R, K], mismatches=bad, teeth=teeth,
+                            ok=bad == 0 and teeth > 0))
+    return records
+
+
 def gateloop_records(torch, gl):
     """The GateLoop kernel against its plain version (bit for bit) on thirds
     of one (B, L, 3D) product at the regressor's shapes, timed beside its
-    byte bound and its chain bound (L dependent multiply-add pairs)."""
+    byte bound and its chain bound (the chunked design's chain,
+    ``gateloop_chain_steps``; beside it the sequential walk's, L pairs),
+    then at ``GATELOOP_EDGE_SHAPES`` (checked, not timed)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(11)
     clock = sm_clock_hz()
     records = []
+    for B, L, D in GATELOOP_EDGE_SHAPES:
+        q, kv, g = torch.randn(B, L, 3 * D, device=dev, generator=gen).chunk(3, dim=-1)
+        a = torch.sigmoid(g)
+        got, want = gl.gate_loop_operator(q, kv, a), gl.gate_loop_operator_plain(q, kv, a)
+        bad = int((got != want).sum())
+        records.append(dict(shape=[B, L, D], edge=True, mismatches=bad,
+                            max_abs_err=(got - want).abs().max().item(),
+                            ok=bad == 0 and bool(torch.isfinite(got).all())))
     for B, L, D in GATELOOP_SHAPES:
         q, kv, g = torch.randn(B, L, 3 * D, device=dev, generator=gen).chunk(3, dim=-1)
         a = torch.sigmoid(g)
@@ -2986,8 +3099,52 @@ def gateloop_records(torch, gl):
                             ok=bad == 0 and bool(torch.isfinite(got).all()),
                             ms=graph_time_ms(torch, run, 20), eager_ms=time_ms(torch, run, 20),
                             plain_ms=graph_time_ms(torch, plain, 2), library_ms=None,
-                            bound_ms=b_ms, bound_by=b_by,
-                            chain_bound_ms=L * GATELOOP_CHAIN_CYCLES / clock * 1e3))
+                            bound_ms=b_ms, bound_by=b_by, chain_steps=gateloop_chain_steps(
+                                L, gl.CHUNK),
+                            chain_bound_ms=gateloop_chain_steps(L, gl.CHUNK)
+                            * GATELOOP_CHAIN_CYCLES / clock * 1e3,
+                            sequential_chain_bound_ms=L * GATELOOP_CHAIN_CYCLES / clock * 1e3))
+    return records
+
+
+def int8_quantize_launches(torch, Segmenter, HubertConfig, i8):
+    """The quantizer's launches in one int8 + bf16 ``process()`` call of the
+    full-width Segmenter on each of phase 3's batches: with the weights
+    cached, 4 a layer and encoder forward (the activations of the q/k/v,
+    out and feed-forward products); after a ``load_state_dict`` of the same
+    weights, the next call quantizes the weights again, once (q, k, v, out
+    and the feed-forward pair: 6 launches a layer), and the one after does
+    not."""
+    cfg = HubertConfig(int8_encoder=True, dtype="bfloat16", frontend_dtype="bfloat16",
+                       precision="default")
+    seg = Segmenter(hubert_config=cfg)
+    forwards = [0]
+    seg.model.register_forward_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+    rng = np.random.RandomState(1)
+    batches = {"small_32x5s": [speechlike(rng, 5 * 16000) for _ in range(32)],
+               "flash_32x12-20s": [speechlike(rng, int(rng.uniform(12, 20) * 16000))
+                                   for _ in range(32)]}
+    layers = cfg.num_hidden_layers
+    records = []
+    for bname, wavs in batches.items():
+        seg.process(wavs, in_second=False)  # warm: the weights quantized here at the latest
+        counts = []
+        for reload in (False, True, False):
+            if reload:
+                seg.model.load_state_dict({k: v.clone() for k, v in seg.model.state_dict().items()})
+            torch.cuda.synchronize()
+            i8.quantize_rows.launches, forwards[0] = 0, 0
+            seg.process(wavs, in_second=False)
+            torch.cuda.synchronize()
+            counts.append((i8.quantize_rows.launches, forwards[0]))
+        want = [4 * layers * counts[0][1], 6 * layers + 4 * layers * counts[1][1],
+                4 * layers * counts[2][1]]
+        got = [c[0] for c in counts]
+        records.append(dict(batch=bname, launches_warm=got[0], launches_after_reload=got[1],
+                            launches_after=got[2], forwards=[c[1] for c in counts],
+                            want=want, ok=got == want and counts[0][1] > 0))
+    del seg
+    torch.cuda.empty_cache()
     return records
 
 
@@ -3115,7 +3272,10 @@ def int8_phase(torch, ops, counters, smi):
     with matmul_precision("highest"):
         quant, gemm = int8_records(torch, i8)
         edges = int8_edges(torch, i8)
-        gates = gateloop_records(torch, gl)
+        crafted = int8_half_integers(torch, i8)
+        gate_recs = gateloop_records(torch, gl)
+    gates = [r for r in gate_recs if not r.get("edge")]
+    gate_edges = [r for r in gate_recs if r.get("edge")]
     for name, recs in (("quantize_rows", quant), ("int8_gemm", gemm)):
         for r in recs:
             yard = "" if name == "quantize_rows" else (
@@ -3129,12 +3289,19 @@ def int8_phase(torch, ops, counters, smi):
         f"{sum(e['quantize_mismatches'] + e['gemm_mismatches'] for e in edges)} mismatches, "
         f"strided output kept its neighbours "
         f"{all(e['neighbours_kept'] for e in edges if e['strided'])}")
+    for r in crafted:
+        log(f"phase 9: quantize_rows {r['dtype']} {r['shape']} at half-integer quotients: "
+            f"{r['mismatches']} mismatches (tol 0), {r['teeth']} values the reciprocal alone "
+            f"rounds otherwise ok={r['ok']}")
     for r in gates:
         log(f"phase 9: gate_loop_operator {r['shape']}: {r['mismatches']} mismatches (tol 0) "
             f"ok={r['ok']}  kernel_ms {r['ms']:.4f} (eager {r['eager_ms']:.4f})  plain_ms "
             f"{r['plain_ms']:.3f}  bound_ms {r['bound_ms']:.4f} ({r['bound_by']}), chain "
-            f"{r['chain_bound_ms']:.4f}  [{smi}]")
-    bad = [r for r in quant + gemm + edges + gates if not r["ok"]]
+            f"{r['chain_bound_ms']:.4f} ({r['chain_steps']} pairs; the sequential walk's "
+            f"{r['sequential_chain_bound_ms']:.4f})  [{smi}]")
+    log(f"phase 9: gate_loop_operator at the chunks' edges {[r['shape'] for r in gate_edges]}: "
+        f"{sum(r['mismatches'] for r in gate_edges)} mismatches (tol 0)")
+    bad = [r for r in quant + gemm + edges + crafted + gate_recs if not r["ok"]]
     if bad:
         raise AssertionError(f"phase 9 kernels disagree with their plain versions: {bad}")
 
@@ -3169,6 +3336,14 @@ def int8_phase(torch, ops, counters, smi):
     idle = [n for n, c in launches.items() if c == 0]
     if idle:
         raise AssertionError(f"kernels never launched on the int8 path: {idle}")
+    cached = int8_quantize_launches(torch, Segmenter, HubertConfig, i8)
+    for r in cached:
+        log(f"phase 9: quantize_rows launches a process() call, int8 + bf16, {r['batch']}: "
+            f"{r['launches_warm']} warm, {r['launches_after_reload']} after a load_state_dict, "
+            f"{r['launches_after']} the call after (encoder forwards {r['forwards']}; want "
+            f"{r['want']}) ok={r['ok']}")
+    if not all(r["ok"] for r in cached):
+        raise AssertionError(f"phase 9: the int8 weights' cache: {cached}")
     mini = int8_mini_agreement(torch, Segmenter, HubertConfig)
     if not mini["ok"]:
         raise AssertionError(f"phase 9 mini_ckpt int8: {mini}")
@@ -3176,8 +3351,9 @@ def int8_phase(torch, ops, counters, smi):
     resynthesis, gate_launches = gateloop_resynthesis(torch, counters + [gl.gate_loop_operator],
                                                       smi)
     log(f"phase 9: launches over the gateloop resynthesis runs: {gate_launches}  [{smi}]")
-    return dict(quantize=quant, gemm=gemm, edges=edges, gateloop=gates, sass=sass, runs=runs,
-                cosines=cosines, launches=launches, mini=mini, http=http,
+    return dict(quantize=quant, gemm=gemm, edges=edges, half_integers=crafted, gateloop=gates,
+                gateloop_edges=gate_edges, sass=sass, runs=runs, cosines=cosines,
+                launches=launches, quantize_launches=cached, mini=mini, http=http,
                 resynthesis=resynthesis, gateloop_launches=gate_launches)
 
 
@@ -3208,7 +3384,9 @@ def int8_kernel_entries(p9):
                      replaces="sylber_tpu/ops/gateloop.py:26",
                      launches=p9["gateloop_launches"]["gate_loop_operator"],
                      chain_bound_ms=head["chain_bound_ms"],
-                     shapes=[{k: r[k] for k in keys + ("chain_bound_ms",)}
+                     sequential_chain_bound_ms=head["sequential_chain_bound_ms"],
+                     shapes=[{k: r[k] for k in keys + ("chain_bound_ms", "chain_steps",
+                                                       "sequential_chain_bound_ms")}
                              for r in p9["gateloop"]],
                      **{k: head[k] for k in keys}))
     return rows
@@ -3265,7 +3443,10 @@ def main() -> int:
         reproduce_synthesis(torch, smi)
         return 0
     if args.only_int8:
-        int8_phase(torch, ops, counters, smi)
+        p9 = int8_phase(torch, ops, counters, smi)
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(dict(card=smi, int8=p9), indent=1))
         return 0
 
     with matmul_precision("highest"):

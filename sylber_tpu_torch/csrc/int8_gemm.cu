@@ -10,13 +10,35 @@
 // per-output-channel quantization is a per-row one too: one kernel quantizes
 // both operands.
 //
-// sylber_quantize_rows: a warp per row. A pass for max|x| (warp shuffles),
-//   the scale max(amax, 1e-8) / 127 and the quotients x / scale as IEEE
-//   divisions (as XLA divides; no reciprocal multiply), rintf (half to even,
-//   as jnp.round). The int8 output is bit-equal to JAX's. Its row stride is
-//   a multiple of 16 bytes and the columns from K to the stride are written
-//   as zeros: the stride is what TMA's global stride must be. Bound: bytes
-//   (the input read once, a byte a value written).
+// sylber_quantize_rows: a warp takes a row at a time and holds it in
+//   registers from its max |x| to its store, so every value is read once:
+//   each lane keeps NC 16-byte pieces of the row (NC the least of 1, 2, 3,
+//   4, 6, 8, 12, 16, 24 that covers K: up to 6,144 bf16 values or 3,072
+//   float32). The grid gives a warp a row; the rows' registers let a few
+//   blocks reside on an SM at once, and blocks start as others end, so the
+//   resident warps are at different steps of their rows: one row's loads
+//   overlap another's arithmetic and stores (a persistent grid, rows
+//   dealt to warps in turn, was slower for bf16: its warps end unevenly;
+//   loading the next row ahead cost the registers of a row, and occupancy,
+//   and lost too; scripts/quantize_gateloop_probe.py). The scale is
+//   max(amax, 1e-8) / 127 as an IEEE division, once a row, and its
+//   reciprocal inv (__frcp_rn) too. A value's integer is that nearest the
+//   exact product x * inv (one fused multiply-add, rounding half to even
+//   as jnp.round: adding 1.5 * 2^23 leaves the integer in the low bits of
+//   the sum, so no conversion instruction), which lies within 1.2e-5 of the
+//   IEEE quotient fl(x / scale) as |x / scale| <= 127.00001; only where the
+//   product lies within 2^-15 of a half-integer can the two round to
+//   different integers, and a 16-byte piece with such a product is
+//   quantized again by the IEEE quotients (__fdiv_rn), after the
+//   branch-free pass over the whole row. bf16 values are widened by a
+//   shift (cvt.f32.bf16 takes the conversion pipe), the int8 values packed
+//   into words with byte permutes. The int8 output is bit-equal to JAX's.
+//   Rows wider than the held form (or not in 16-byte pieces) take a path
+//   that reads each row twice (max, then quantize) with the same
+//   arithmetic. The row stride of the output is a multiple of 16 bytes and
+//   the columns from K to the stride are written as zeros: the stride is
+//   what TMA's global stride must be. Bound: bytes (the input read once, a
+//   byte a value written).
 // sylber_int8_gemm: out (M, N) = epilogue(A (M, K) . B (N, K)^T), both int8
 //   and K-contiguous, the layout wgmma takes for 8-bit operands (both must be
 //   K-major). Bound at the encoder's shapes: about even between the bytes
@@ -49,7 +71,12 @@
 namespace sylber {
 namespace i8 {
 
-constexpr int Q_THREADS = 256;  // 8 warps, a row per warp
+constexpr int Q_THREADS = 256;  // 8 warps, a row at a time each
+constexpr int Q_MAX_PIECES = 24;    // 16-byte pieces of a row a lane holds at most
+// A product x * (1 / scale) further than this from a half-integer rounds as
+// fl(x / scale) does (they differ by at most 1.2e-5 for |x / scale| <= 128)
+constexpr float TIE_TOL = 0x1p-15f;
+constexpr float ROUNDER = 12582912.f;  // 1.5 * 2^23
 constexpr float MIN_AMAX = 1e-8f;
 constexpr float QMAX = 127.f;
 
@@ -131,20 +158,150 @@ template <typename T, int V>
 struct alignas(sizeof(T) * V) Vec {
   T v[V];
 };
+// V int8 values packed into 32-bit words (V = 4 or 8), or one in the low byte.
 template <int V>
-struct alignas(V) Bytes {
-  int8_t v[V];
+struct Packed {
+  uint32_t w[(V + 3) / 4];
 };
 
-__device__ __forceinline__ int8_t quantize(float x, float scale) {
-  const float r = rintf(__fdiv_rn(x, scale));
-  return (int8_t)fminf(fmaxf(r, -QMAX), QMAX);
+// A value as float; bf16 widened by a shift (exact: cvt.f32.bf16 would take
+// the conversion pipe, a few lanes a clock).
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __uint_as_float((uint32_t)__bfloat16_as_ushort(x) << 16);
 }
 
+// The integer nearest x * inv (the exact product; half to even) in the low
+// byte of the result, as int8, and in `gap` the distance of the product from
+// it: only a gap near 1/2 (a product near a half-integer) can round
+// otherwise than the IEEE quotient. |x * inv| < 127.5, so no clip is needed.
+// Adding 1.5 * 2^23 leaves the integer in the low bits of the sum (its low
+// byte that of the integer's two's complement): no conversion instruction.
+__device__ __forceinline__ uint32_t round_product(float x, float inv, float& gap) {
+  const float t = fmaf(x, inv, ROUNDER);
+  gap = fmaxf(gap, fabsf(fmaf(x, inv, -__fsub_rn(t, ROUNDER))));
+  return __float_as_uint(t);
+}
+
+// The same for the IEEE quotient q = fl(x / scale).
+__device__ __forceinline__ uint32_t round_quotient(float q) {
+  return __float_as_uint(__fadd_rn(q, ROUNDER));
+}
+
+// The low bytes of q[0..V) into out's words.
+template <int V>
+__device__ __forceinline__ void pack(const uint32_t (&q)[V], Packed<V>& out) {
+  if constexpr (V == 1) {
+    out.w[0] = q[0];
+  } else {
+#pragma unroll
+    for (int g = 0; g < V / 4; ++g)
+      out.w[g] = __byte_perm(__byte_perm(q[4 * g], q[4 * g + 1], 0x0040),
+                             __byte_perm(q[4 * g + 2], q[4 * g + 3], 0x0040), 0x5410);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_piece(int8_t* dst, const Packed<V>& p) {
+  if constexpr (V == 8)
+    *reinterpret_cast<uint2*>(dst) = make_uint2(p.w[0], p.w[1]);
+  else if constexpr (V == 4)
+    *reinterpret_cast<uint32_t*>(dst) = p.w[0];
+  else
+    *dst = (int8_t)p.w[0];
+}
+
+// A 16-byte piece (or one value) to int8 by the products with inv = 1 /
+// scale, branch-free; true if one of them lies near a half-integer.
+template <typename T, int V>
+__device__ __forceinline__ bool quantize_piece(const Vec<T, V>& v, float inv, Packed<V>& out) {
+  float gap = 0.f;
+  uint32_t q[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) q[e] = round_product(widen(v.v[e]), inv, gap);
+  pack(q, out);
+  return gap > 0.5f - TIE_TOL;
+}
+
+// The same piece by the IEEE quotients x / scale (a piece that
+// quantize_piece found near a half-integer).
+template <typename T, int V>
+__device__ __forceinline__ void quantize_piece_exact(const Vec<T, V>& v, float scale,
+                                                     Packed<V>& out) {
+  uint32_t q[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) q[e] = round_quotient(__fdiv_rn(widen(v.v[e]), scale));
+  pack(q, out);
+}
+
+// The row's scale (an IEEE division) and its reciprocal, from its max |x|.
+__device__ __forceinline__ float2 row_scale(float amax) {
+  const float s = __fdiv_rn(fmaxf(amax, MIN_AMAX), QMAX);
+  return make_float2(s, __frcp_rn(s));
+}
+
+// The zero columns from K to the row stride.
+__device__ __forceinline__ void zero_tail(int8_t* qr, int K, int ldq, int lane) {
+  for (int c = K + lane; c < ldq; c += 32) qr[c] = 0;
+}
+
+// A row held in registers: lane l keeps the 16-byte pieces i = 0 .. NC - 1
+// at columns (32 i + l) V, those past K unused. Warp w takes rows w, w + W,
+// ... (W warps in the grid; the launch gives a warp a row).
+template <typename T, int NC>
+__global__ void __launch_bounds__(Q_THREADS)
+    quantize_rows_held(const T* __restrict__ x, long long ldx, int8_t* __restrict__ q, int ldq,
+                       float* __restrict__ scale, int R, int K) {
+  constexpr int V = 16 / (int)sizeof(T);
+  const int lane = threadIdx.x % 32;
+  const int W = gridDim.x * (Q_THREADS / 32);
+  for (int r = blockIdx.x * (Q_THREADS / 32) + threadIdx.x / 32; r < R; r += W) {
+    const T* xr = x + (long long)r * ldx;
+    Vec<T, V> row[NC];
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      const int c = (i * 32 + lane) * V;
+      if (c < K) row[i] = *reinterpret_cast<const Vec<T, V>*>(xr + c);
+    }
+    float m[NC];  // max |x| a piece, then over the pieces: short chains
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      m[i] = 0.f;
+      if ((i * 32 + lane) * V < K)
+#pragma unroll
+        for (int e = 0; e < V; ++e) m[i] = fmaxf(m[i], fabsf(widen(row[i].v[e])));
+    }
+#pragma unroll
+    for (int i = 1; i < NC; ++i) m[0] = fmaxf(m[0], m[i]);
+    const float2 s = row_scale(warp_max(m[0]));
+    if (lane == 0) scale[r] = s.x;
+    Packed<V> out[NC];
+    unsigned near = 0;  // a bit a piece with a product near a half-integer
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      if ((i * 32 + lane) * V < K) near |= (unsigned)quantize_piece(row[i], s.y, out[i]) << i;
+    }
+    if (near) {  // rare: those pieces again by the IEEE quotients
+#pragma unroll
+      for (int i = 0; i < NC; ++i)
+        if (near >> i & 1) quantize_piece_exact(row[i], s.x, out[i]);
+    }
+    int8_t* qr = q + (long long)r * ldq;
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      const int c = (i * 32 + lane) * V;
+      if (c < K) store_piece(qr + c, out[i]);
+    }
+    zero_tail(qr, K, ldq, lane);
+  }
+}
+
+// Any width, and V values a load (16 bytes, or one value): a warp a row,
+// read twice (max |x|, then the quantization).
 template <typename T, int V>
 __global__ void __launch_bounds__(Q_THREADS)
-    quantize_rows_kernel(const T* __restrict__ x, long long ldx, int8_t* __restrict__ q,
-                         int ldq, float* __restrict__ scale, int R, int K) {
+    quantize_rows_wide(const T* __restrict__ x, long long ldx, int8_t* __restrict__ q, int ldq,
+                       float* __restrict__ scale, int R, int K) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int r = blockIdx.x * (Q_THREADS / 32) + warp;
   if (r >= R) return;
@@ -154,19 +311,17 @@ __global__ void __launch_bounds__(Q_THREADS)
   for (int c = lane * V; c < K; c += 32 * V) {
     const Vec<T, V> v = *reinterpret_cast<const Vec<T, V>*>(xr + c);
 #pragma unroll
-    for (int i = 0; i < V; ++i) amax = fmaxf(amax, fabsf(to_float(v.v[i])));
+    for (int i = 0; i < V; ++i) amax = fmaxf(amax, fabsf(widen(v.v[i])));
   }
-  amax = warp_max(amax);
-  const float s = __fdiv_rn(fmaxf(amax, MIN_AMAX), QMAX);
-  if (lane == 0) scale[r] = s;
+  const float2 s = row_scale(warp_max(amax));
+  if (lane == 0) scale[r] = s.x;
   for (int c = lane * V; c < K; c += 32 * V) {
     const Vec<T, V> v = *reinterpret_cast<const Vec<T, V>*>(xr + c);
-    Bytes<V> out;
-#pragma unroll
-    for (int i = 0; i < V; ++i) out.v[i] = quantize(to_float(v.v[i]), s);
-    *reinterpret_cast<Bytes<V>*>(qr + c) = out;
+    Packed<V> out;
+    if (quantize_piece(v, s.y, out)) quantize_piece_exact(v, s.x, out);
+    store_piece(qr + c, out);
   }
-  for (int c = K + lane; c < ldq; c += 32) qr[c] = 0;  // the zero tail
+  zero_tail(qr, K, ldq, lane);
 }
 
 // A persistent grid: block b takes the output tiles b, b + gridDim.x, ...
@@ -297,16 +452,37 @@ __global__ void __launch_bounds__(G_THREADS, 1)
   }
 }
 
+template <typename T, int NC>
+int held_launch(const void* x, long long ldx, void* q, int ldq, void* scale, int R, int K,
+                cudaStream_t stream) {
+  const int grid = ceil_div(R, Q_THREADS / 32);  // a warp a row
+  quantize_rows_held<T, NC><<<grid, Q_THREADS, 0, stream>>>((const T*)x, ldx, (int8_t*)q, ldq,
+                                                            (float*)scale, R, K);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int quantize_launch(const void* x, long long ldx, void* q, int ldq, void* scale, int R, int K,
                     bool vec, cudaStream_t stream) {
-  const dim3 grid(ceil_div(R, Q_THREADS / 32));
   constexpr int V = 16 / sizeof(T);
+  const int pieces = ceil_div(K, 32 * V);
+  if (vec && pieces <= Q_MAX_PIECES) {
+    if (pieces <= 1) return held_launch<T, 1>(x, ldx, q, ldq, scale, R, K, stream);
+    if (pieces <= 2) return held_launch<T, 2>(x, ldx, q, ldq, scale, R, K, stream);
+    if (pieces <= 3) return held_launch<T, 3>(x, ldx, q, ldq, scale, R, K, stream);
+    if (pieces <= 4) return held_launch<T, 4>(x, ldx, q, ldq, scale, R, K, stream);
+    if (pieces <= 6) return held_launch<T, 6>(x, ldx, q, ldq, scale, R, K, stream);
+    if (pieces <= 8) return held_launch<T, 8>(x, ldx, q, ldq, scale, R, K, stream);
+    if (pieces <= 12) return held_launch<T, 12>(x, ldx, q, ldq, scale, R, K, stream);
+    if (pieces <= 16) return held_launch<T, 16>(x, ldx, q, ldq, scale, R, K, stream);
+    return held_launch<T, 24>(x, ldx, q, ldq, scale, R, K, stream);
+  }
+  const dim3 grid(ceil_div(R, Q_THREADS / 32));
   if (vec)
-    quantize_rows_kernel<T, V><<<grid, Q_THREADS, 0, stream>>>(
+    quantize_rows_wide<T, V><<<grid, Q_THREADS, 0, stream>>>(
         (const T*)x, ldx, (int8_t*)q, ldq, (float*)scale, R, K);
   else
-    quantize_rows_kernel<T, 1><<<grid, Q_THREADS, 0, stream>>>(
+    quantize_rows_wide<T, 1><<<grid, Q_THREADS, 0, stream>>>(
         (const T*)x, ldx, (int8_t*)q, ldq, (float*)scale, R, K);
   return (int)cudaGetLastError();
 }

@@ -16,7 +16,8 @@ Two serving forms of the encoder layers, as in JAX: ``fused_qkv`` (one
 (3d, d) product for q/k/v) and ``int8_encoder`` (dynamic W8A8 for the
 attention projections and the feed-forward pair, ``ops/int8.py``, on the
 int8 kernels of ``csrc/int8_gemm.cu``; the parameters stay float32 and are
-quantized in every forward). ``int8_encoder`` is an inference mode: the
+quantized once per load, ``ops/int8.py::QuantizedWeights``, where JAX
+quantizes them in every forward). ``int8_encoder`` is an inference mode: the
 rounding has no gradient, so the model refuses it in train mode or where
 autograd records.
 
@@ -51,7 +52,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import Dropout, MultiHeadSelfAttention, linear
 from ..ops.frontend import KERNEL_SIZE, STRIDE, analytic_moments_plain, conv0_gn_gelu
-from ..ops.int8 import int8_dense
+from ..ops.int8 import QuantizedWeights, int8_linear
 
 DType = Union[torch.dtype, str]
 
@@ -327,6 +328,7 @@ class EncoderLayer(nn.Module):
         self.intermediate_dense = nn.Linear(d, cfg.intermediate_size)
         self.output_dense = nn.Linear(cfg.intermediate_size, d)
         self.final_layer_norm = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
+        self._int8_weights = QuantizedWeights()
 
     def forward(self, x: torch.Tensor, kv_len: torch.Tensor, seed: Optional[int] = None,
                 differentiable: bool = False) -> torch.Tensor:
@@ -339,14 +341,16 @@ class EncoderLayer(nn.Module):
                               dropout=drop, dropout_rate=cfg.attention_dropout)
         x = x + drop(attn, cfg.hidden_dropout)
         x = _layer_norm(x, self.layer_norm, dt)
-        h = _gelu(self._dense(x, self.intermediate_dense), cfg.gelu_approximate)
+        h = _gelu(self._dense(x, "intermediate_dense"), cfg.gelu_approximate)
         h = drop(h, cfg.activation_dropout)
-        x = x + drop(self._dense(h, self.output_dense), cfg.hidden_dropout)
+        x = x + drop(self._dense(h, "output_dense"), cfg.hidden_dropout)
         return _layer_norm(x, self.final_layer_norm, dt)
 
-    def _dense(self, x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
+    def _dense(self, x: torch.Tensor, name: str) -> torch.Tensor:
+        layer = getattr(self, name)
         if self.cfg.int8_encoder:
-            return int8_dense(x, layer.weight, layer.bias, self.cfg.dtype)
+            wq, sw = self._int8_weights(name, [layer.weight])
+            return int8_linear(x, wq, sw, layer.bias, self.cfg.dtype)
         return linear(x, layer, self.cfg.dtype)
 
 

@@ -26,7 +26,8 @@ parameter tree stays the four separate ``nn.Linear`` layers):
 - ``int8``: dynamic W8A8 (``ops/int8.py``): the three weights quantized row
   by row into one (3d, d) int8 operand (per-output-channel scales make that
   the quantization of the concatenation), one int8 product, and the out
-  projection in int8 too.
+  projection in int8 too; both operands are quantized once per load and
+  kept (``QuantizedWeights``).
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .flash import flash_attention
-from .int8 import int8_dense, int8_linear, quantize_weights
+from .int8 import QuantizedWeights, int8_linear
 from .smallattn import MAX_SEQ, small_attention, small_attention_plain
 
 
@@ -116,6 +117,7 @@ class MultiHeadSelfAttention(nn.Module):
         self.k_proj = nn.Linear(d_model, d_model)
         self.v_proj = nn.Linear(d_model, d_model)
         self.out_proj = nn.Linear(d_model, d_model)
+        self._int8_weights = QuantizedWeights()
 
     def _qkv(self, x: torch.Tensor, dtype: torch.dtype):
         """q, k, v (B, L, d) in ``dtype``: three products, or views of one."""
@@ -124,7 +126,7 @@ class MultiHeadSelfAttention(nn.Module):
             return [linear(x, p, dtype) for p in projs]
         bias = torch.cat([p.bias for p in projs])
         if self.int8:
-            wq, sw = quantize_weights([p.weight for p in projs])
+            wq, sw = self._int8_weights("qkv", [p.weight for p in projs])
             qkv = int8_linear(x, wq, sw, bias, dtype)
         else:
             weight = torch.cat([p.weight for p in projs])
@@ -148,5 +150,6 @@ class MultiHeadSelfAttention(nn.Module):
             out = attention(split(q), split(k), split(v), kv_len)
         out = out.transpose(1, 2).reshape(B, L, d)
         if self.int8:
-            return int8_dense(out, self.out_proj.weight, self.out_proj.bias, dtype)
+            wq, sw = self._int8_weights("out", [self.out_proj.weight])
+            return int8_linear(out, wq, sw, self.out_proj.bias, dtype)
         return linear(out, self.out_proj, dtype)

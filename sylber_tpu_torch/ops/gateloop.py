@@ -5,17 +5,22 @@ Port of ``sylber_tpu/ops/gateloop.py``. Per channel,
 
     s_t = a_t * s_{t-1} + kv_t   (s_{-1} = 0, a_t in (0, 1)),   o_t = q_t * s_t.
 
-- :func:`gate_loop_operator_plain` walks t in order in torch ops: the
-  kernel's plain version (the CPU path, and the card check's reference);
+- :func:`gate_loop_operator_plain` is the kernel's plain version (the CPU
+  path, and the card check's reference): a chunked scan in torch ops. Time
+  is cut into chunks of :data:`CHUNK` steps; each chunk is walked from a zero
+  state beside the product of its gates, the chunks' carries are combined in
+  chunk order, and each chunk is walked again from its carry-in. It rounds
+  as ``csrc/gateloop.cu`` does, operation for operation, so the kernel is
+  bit-equal to it; its loop is ``2 CHUNK + L / CHUNK`` vectorised steps;
 - :func:`gate_loop_scan` is JAX's own algorithm, ``lax.associative_scan``'s
   odd/even recursion over the monoid ``(a1, kv1) . (a2, kv2) = (a1 a2,
   a2 kv1 + kv2)``, in torch ops: differentiable, so the synthesis trainers
   take it under autograd, as the attention takes ``attention_xla``;
 - :func:`gate_loop_operator` dispatches: the scan where autograd records,
-  the kernel of ``csrc/gateloop.cu`` for other CUDA tensors, the plain walk
-  on the CPU.
+  the kernel of ``csrc/gateloop.cu`` for other CUDA tensors, the plain
+  version on the CPU.
 
-The scan and the walk round in different orders: they agree to about 2e-7
+The scan and the chunked order round differently: they agree to about 2e-7
 of the output's largest magnitude at the regressor's lengths (the tests
 state the gap they measure and hold it at 1e-6).
 """
@@ -31,15 +36,34 @@ from ..kernels import check, lib, require_cuda, stream_of
 _Strides = ctypes.c_longlong * 6
 
 
+CHUNK = 16  # time steps a chunk: CH of csrc/gateloop.cu
+
+
 def gate_loop_operator_plain(q: torch.Tensor, kv: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
-    """(B, L, D) float32: the recurrence walked in time order."""
+    """(B, L, D) float32: the recurrence as a chunked scan, in the kernel's
+    order and roundings."""
     q, kv, a = q.float(), kv.float(), a.float()
-    out = torch.empty_like(q, memory_format=torch.contiguous_format)
-    s = torch.zeros_like(q[:, 0])
-    for t in range(q.shape[1]):
-        s = a[:, t] * s + kv[:, t]
-        out[:, t] = q[:, t] * s
-    return out
+    B, L, D = q.shape
+    n = -(-L // CHUNK)
+
+    def chunks(x, fill):  # (B, n, CHUNK, D), the last chunk padded with `fill`
+        pad = x.new_full((B, n * CHUNK - L, D), fill)
+        return torch.cat([x, pad], dim=1).view(B, n, CHUNK, D)
+
+    qc, kc, ac = chunks(q, 0.0), chunks(kv, 0.0), chunks(a, 1.0)
+    s, p = q.new_zeros(B, n, D), q.new_ones(B, n, D)
+    for j in range(CHUNK):  # phase 1: each chunk from a zero state
+        s = ac[:, :, j] * s + kc[:, :, j]
+        p = p * ac[:, :, j]
+    carry = q.new_zeros(B, n, D)
+    for c in range(1, n):  # phase 2: the carries in chunk order
+        carry[:, c] = p[:, c - 1] * carry[:, c - 1] + s[:, c - 1]
+    out = q.new_empty(B, n, CHUNK, D)
+    s = carry
+    for j in range(CHUNK):  # phase 3: each chunk from its carry-in
+        s = ac[:, :, j] * s + kc[:, :, j]
+        out[:, :, j] = qc[:, :, j] * s
+    return out.view(B, n * CHUNK, D)[:, :L].contiguous()
 
 
 def _interleave(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:

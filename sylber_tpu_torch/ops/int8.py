@@ -14,8 +14,10 @@ the design answers that); on a CPU tensor they run the plain versions,
 :func:`quantize_symmetric_plain` and :func:`int8_gemm_plain`. The plain
 product is taken exactly in float64 (exact while K * 127^2 < 2^53) and
 converted to float32, which rounds an integer as the int32 conversion does.
-The weights are quantized in every forward, as JAX does in its graph: no
-cache, so a ``load_state_dict`` between calls is never stale.
+The encoder quantizes its weights once per load, not in every forward as
+JAX does in its graph (the outputs are the same): :class:`QuantizedWeights`
+keeps each weight group's int8 operand and scales while the weights are
+unchanged (its docstring says what it checks).
 
 Inference only: the rounding has no gradient (JAX's trainer refuses the
 mode, and so does the port's).
@@ -23,7 +25,7 @@ mode, and so does the port's).
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -140,6 +142,40 @@ def quantize_weights(weights: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, tor
         quantize_rows(w, out=(q[r:r + w.shape[0]], s[r:r + w.shape[0]]))
         r += w.shape[0]
     return q[:, :K], s
+
+
+class QuantizedWeights:
+    """The int8 operands of a module's weights, kept across calls:
+    ``cache(name, weights)`` is :func:`quantize_weights` of ``weights``,
+    taken again only when one of them changed since the last call under
+    ``name``.
+
+    A weight is the same while its ``data_ptr()``, ``_version``, device,
+    dtype, shape and strides are: ``load_state_dict`` and ``param.copy_``
+    write in place and bump ``_version``; ``.to(dtype or device)`` gives
+    new storage. The quantized sources are held (detached, sharing the
+    parameters' storage), so their addresses are not handed to other
+    tensors while a key names them. A write through ``.data`` (``w.data.
+    copy_(...)``) does not bump the parameter's ``_version`` and is not
+    seen: nothing on the int8 path writes so. A plain attribute of the
+    module, not a buffer: ``state_dict`` and the parameter tree are
+    unchanged, and a deep copy starts empty."""
+
+    def __init__(self):
+        self._entries: Dict[str, tuple] = {}
+
+    def __call__(self, name: str, weights: Sequence[torch.Tensor]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        key = tuple((w.data_ptr(), w._version, w.device, w.dtype, w.shape, w.stride())
+                    for w in weights)
+        entry = self._entries.get(name)
+        if entry is None or entry[0] != key:
+            held = [w.detach() for w in weights]
+            entry = self._entries[name] = (key, held, quantize_weights(held))
+        return entry[2]
+
+    def __deepcopy__(self, memo):
+        return QuantizedWeights()
 
 
 def int8_gemm(xq: torch.Tensor, sx: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,

@@ -10,6 +10,7 @@ inline float __bfloat162float(__nv_bfloat16 b) {
   memcpy(&f, &u, 4);
   return f;
 }
+inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 b) { return b.x; }
 inline __nv_bfloat16 __float2bfloat16(float f) {
   uint32_t u;
   memcpy(&u, &f, 4);

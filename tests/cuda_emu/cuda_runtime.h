@@ -39,6 +39,8 @@ inline int2 make_int2(int a, int b) { return {a, b}; }
 inline float2 make_float2(float a, float b) { return {a, b}; }
 struct alignas(16) float4 { float x, y, z, w; };
 struct alignas(16) uint4 { uint32_t x, y, z, w; };
+struct alignas(8) uint2 { uint32_t x, y; };
+inline uint2 make_uint2(uint32_t a, uint32_t b) { return {a, b}; }
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 typedef void* cudaStream_t;
 typedef int cudaError_t;
@@ -136,11 +138,34 @@ inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
 inline float __fdiv_rn(float a, float b) { volatile float r = a / b; return r; }
+inline float __frcp_rn(float a) { volatile float r = 1.f / a; return r; }
 
 inline float __int_as_float(unsigned x) {
   float f;
   memcpy(&f, &x, 4);
   return f;
+}
+inline float __uint_as_float(uint32_t x) {
+  float f;
+  memcpy(&f, &x, 4);
+  return f;
+}
+// bytes 0-3 from x, 4-7 from y; s holds a source byte a result byte (no sign mode)
+inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
+  const uint64_t v = (uint64_t)y << 32 | x;
+  unsigned r = 0;
+  for (int i = 0; i < 4; ++i) r |= (unsigned)(v >> (8 * ((s >> (4 * i)) & 7)) & 0xff) << (8 * i);
+  return r;
+}
+inline uint32_t __float_as_uint(float x) {
+  uint32_t i;
+  memcpy(&i, &x, 4);
+  return i;
+}
+inline int __float_as_int(float x) {
+  int i;
+  memcpy(&i, &x, 4);
+  return i;
 }
 inline size_t __cvta_generic_to_shared(const void* p) { return (size_t)p; }
 inline int atomicMin(int* p, int v) {

@@ -117,7 +117,8 @@ def _host_sources(out: Path, names=SOURCES) -> list:
             anchor, decl = _DECLARATIONS[src.name]
             assert anchor in text, f"{anchor!r} not found in {src.name}"
             text = text.replace(anchor, decl + anchor, 1)
-        if src.name in ("segment_scan.cu", "frontend.cu", "kmeanspp.cu", "int8_gemm.cu"):
+        if src.name in ("segment_scan.cu", "frontend.cu", "kmeanspp.cu", "int8_gemm.cu",
+                        "gateloop.cu"):
             text = text.replace("extern __shared__ __align__(128) float ring[];",
                                 "static __align__(128) float ring[RING * MAX_DIM];")
             text = text.replace("extern __shared__ __align__(1024) int8_t gemm_smem[];",

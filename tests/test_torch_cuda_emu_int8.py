@@ -12,7 +12,13 @@ numpy inputs go through the JAX package (``quantize_symmetric``,
 ``int8_dense``, ``gate_loop_operator``) and the port's plain versions.
 
 - the quantizer: bit-equal to both, at 16-byte and scalar loads, bf16
-  input, a strided input, zero rows; the padded tail of each row is zero;
+  input, a strided input, zero rows, rows held in registers (1, 2, 3 and 24
+  pieces a lane) and a K past that width (read twice); the padded tail of
+  each row is zero; rows whose quotients
+  lie at and next to half-integers (``chip_smoke.half_integer_rows``, which
+  hold values where the reciprocal's product alone rounds otherwise), fp32
+  and bf16, at 16-byte and scalar loads; the weights' ``out=`` row slices
+  of one buffer;
 - the GEMM: bit-equal to the plain version (int32 sums are exact and the
   epilogue rounds as it does), against JAX at 1e-6 of the largest output in
   float32 and one bf16 ulp in bf16, at K tails (20, 48, 144: not multiples
@@ -21,8 +27,10 @@ numpy inputs go through the JAX package (``quantize_symmetric``,
   of six stages wraps and the producer waits for stages to come back, and 9
   output tiles on the stand-in's 3 SMs, so that a block of the persistent
   grid takes 3 tiles and the ring runs on across them;
-- the GateLoop walk: bit-equal to the plain version on thirds of one
-  (B, L, 3D) product, and within the scan-order gap of JAX's scan.
+- the GateLoop kernel (a chunked scan): bit-equal to the plain version on
+  thirds of one (B, L, 3D) product, and within the order gap of JAX's scan,
+  at lengths below, at and just past a chunk, with more chunks than a block
+  has warps and over five segments, and widths off the 32 lanes.
 
 A separate file from ``test_torch_cuda_emu.py`` so that a distributed run can
 give it a worker of its own.
@@ -36,13 +44,14 @@ import torch
 from sylber_tpu.ops.gateloop import gate_loop_operator as jax_gate_loop
 from sylber_tpu.ops.int8 import int8_dense as jax_int8_dense
 from sylber_tpu.ops.int8 import quantize_symmetric
+from chip_smoke import half_integer_rows, reciprocal_disagreements
 from sylber_tpu_torch.ops import gateloop as port_gateloop
 from sylber_tpu_torch.ops import int8 as port_int8
 from test_torch_cuda_emu import _check, build_host_library
 
 F32, BF16 = torch.float32, torch.bfloat16
 ENTRY_POINTS = ["sylber_quantize_rows", "sylber_int8_gemm", "sylber_gate_loop"]
-# the scan (JAX) and the walk (kernel, plain) round in different orders
+# the scan (JAX) and the chunked order (kernel, plain) round differently
 GATELOOP_RTOL = 1e-6
 
 
@@ -77,6 +86,9 @@ QUANTIZE_CASES = [
     ("bf16-vec", 12, 48, BF16, None),
     ("bf16-scalar-tail", 7, 20, BF16, None),  # 20 % 8, and the padded width is 32
     ("f32-strided", 11, 144, F32, 200),
+    ("bf16-k768-held", 60, 768, BF16, None),  # 3 pieces a lane
+    ("f32-k3072-held", 5, 3072, F32, None),  # 24 pieces a lane, no row loaded ahead
+    ("f32-k3200-wide", 3, 3200, F32, None),  # past the register-held width: read twice
 ]
 
 
@@ -86,15 +98,47 @@ def test_emulated_quantize_rows_is_bit_equal(on_host, name, R, K, dtype, ld):
     x = rng.randn(R, ld or K).astype(np.float32) * rng.uniform(0.01, 30.0, (R, 1))
     x[R // 2] = 0.0  # a zero row: the 1e-8 floor of the scale
     xt = torch.from_numpy(x).to(dtype)[:, :K]
-    q, s = _quantize(xt)
+    _assert_quantized_as_plain_and_jax(xt, *_quantize(xt))
+
+
+def _assert_quantized_as_plain_and_jax(xt, q, s):
+    K = xt.shape[1]
     want_q, want_s = port_int8.quantize_symmetric_plain(xt)
     np.testing.assert_array_equal(q[:, :K].numpy(), want_q.numpy())
     np.testing.assert_array_equal(s.numpy().view(np.int32), want_s[:, 0].numpy().view(np.int32))
     assert not q[:, K:].any()
     jq, js = quantize_symmetric(jnp.asarray(xt.float().numpy()), axis=-1)
     np.testing.assert_array_equal(q[:, :K].numpy(), np.asarray(jq))
-    np.testing.assert_array_equal(s.numpy().view(np.int32),
-                                  np.asarray(js)[:, 0].view(np.int32))
+    np.testing.assert_array_equal(s.numpy().view(np.int32), np.asarray(js)[:, 0].view(np.int32))
+
+
+HALF_INTEGER_CASES = [("f32-vec", F32, 144), ("f32-scalar", F32, 50), ("bf16-vec", BF16, 48),
+                      ("bf16-scalar", BF16, 44)]
+
+
+@pytest.mark.parametrize("name,dtype,K", HALF_INTEGER_CASES,
+                         ids=[c[0] for c in HALF_INTEGER_CASES])
+def test_emulated_quantize_rows_at_half_integer_quotients(on_host, name, dtype, K):
+    x = half_integer_rows(np.random.RandomState(K), 32, K, str(dtype)[6:])
+    assert reciprocal_disagreements(x) > 0  # values the reciprocal's product alone gets wrong
+    xt = torch.from_numpy(x).to(dtype)
+    assert torch.equal(xt.float(), torch.from_numpy(x))
+    _assert_quantized_as_plain_and_jax(xt, *_quantize(xt))
+
+
+def test_emulated_quantize_rows_fills_out_row_slices(on_host):
+    """``quantize_weights``'s launches on the CUDA path: each weight into its
+    row slice of one padded buffer, equal to quantizing the concatenation."""
+    rng = np.random.RandomState(5)
+    ws = [torch.from_numpy((rng.randn(n, 40) * sc).astype(np.float32))
+          for n, sc in ((24, 0.1), (24, 2.0), (8, 0.02))]
+    q = torch.full((56, port_int8.padded_width(40)), 99, dtype=torch.int8)
+    s = torch.full((56,), float("nan"))
+    r = 0
+    for w in ws:
+        port_int8._launch_quantize(w, q[r:r + len(w)], s[r:r + len(w)])
+        r += len(w)
+    _assert_quantized_as_plain_and_jax(torch.cat(ws), q, s)
 
 
 GEMM_CASES = [
@@ -146,6 +190,11 @@ GATELOOP_CASES = [
     ("small", 2, 37, 5),
     ("two-blocks-unrolled-tail", 3, 21, 130),
     ("one-step", 2, 1, 7),
+    ("below-a-chunk", 2, 5, 40),
+    ("one-chunk", 2, 16, 40),
+    ("a-chunk-and-a-step", 2, 17, 40),
+    ("more-chunks-than-warps", 1, 300, 5),  # 19 chunks, 16 warps
+    ("five-segments", 1, 1100, 5),  # 69 chunks, 16 a segment
 ]
 
 

@@ -1,11 +1,13 @@
 """The port's GateLoop layers against the JAX package, on the CPU, fp32.
 
-- the operator: the plain walk (the kernel's plain version, the CPU path)
-  and the scan (JAX's ``associative_scan`` recursion in torch ops) against
-  ``gate_loop_operator`` and the float64 ``gate_loop_operator_ref``; the
-  scan is bit-equal to JAX's, the walk rounds in time order (seen: 1.5e-7
-  of the largest against JAX at L 37, 7.9e-8 at L 1,015, 1.7e-7 at the
-  regressor's B8 L265 D512; held at 1e-6); causal, as
+- the operator: the plain version (the kernel's chunked scan, the CPU
+  path) and the scan (JAX's ``associative_scan`` recursion in torch ops)
+  against ``gate_loop_operator`` and the float64 ``gate_loop_operator_ref``,
+  the plain version also at the regressor's B8 L265 and B1 L1015, width
+  512 (against JAX jitted); the scan is bit-equal to JAX's, the chunked
+  order rounds otherwise (seen: 1.5e-7 of
+  the largest against JAX at L 37, 7.9e-8 at L 1,015 D16, 1.7e-7 at B8
+  L265 D512, 1.3e-7 at B1 L1015 D512; held at 1e-6); causal, as
   ``tests/unit/test_gateloop_adaptive.py`` checks JAX's; the scan's
   gradient against ``jax.grad``;
 - ``SimpleGateLoop`` and ``Regressor(use_gateloop_layers=True)`` at
@@ -34,7 +36,7 @@ from test_torch_synthesis_train import flat
 # test_gateloop_adaptive.py's wiring configuration
 TINY = dict(dim=32, depth=2, heads=2, dim_head=8, dim_in_proj=8, dim_cond_emb=16,
             num_register_tokens=2, use_gateloop_layers=True)
-WALK_RTOL = 1e-6  # the walk against the scan, of the output's largest magnitude
+WALK_RTOL = 1e-6  # the chunked order against the scan, of the output's largest magnitude
 # The random-init regressor at the softmax scale of 10 amplifies rounding: at
 # TINY, JAX's own jitted output lies 1.6e-4 of the largest from its op-by-op
 # one (2.0e-4 without the gateloop layers), and the port's 1.6e-4 from the
@@ -56,13 +58,26 @@ def test_operator_matches_jax_and_the_float64_walk(B, L, D):
     ref = gate_loop_operator_ref(q, kv, a)
     tq, tkv, ta = map(torch.from_numpy, (q, kv, a))
     scan = port_gateloop.gate_loop_scan(tq, tkv, ta).numpy()
-    walk = port_gateloop.gate_loop_operator_plain(tq, tkv, ta).numpy()
+    plain = port_gateloop.gate_loop_operator_plain(tq, tkv, ta).numpy()
     np.testing.assert_array_equal(scan, want)
-    assert torch.equal(port_gateloop.gate_loop_operator(tq, tkv, ta), torch.from_numpy(walk))
+    assert torch.equal(port_gateloop.gate_loop_operator(tq, tkv, ta), torch.from_numpy(plain))
     scale = np.abs(ref).max()
-    for got in (scan, walk):
+    for got in (scan, plain):
         np.testing.assert_allclose(got, ref, rtol=0, atol=WALK_RTOL * scale)
-    np.testing.assert_allclose(walk, want, rtol=0, atol=WALK_RTOL * scale)
+    np.testing.assert_allclose(plain, want, rtol=0, atol=WALK_RTOL * scale)
+
+
+@pytest.mark.parametrize("B,L,D", [(8, 265, 512), (1, 1015, 512)])
+def test_plain_matches_jax_at_the_regressor_lengths(B, L, D):
+    """The chunked plain version (the CPU path) against JAX's scan, jitted
+    (op by op it takes seconds at this size), and the float64 walk."""
+    q, kv, a = _operands(B, L, D, seed=L)
+    want = np.asarray(jax.jit(gate_loop_operator)(*map(jnp.asarray, (q, kv, a))))
+    ref = gate_loop_operator_ref(q, kv, a)
+    got = port_gateloop.gate_loop_operator(*map(torch.from_numpy, (q, kv, a))).numpy()
+    scale = np.abs(ref).max()
+    np.testing.assert_allclose(got, want, rtol=0, atol=WALK_RTOL * scale)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=WALK_RTOL * scale)
 
 
 @pytest.mark.parametrize("form", ["walk", "scan"])

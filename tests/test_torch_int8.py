@@ -11,6 +11,10 @@ kernels themselves are held against those in ``test_torch_cuda_emu_int8.py``
   product (``tests/unit/test_int8.py``'s exact grid);
 - the q/k/v weights quantized row by row into one buffer equal the
   quantization of their concatenation;
+- the weights' cache (``QuantizedWeights``): quantized once, then again
+  only after ``load_state_dict``, an in-place ``copy_`` or ``.to(dtype)``,
+  each giving a fresh module's output bit for bit; ``state_dict`` keys
+  unchanged; a deep copy starts empty;
 - the encoder: ``int8_encoder`` (fp32 and bf16) against JAX's by per-frame
   cosine, ``fused_qkv`` at 1e-5; the int8 mode refuses autograd, train mode
   and the distillation trainer; ``serve_http --int8`` builds its config;
@@ -19,6 +23,7 @@ kernels themselves are held against those in ``test_torch_cuda_emu_int8.py``
   boundary F1 >= 0.995 (tolerance 0).
 """
 
+import copy
 import functools
 import json
 from pathlib import Path
@@ -140,6 +145,85 @@ def _hidden(kw, seed=3):
         got = port(torch.from_numpy(wav), torch.from_numpy(mask)).float().numpy()
     valid = port.cfg.feat_extract_output_length(np.array([8000, 5000]))
     return [(got[i, :t], want[i, :t]) for i, t in enumerate(valid)], port
+
+
+def _int8_port(sd):
+    port = port_hubert.HubertModel(port_hubert.HubertConfig(**SMALL, int8_encoder=True))
+    port.load_state_dict(sd)
+    return port.eval()
+
+
+def _run(port, wav):
+    with torch.no_grad():
+        return port(wav)
+
+
+@pytest.fixture
+def weight_quantizations(monkeypatch):
+    """The weight groups quantized since the fixture began (the cache's misses)."""
+    calls = []
+    real = port_int8.quantize_weights
+
+    def counted(weights):
+        calls.append(len(weights))
+        return real(weights)
+
+    monkeypatch.setattr(port_int8, "quantize_weights", counted)
+    return calls
+
+
+def test_weights_quantized_once_and_again_after_load_state_dict(weight_quantizations):
+    sd = state_dict_from_jax_params(_small_params())
+    sd2 = {k: v * 1.25 for k, v in sd.items()}
+    wav = torch.from_numpy(np.random.RandomState(7).randn(1, 4000).astype(np.float32))
+    port = _int8_port(sd)
+    first = _run(port, wav)
+    groups = 4 * SMALL["num_hidden_layers"]  # q/k/v, out, and the feed-forward pair a layer
+    assert len(weight_quantizations) == groups
+    assert torch.equal(_run(port, wav), first) and len(weight_quantizations) == groups
+    port.load_state_dict(sd2)
+    got = _run(port, wav)
+    assert len(weight_quantizations) == 2 * groups
+    assert torch.equal(got, _run(_int8_port(sd2), wav)) and not torch.equal(got, first)
+
+
+def test_weights_cache_sees_an_in_place_copy():
+    sd = state_dict_from_jax_params(_small_params())
+    wav = torch.from_numpy(np.random.RandomState(8).randn(1, 4000).astype(np.float32))
+    port = _int8_port(sd)
+    first = _run(port, wav)
+    names = ["layers.0.attention.k_proj.weight", "layers.1.intermediate_dense.weight"]
+    sd2 = dict(sd)
+    for name in names:
+        sd2[name] = sd[name].flip(0).contiguous()
+        with torch.no_grad():
+            port.get_parameter(name).copy_(sd2[name])
+    got = _run(port, wav)
+    assert torch.equal(got, _run(_int8_port(sd2), wav)) and not torch.equal(got, first)
+
+
+def test_weights_cache_after_to_dtype():
+    layer = torch.nn.Linear(40, 24)
+    cache = port_int8.QuantizedWeights()
+    q32, s32 = cache("w", [layer.weight])
+    assert cache("w", [layer.weight])[0] is q32  # unchanged: the same operand
+    layer.to(torch.bfloat16)
+    qb, sb = cache("w", [layer.weight])
+    want_q, want_s = port_int8.quantize_weights([layer.weight])
+    assert torch.equal(qb, want_q) and torch.equal(sb, want_s)
+    assert not torch.equal(qb, q32)
+
+
+def test_weights_cache_leaves_the_state_dict_and_copies_alone():
+    sd = state_dict_from_jax_params(_small_params())
+    wav = torch.from_numpy(np.random.RandomState(9).randn(1, 4000).astype(np.float32))
+    port = _int8_port(sd)
+    got = _run(port, wav)
+    plain = port_hubert.HubertModel(port_hubert.HubertConfig(**SMALL))
+    assert list(port.state_dict()) == list(plain.state_dict())
+    twin = copy.deepcopy(port)
+    assert not twin.layers[0]._int8_weights._entries
+    assert torch.equal(_run(twin, wav), got)
 
 
 @pytest.mark.parametrize("mode", ["float32", "bfloat16"])
