@@ -63,7 +63,10 @@ Phases, each of which fails the script when it fails:
    counter from 0 (conv0, small attention and both segmentation passes must
    launch), step time, audio seconds a second, MFU, peak memory, one step
    under ``set_sync_debug_mode("error")``, a profiled step and the step in
-   parts; one stage-2 step of ``mini_ckpt.npz`` on the card against the CPU;
+   parts; the bf16 run traces steps 3-5 (``train(profile_steps=(3, 5))``),
+   and its Chrome trace must name the port's kernels (its timed steps then
+   start at step 6); one stage-2 step of ``mini_ckpt.npz`` on the card
+   against the CPU;
    a run resumed from its step-3 checkpoint against an uninterrupted one;
    and ``remat`` against no remat with dropout on;
 7. the resynthesis chain (``SegmentSynthesis`` -> ``SparcDecoder``): both
@@ -133,7 +136,31 @@ Phases, each of which fails the script when it fails:
    with ``--int8``; ``resynthesize`` + ``decode_audio`` at full width on 8 x
    5 s with the gateloop layers off and on (RTFx, launches from 0, the
    GateLoop kernel required). ``--only-int8`` runs phases 1 and 9 alone
-   (``--out`` writes phase 9's report) and prints no result.
+   (``--out`` writes phase 9's report) and prints no result;
+10. the offline corpus path: both native libraries built by g++
+   (``build/native/``, the time printed); ``speechlike.flac`` through the
+   native, the pure-Python and (where found) the libsndfile decoder, equal
+   samples, ms of the host CPU per audio second each; a seeded corpus of 64
+   speechlike utterances of 2-20 s as 16-bit WAV (with libsndfile also as
+   FLAC, and ``speechlike.ogg``; without it ``speechlike.flac``), the files
+   each decoder read; ``python -m sylber_tpu_torch.segment_corpus`` at full
+   width (seeded random weights, bf16, batch 32): the load time apart, the
+   stats, the launches of each timed batch (conv0, attention and both
+   segmentation passes required), its segments equal to
+   ``Segmenter.process`` on the same arrays in the same batches,
+   ``--compare`` against its own output 1.0, against an fp32 "highest" run
+   printed (no gate); the runner with ``mini_ckpt.npz`` at its width in fp32
+   "highest", its segments equal to the CPU port's; ``python -m
+   sylber_tpu_torch.precompute_segments`` in the runner's batches, its files
+   equal to the runner's frame segments, and with ``--native`` equal to
+   them except where the oracle's decision margin is at most 1e-4 (counted);
+   ``mini_proof.evaluate`` of ``mini_ckpt.npz`` on the card beside the CPU
+   port's and the recorded eval (F1 against the truth within 0.005 of the
+   CPU's, fast against exact at least 0.995). ``--only-corpus`` runs phases
+   1 and 10 alone; ``--reproduce-distill`` phase 1 and ``mini_ckpt.json``'s
+   recipe through ``python -m sylber_tpu_torch.mini_proof`` (F1 against the
+   truth at least 0.88, fast against exact at least 0.995); neither prints a
+   result.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit
 (``nvidia-smi``), and as its last line
@@ -145,6 +172,8 @@ printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import subprocess
 import sys
@@ -1491,11 +1520,15 @@ def step_parts_ms(torch, state, batch, dcfg, seed=0):
     return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
 
 
-def training_run(torch, counters, label, recipe, out_dir, smi, steps=13, warm=3):
+def training_run(torch, counters, label, recipe, out_dir, smi, steps=13, warm=3,
+                 profile_steps=None):
     """``train()`` for ``steps`` steps (every launch counter from 0, metrics
     fetched every step), then on the state it returns: one step under
     ``set_sync_debug_mode("error")`` with its launches, one profiled step and
-    one step in parts."""
+    one step in parts. With ``profile_steps=(a, b)`` the run traces steps a
+    to b (0-based) into ``<out_dir>/profile/trace.json``, which must name the
+    port's kernels; the timed steps then start after b + 1 (the trace's
+    export lands in step b's time)."""
     from sylber_tpu_torch.train.distill import make_train_step
     from sylber_tpu_torch.train.loop import distill_config_from_dict, train, train_batches
     from sylber_tpu_torch.utils.profiling import hubert_train_flops, mfu
@@ -1505,10 +1538,28 @@ def training_run(torch, counters, label, recipe, out_dir, smi, steps=13, warm=3)
         fn.launches = 0
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    if profile_steps:
+        steps, warm = steps + profile_steps[1] + 1 - warm, profile_steps[1] + 1
     state = train(recipe, out_dir=str(out_dir), max_steps=steps, log_every=1, ckpt_every=0,
-                  device="cuda")
+                  device="cuda", profile_steps=profile_steps)
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in counters}
+    trace = None
+    if profile_steps:
+        path = Path(out_dir) / "profile" / "trace.json"
+        events = json.loads(path.read_text())["traceEvents"]
+        ours = sorted({e["name"][:60] for e in events
+                       if any(t in e.get("name", "") for t in ("sylber", "conv0_",
+                                                                 "segment_pass"))})
+        trace = dict(steps=list(profile_steps), path=str(path.relative_to(out_dir)),
+                     bytes=path.stat().st_size, events=len(events),
+                     kernel_events=sum(e.get("cat") == "kernel" for e in events),
+                     port_kernels=ours)
+        log(f"phase 6 {label}: train(profile_steps={tuple(profile_steps)}) wrote "
+            f"{trace['path']} ({trace['bytes'] / 1e6:.1f} MB, {trace['events']} events, "
+            f"{trace['kernel_events']} kernels); the port's kernels in it: {ours}")
+        if not ours:
+            raise AssertionError(f"{label}: the trace names none of the port's kernels")
     peak = torch.cuda.max_memory_allocated()
     rows = [json.loads(ln) for ln in open(Path(out_dir) / "metrics.jsonl")]
     rows = [r for r in rows if r["prefix"] == "train"]
@@ -1542,10 +1593,10 @@ def training_run(torch, counters, label, recipe, out_dir, smi, steps=13, warm=3)
                mfu=mfu(flops, p50 / 1e3, dt, dcfg.model.precision),
                peak=f"{dt} {dcfg.model.precision}", max_memory_allocated_gb=peak / 1e9,
                launches_over_run=launches, kernel_launches_per_step=per_step,
-               profile=prof, parts_ms=parts, losses=[r["loss"] for r in rows],
+               profile=prof, parts_ms=parts, trace=trace, losses=[r["loss"] for r in rows],
                num_segments=[r["num_segments"] for r in rows])
     log(f"phase 6 {label}: B{B} x {crop} samples, remat {rec['remat']}: step p50 "
-        f"{p50:.1f} ms (10 steps after 3 warm-up, min {min(step_ms):.1f}, max "
+        f"{p50:.1f} ms ({len(step_ms)} steps after {warm} untimed, min {min(step_ms):.1f}, max "
         f"{max(step_ms):.1f}), {rec['audio_s_per_s']:.0f} audio s/s "
         f"({rec['attended_audio_s_per_s']:.0f} attended), {flops / 1e12:.2f} TFLOP a step, "
         f"MFU {100 * rec['mfu']:.1f} % of the {rec['peak']} peak, max_memory_allocated "
@@ -1763,7 +1814,8 @@ def training_phase(torch, ops, counters, smi, tmp):
         raise AssertionError(f"kernels disagree with their plain versions at the trainer's "
                              f"shapes: {bad}")
     runs = [training_run(torch, counters, "bf16_default_B100",
-                         stage2_recipe("bfloat16", "default", 100), tmp / "bf16", smi),
+                         stage2_recipe("bfloat16", "default", 100), tmp / "bf16", smi,
+                         profile_steps=(3, 5)),
             training_run(torch, counters, f"fp32_highest_B{FP32_BATCH}",
                          stage2_recipe("float32", "highest", FP32_BATCH, FP32_REMAT),
                          tmp / "fp32", smi)]
@@ -3392,6 +3444,345 @@ def int8_kernel_entries(p9):
     return rows
 
 
+# ---------------------------------------------------------------- phase 10
+
+CORPUS_UTTS = 64             # the phase's corpus: seeded speechlike utterances ...
+CORPUS_SECONDS = (2.0, 20.0)  # ... of 2-20 s, as 16-bit WAV (and FLAC)
+# a native segment may differ from the device's only where the oracle's
+# smallest decision margin is at most this (tests/unit/test_native_segment.py)
+NEAR_TIE_MARGIN = 1e-4
+# mini_proof.evaluate on mini_ckpt.npz: boundary F1 against the truth within
+# this of the CPU port's, and the fast mode's F1 against the exact mode's
+EVAL_F1_TOL = 0.005
+FAST_EXACT_F1_GATE = 0.995
+
+
+def native_libraries():
+    """Build both native libraries with g++ from the port's sources (a
+    checkout holds none) and load them; the build time."""
+    from sylber_tpu_torch.utils import native
+
+    found = {n: native.library_path(n).exists() for n in ("segment", "flac")}
+    t0 = time.perf_counter()
+    paths = {n: native.build(n) for n in found}
+    native.load_library()
+    native.load_flac_library()
+    return dict(build_s=time.perf_counter() - t0, found_built=found,
+                libraries={n: str(p.relative_to(ROOT)) for n, p in paths.items()})
+
+
+def decoder_times():
+    """``speechlike.flac`` through the native decoder, the pure-Python one and
+    libsndfile (where found): the samples must be equal; ms of host CPU per
+    second of audio, each the mean of repeated decodes."""
+    from sylber_tpu_torch.utils import flac, native, sndfile
+
+    path = FIXTURES / "speechlike.flac"
+    data = path.read_bytes()
+    want = native.decode_flac_native(data)[0]
+    audio_s = want.shape[1] / 16000.0
+    decoders = {"native": (lambda: native.decode_flac_native(data)[0], 200),
+                "python": (lambda: flac.decode_flac(data)[0], 5)}
+    if sndfile.available():
+        decoders["libsndfile"] = (lambda: sndfile.read(path, dtype="int16")[0].astype(np.int32),
+                                  200)
+    out = {}
+    for name, (fn, reps) in decoders.items():
+        equal = bool(np.array_equal(fn(), want))
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        out[name] = dict(equal=equal, ms_per_audio_s=(time.perf_counter() - t0) / reps * 1e3
+                         / audio_s)
+    return out
+
+
+def write_corpus(d: Path, n: int, seconds, seed: int = 10):
+    """``n`` seeded speechlike utterances as 16-bit WAV (``w*.wav``); where
+    libsndfile is found, the same as FLAC through the port's writer
+    (``f*.flac``) and ``speechlike.ogg``, else ``speechlike.flac``."""
+    import shutil
+
+    from scipy.io import wavfile
+
+    from sylber_tpu_torch.utils import sndfile
+
+    rng = np.random.RandomState(seed)
+    pcms = []
+    for i in range(n):
+        w = speechlike(rng, int(rng.uniform(*seconds) * 16000))
+        pcms.append(np.round(w / np.abs(w).max() * 30000).astype(np.int16))
+        wavfile.write(d / f"w{i:02d}.wav", 16000, pcms[-1])
+    if sndfile.available():
+        for i, pcm in enumerate(pcms):
+            sndfile.write(d / f"f{i:02d}.flac", pcm, 16000)
+        shutil.copy(FIXTURES / "speechlike.ogg", d)
+    else:
+        shutil.copy(FIXTURES / "speechlike.flac", d)
+
+
+class DecoderCounts:
+    """Count the files each decoder reads inside the block (the runner's
+    loading): libsndfile, the native FLAC decoder, the pure-Python one, and
+    scipy's WAV reader."""
+
+    def __enter__(self):
+        from scipy.io import wavfile
+
+        from sylber_tpu_torch.utils import flac, native, sndfile
+
+        self.counts = dict(libsndfile=0, native_flac=0, python_flac=0, wav=0)
+        self.saved = [(sndfile, "read", "libsndfile"), (native, "decode_flac_native",
+                                                         "native_flac"),
+                      (flac, "decode_flac", "python_flac"), (wavfile, "read", "wav")]
+        for module, attr, key in self.saved:
+            fn = getattr(module, attr)
+            setattr(module, attr, self._counted(fn, key))
+            setattr(self, f"_{key}", fn)
+        return self.counts
+
+    def _counted(self, fn, key):
+        def counted(*a, **k):
+            self.counts[key] += 1
+            return fn(*a, **k)
+        return counted
+
+    def __exit__(self, *exc):
+        for module, attr, key in self.saved:
+            setattr(module, attr, getattr(self, f"_{key}"))
+        return False
+
+
+def run_corpus(torch, argv, counters=None):
+    """``segment_corpus.main(argv)``, its stdout lines echoed; with
+    ``counters``, the launches of each timed batch (from 0, by kernel)."""
+    from sylber_tpu_torch import segment_corpus
+
+    batches = []
+
+    @contextlib.contextmanager
+    def hook(bi):
+        before = {fn.__name__: fn.launches for fn in counters}
+        yield
+        batches.append({fn.__name__: fn.launches - before[fn.__name__] for fn in counters})
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = segment_corpus.main(argv, batch_hook=hook if counters else None)
+    for line in buf.getvalue().splitlines():
+        log(f"  segment_corpus: {line}")
+    out["batch_launches"] = batches
+    return out
+
+
+def frames_of(seconds: np.ndarray) -> np.ndarray:
+    return np.round(np.asarray(seconds) * 50.0).astype(np.int64)
+
+
+def corpus_phase(torch, counters, smi, device="cuda", n_utts=CORPUS_UTTS,
+                 seconds=CORPUS_SECONDS, widths_json=None):
+    """Phase 10: the offline corpus path on the card, through its entry
+    points (``segment_corpus``, ``precompute_segments``, ``mini_proof``).
+    ``widths_json`` (a rehearsal on the CPU at a small width) replaces HuBERT
+    base in the full-width runs. Any failed check raises."""
+    from sylber_tpu_torch import Segmenter, mini_proof, precompute_segments, segment_corpus
+    from sylber_tpu_torch.io.checkpoint import load_params_npz
+    from sylber_tpu_torch.ops.segment_np import segment_oracle
+    from sylber_tpu_torch.utils import native, sndfile
+
+    on_card = device == "cuda"
+    rep = dict(device=device, card=smi if on_card else None)
+    rep["native"] = native_libraries()
+    log(f"phase 10: native libraries {rep['native']['libraries']} built by g++ in "
+        f"{rep['native']['build_s']:.2f} s (already built: {rep['native']['found_built']})")
+    rep["decoders"] = decoder_times()
+    log("phase 10: speechlike.flac (0.5 s) decoded on the card machine's host CPU, one core: "
+        + ", ".join(f"{k} {v['ms_per_audio_s']:.3f} ms per audio second (samples equal "
+                    f"{v['equal']})" for k, v in rep["decoders"].items()))
+    if not all(v["equal"] for v in rep["decoders"].values()):
+        raise AssertionError(f"phase 10: the FLAC decoders disagree: {rep['decoders']}")
+
+    for fn in counters:
+        fn.launches = 0
+    meta = json.loads((FIXTURES / "mini_ckpt.json").read_text())
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_corpus_") as tmp:
+        tmp = Path(tmp)
+        corpus = tmp / "corpus"
+        corpus.mkdir()
+        write_corpus(corpus, n_utts, seconds)
+        width = ["--model-config", widths_json] if widths_json else []
+        dev = ["--device", device]
+
+        # the runner at full width, bf16 fast mode, batch 32, launches counted a batch
+        with DecoderCounts() as read_by:
+            bf16 = run_corpus(torch, ["--audio-dir", str(corpus), "--out", str(tmp / "bf16.npz"),
+                                      "--batch-size", "32", *width, *dev],
+                              counters if on_card else None)
+        rep["files_read_by"] = dict(read_by)
+        names = sorted(bf16["results"])
+        log(f"phase 10: {len(names)} files read by: {rep['files_read_by']} (libsndfile "
+            f"{'found' if sndfile.available() else 'not found'})")
+        rep["runner_bf16"] = dict(stats=bf16["stats"], load_s=bf16["load_seconds"],
+                                  batch_walls=bf16["batch_walls"],
+                                  batch_launches=bf16["batch_launches"])
+        log(f"phase 10 segment_corpus bf16 full width: load {bf16['load_seconds']:.3f} s "
+            f"outside the timed window; stats {json.dumps(bf16['stats'])}  [{smi}]")
+        if on_card:
+            log(f"phase 10: launches of each timed batch: {bf16['batch_launches']}")
+            for b in bf16["batch_launches"]:
+                missing = [k for k in ("conv0_gn_gelu", "segment_pass1", "segment_pass2")
+                           if b[k] == 0]
+                if missing or b["small_attention"] + b["flash_attention"] == 0:
+                    raise AssertionError(f"phase 10: a timed batch launched {b}")
+
+        # the same loaded arrays through Segmenter.process, in the runner's batches
+        files, fnames = segment_corpus.find_audio(str(corpus))
+        wavs = segment_corpus.load_corpus(files)
+        widths = segment_corpus.model_widths(widths_json)
+        seg = Segmenter(hubert_config=segment_corpus.segmenter_config(widths=widths),
+                        length_bucket_s=4.0, device=device)
+        direct, hidden = {}, {}
+        for idx in segment_corpus.plan_batches(wavs, 32):
+            for j, o in zip(idx, seg.process([wavs[j] for j in idx], in_second=False)):
+                direct[fnames[j]], hidden[fnames[j]] = o["segments"], o["hidden_states"]
+        del seg
+        differ = [k for k in names if not np.array_equal(bf16["results"][k], direct[k] / 50.0)]
+        log(f"phase 10: runner segments against Segmenter.process on the same arrays: "
+            f"{len(names) - len(differ)} of {len(names)} equal")
+        if differ:
+            raise AssertionError(f"phase 10: the runner differs from process() on {differ[:5]}")
+
+        again = run_corpus(torch, ["--audio-dir", str(corpus), "--out", str(tmp / "again.npz"),
+                                   "--batch-size", "32", "--compare", str(tmp / "bf16.npz"),
+                                   *width, *dev])
+        fp32 = run_corpus(torch, ["--audio-dir", str(corpus), "--out", str(tmp / "fp32.npz"),
+                                  "--batch-size", "32", "--dtype", "float32", "--precision",
+                                  "highest", "--compare", str(tmp / "bf16.npz"), *width, *dev])
+        rep["runner_bf16_again"] = dict(stats=again["stats"], compare=again["compare"])
+        rep["runner_fp32"] = dict(stats=fp32["stats"], compare=fp32["compare"])
+        log(f"phase 10 segment_corpus bf16 again, --compare its first output: "
+            f"{again['compare']}; stats {json.dumps(again['stats'])}  [{smi}]")
+        log(f"phase 10 segment_corpus fp32 highest, --compare the bf16 output (random weights, "
+            f"no gate): {fp32['compare']}; stats {json.dumps(fp32['stats'])}  [{smi}]")
+        if again["compare"]["boundary_f1_vs_compare"] != 1.0:
+            raise AssertionError(f"phase 10: --compare against itself: {again['compare']}")
+
+        # the trained fixture at its width, fp32 exact: the card against the CPU
+        fixture = ["--audio-dir", str(corpus), "--ckpt", str(FIXTURES / "mini_ckpt.npz"),
+                   "--model-config", str(FIXTURES / "mini_ckpt.json"),
+                   "--norm-threshold", str(meta["norm_threshold"]),
+                   "--merge-threshold", str(meta["merge_threshold"]),
+                   "--dtype", "float32", "--precision", "highest"]
+        fx = run_corpus(torch, [*fixture, "--out", str(tmp / "fx.npz"), *dev])
+        t0 = time.perf_counter()
+        fx_cpu = run_corpus(torch, [*fixture, "--out", str(tmp / "fx_cpu.npz"), "--device",
+                                    "cpu", "--no-warmup"])
+        cpu_s = time.perf_counter() - t0
+        same = [k for k in names if fx["results"][k].tolist() == fx_cpu["results"][k].tolist()]
+        rep["runner_fixture"] = dict(stats=fx["stats"], cpu_stats=fx_cpu["stats"],
+                                     equal_to_cpu=len(same), files=len(names),
+                                     segments=int(sum(len(v) for v in fx["results"].values())))
+        log(f"phase 10 segment_corpus mini_ckpt.npz fp32 highest: {len(same)} of {len(names)} "
+            f"files' segments equal to the CPU port's ({rep['runner_fixture']['segments']} "
+            f"segments; the CPU run took {cpu_s:.1f} s); stats {json.dumps(fx['stats'])}  "
+            f"[{smi}]")
+        if len(same) != len(names):
+            raise AssertionError("phase 10: the fixture runner's segments differ from the CPU's")
+
+        # stage-1 segment files, in the runner's batches and buckets: on the device and --native
+        order = [Path(fnames[j]).stem for idx in segment_corpus.plan_batches(wavs, 32)
+                 for j in idx]
+        (tmp / "tags.txt").write_text("\n".join(order) + "\n")
+        pre = ["--manifest", str(tmp / "tags.txt"), "--wav-dir", str(corpus),
+               "--batch-size", "32", "--dtype", "bfloat16", "--precision", "default",
+               "--length-bucket-s", "4", *width, *dev]
+        with contextlib.redirect_stdout(io.StringIO()):
+            precompute_segments.main([*pre, "--out-dir", str(tmp / "dev")])
+            t0 = time.perf_counter()
+            precompute_segments.main([*pre, "--out-dir", str(tmp / "native"), "--native"])
+            native_s = time.perf_counter() - t0
+        stem = {Path(k).stem: k for k in names}
+        dev_equal, ties, far = 0, [], []
+        for tag in order:
+            d_seg = np.load(tmp / "dev" / f"{tag}.npy")
+            n_seg = np.load(tmp / "native" / f"{tag}.npy")
+            dev_equal += d_seg.tolist() == frames_of(bf16["results"][stem[tag]]).tolist()
+            if n_seg.tolist() != d_seg.tolist():
+                _, margin = segment_oracle(hidden[stem[tag]], 2.6, 0.8, return_margin=True)
+                (ties if margin <= NEAR_TIE_MARGIN else far).append((tag, margin))
+        rep["precompute"] = dict(files=len(order), device_equal_runner=dev_equal,
+                                 native_near_tie_differences=len(ties),
+                                 native_far_differences=far, native_run_s=native_s)
+        log(f"phase 10 precompute_segments: {dev_equal} of {len(order)} device .npy files equal "
+            f"to the runner's frame segments; --native ({native_s:.1f} s) differs from the "
+            f"device on {len(ties)} utterance(s) with a decision within {NEAR_TIE_MARGIN} of "
+            f"its threshold, and on {len(far)} beyond it")
+        if dev_equal != len(order) or far:
+            raise AssertionError(f"phase 10 precompute_segments: {rep['precompute']}")
+
+    # the held-out evaluation of mini_ckpt.npz: the card beside the CPU port and the record
+    params = load_params_npz(str(FIXTURES / "mini_ckpt.npz"))
+    hub = mini_proof.hubert_config(meta["hubert"])
+    ev = mini_proof.evaluate(params, hub, meta["norm_threshold"], device=device)
+    ev_cpu = mini_proof.evaluate(params, hub, meta["norm_threshold"], device="cpu")
+    rep["evaluate"] = dict(card=ev, cpu=ev_cpu, recorded=meta["eval"])
+    for k in ev:
+        log(f"phase 10 mini_proof.evaluate(mini_ckpt.npz) {k}: {device} {ev[k]:.6g}, CPU "
+            f"{ev_cpu[k]:.6g}, recorded {meta['eval'][k]:.6g}")
+    gap = abs(ev["boundary_f1_vs_truth_tol1"] - ev_cpu["boundary_f1_vs_truth_tol1"])
+    if gap > EVAL_F1_TOL or ev["fast_vs_exact_boundary_f1_tol0"] < FAST_EXACT_F1_GATE:
+        raise AssertionError(f"phase 10 evaluate: F1 gap {gap} (tol {EVAL_F1_TOL}), fast vs "
+                             f"exact {ev['fast_vs_exact_boundary_f1_tol0']}")
+    rep["launches"] = {fn.__name__: fn.launches for fn in counters}
+    return rep
+
+
+# the gates of --reproduce-distill, set before its first run: JAX's recorded
+# boundary F1 against the truth (0.9187) less 0.04, since the port's draws
+# differ from JAX's by design (ROADMAP.md record (n)); and the fast mode's gate
+REPRODUCE_F1_GATE = 0.88
+
+
+def reproduce_distill(torch, smi, out_dir="runs/mini_proof_torch"):
+    """``mini_ckpt.json``'s recipe trained on the card by the port
+    (``python -m sylber_tpu_torch.mini_proof``: stage 1 4,000 steps, stage 2
+    1,500, B32, 384 utterances), its eval beside the recorded one."""
+    from sylber_tpu_torch import mini_proof
+
+    meta = json.loads((FIXTURES / "mini_ckpt.json").read_text())
+    rec = meta["train"]
+    t0 = time.perf_counter()
+    out = mini_proof.main(["--out-dir", out_dir, "--stage1-steps", str(rec["stage1_steps"]),
+                           "--stage2-steps", str(rec["stage2_steps"]),
+                           "--batch-size", str(rec["batch_size"]), "--n-utts",
+                           str(rec["n_utts"]), "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    steps = {}
+    for stage in ("stage1", "stage2"):
+        rows = [json.loads(ln) for ln in open(Path(out_dir) / stage / "metrics.jsonl")]
+        rates = [r["steps_per_sec"] for r in rows if r["prefix"] == "train"][1:]
+        steps[stage] = dict(step_ms_p50=1e3 / float(np.median(rates)),
+                            wall_s=out["timing"][f"{stage}_s"], logged_windows=len(rates),
+                            loss_first=rows[0]["loss"], loss_last=rows[-1]["loss"])
+    ev, want = out["eval"], meta["eval"]
+    for stage, r in steps.items():
+        log(f"reproduce-distill {stage}: step p50 {r['step_ms_p50']:.2f} ms (windows of 100 "
+            f"steps after the first), wall {r['wall_s']:.1f} s, loss {r['loss_first']:.4g} -> "
+            f"{r['loss_last']:.4g}  [{smi}]")
+    log(f"reproduce-distill: wall {wall:.1f} s (eval {out['timing']['eval_s']:.1f} s); learned "
+        f"norm threshold {out['norm_threshold']:.4f} (recorded {meta['norm_threshold']:.4f})")
+    for k in ev:
+        log(f"reproduce-distill eval {k}: {ev[k]:.6g} (recorded {want[k]:.6g})")
+    ok = (ev["boundary_f1_vs_truth_tol1"] >= REPRODUCE_F1_GATE
+          and ev["fast_vs_exact_boundary_f1_tol0"] >= FAST_EXACT_F1_GATE)
+    log(json.dumps(dict(reproduce_distill=ev, recorded=want, steps=steps, wall_s=wall,
+                        norm_threshold=out["norm_threshold"], ok=ok)))
+    if not ok:
+        raise AssertionError(f"the reproduced distillation misses its gates (F1 vs truth >= "
+                             f"{REPRODUCE_F1_GATE}, fast vs exact >= {FAST_EXACT_F1_GATE}): {ev}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the full report as JSON to this path")
@@ -3403,6 +3794,13 @@ def main() -> int:
     ap.add_argument("--only-int8", action="store_true",
                     help="build the kernels and run phase 9 alone (the int8 serving path and "
                          "the gateloop regressor); prints no result line")
+    ap.add_argument("--only-corpus", action="store_true",
+                    help="build the kernels and run phase 10 alone (the offline corpus "
+                         "path); prints no result line")
+    ap.add_argument("--reproduce-distill", action="store_true",
+                    help="build the kernels, then train mini_ckpt.json's recipe with "
+                         "python -m sylber_tpu_torch.mini_proof (into runs/mini_proof_torch) "
+                         "and evaluate it against the recorded eval; prints no result line")
     ap.add_argument("--reproduce-synthesis", action="store_true",
                     help="build the kernels, then train configs/sylber_resynthesis_mini.yaml "
                          "(6,000 steps) on the card and evaluate it with 50 ODE steps against "
@@ -3441,6 +3839,16 @@ def main() -> int:
         return 0
     if args.reproduce_synthesis:
         reproduce_synthesis(torch, smi)
+        return 0
+    if args.only_corpus:
+        p10 = corpus_phase(torch, counters, smi)
+        log(f"phase 10: launches over the corpus path: {p10['launches']}  [{smi}]")
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(dict(card=smi, corpus=p10), indent=1))
+        return 0
+    if args.reproduce_distill:
+        reproduce_distill(torch, smi)
         return 0
     if args.only_int8:
         p9 = int8_phase(torch, ops, counters, smi)
@@ -3541,6 +3949,12 @@ def main() -> int:
     int8 = int8_phase(torch, ops, counters, smi)
     log(f"phase 9 took {time.perf_counter() - t9:.1f} s  [{smi}]")
 
+    t10 = time.perf_counter()
+    corpus = corpus_phase(torch, counters, smi)
+    log(f"phase 10: launches over the corpus path: {corpus['launches']}; phase 10 took "
+        f"{time.perf_counter() - t10:.1f} s  [{smi}]")
+    launches = {k: v + corpus["launches"][k] for k, v in launches.items()}
+
     sources = {"conv0_gn_gelu": ("frontend.cu", "sylber_tpu/ops/pallas/frontend.py:122"),
                "small_attention": ("smallattn.cu", "sylber_tpu/ops/pallas/smallattn.py:78"),
                "flash_attention": ("flash.cu", "sylber_tpu/ops/pallas/flash.py:125"),
@@ -3603,6 +4017,7 @@ def main() -> int:
     for name, entry in entries.items():
         entry["resynthesis_launches"] = resynthesis["launches"][name]
         entry["synthesis_training_launches"] = synthesis_training["launches"][name]
+        entry["corpus_launches"] = corpus["launches"][name]
     # the seeding kernel (phase 8): its main path is fit_kmeans; the headline
     # shape is the production seed pool's width at 2,000 centers
     seeding = synthesis_training["kmeanspp"]
@@ -3639,7 +4054,7 @@ def main() -> int:
                                                   training=training,
                                                   resynthesis=resynthesis,
                                                   synthesis_training=synthesis_training,
-                                                  int8=int8),
+                                                  int8=int8, corpus=corpus),
                                              indent=1))
     log(json.dumps({"kernels": line}))
     log(smi)

@@ -7,8 +7,9 @@ it), or from files, assembled on the host (``data.num_workers`` worker
 processes) and copied ahead of use through pinned memory on a side stream;
 metrics fetched every ``log_every`` steps into ``metrics.jsonl``; rolling
 checkpoints every ``ckpt_every`` steps with resume (``resumed from step
-N``); the final student parameters as ``params_final.npz`` in the JAX
-layout.
+N``); a Chrome trace of steps ``a`` to ``b`` with ``profile_steps=(a, b)``
+(``<out_dir>/profile/trace.json``); the final student parameters as
+``params_final.npz`` in the JAX layout.
 
 Differences from the JAX loop: the device mesh (dp, mp, fsdp), multi-host
 runs, ``steps_per_dispatch`` and ``rng_impl`` are not ported (``rng_impl``
@@ -19,10 +20,11 @@ sees (the JAX loop reseeds the data with ``seed + 1_000_003 * start``).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
-from typing import Any, Dict, Iterator, Optional
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -33,7 +35,7 @@ from ..data.device import device_stream, precollate, to_device, wait_ready
 from ..data.noise import NoiseMixerConfig
 from ..io.checkpoint import TrainCheckpointManager, save_params_npz
 from ..models.hubert import HubertConfig
-from ..utils.profiling import hubert_train_flops, mfu
+from ..utils.profiling import hubert_train_flops, mfu, trace
 from .distill import DistillConfig, TrainState, init_train_state, make_eval_step, make_train_step
 
 
@@ -144,10 +146,12 @@ def _val_batches(data_cfg: Dict[str, Any], batch_size: int, seed: int, device: t
 def train(cfg: Dict[str, Any], out_dir: str = "runs/sylber", max_steps: Optional[int] = None,
           log_every: int = 50, ckpt_every: int = 1000, val_every: Optional[int] = None,
           limit_val_batches: int = 100, init_params: Optional[Dict[str, torch.Tensor]] = None,
-          device=None) -> TrainState:
+          device=None, profile_steps: Optional[Tuple[int, int]] = None) -> TrainState:
     """Train from the recipe dict ``cfg`` (the JAX loop's keys) on ``device``
     (``cuda`` unless the caller asks for the CPU; raises without a GPU).
-    ``init_params``: a HubertModel state dict for the student and teacher."""
+    ``init_params``: a HubertModel state dict for the student and teacher.
+    ``profile_steps=(a, b)``: trace steps ``a`` to ``b`` (0-based, both
+    included) into ``<out_dir>/profile``."""
     device = resolve_device(device)
     model_cfg = dict(cfg.get("model", {}))
     if "accumulate_grad_batches" in cfg:
@@ -188,24 +192,29 @@ def train(cfg: Dict[str, Any], out_dir: str = "runs/sylber", max_steps: Optional
 
     t_last, s_last = time.perf_counter(), start
     val_batches = None
-    for step_i in range(start, max_steps):
-        batch = next(stream)
-        metrics = step_fn(state, batch, seed)
-        s_end = step_i + 1
-        if s_end % log_every == 0:
-            log_row(s_end, metrics, batch["input_values"].shape[-1])
-        if ckpt_every and step_i // ckpt_every != s_end // ckpt_every:
-            mgr.save(s_end, dict(state.state_dict(), data_seed=seed))
-        if val_every and step_i // val_every != s_end // val_every:
-            if val_batches is None:  # built once, kept on the device
-                val_batches = _val_batches(data_cfg, batch_size, seed + 1, device,
-                                           limit_val_batches)
-            losses = [eval_fn(state, vb, seed + 1 + i)["loss"]
-                      for i, vb in enumerate(val_batches)]
-            if losses:
-                loss = float(torch.stack(losses).mean())
-                logger.log(s_end, {"loss": loss}, prefix="val")
-                print(f"  val loss: {loss:.4f}")
+    with contextlib.ExitStack() as tracer:  # closed after step b, or on an error
+        for step_i in range(start, max_steps):
+            if profile_steps and step_i == profile_steps[0]:
+                tracer.enter_context(trace(os.path.join(out_dir, "profile")))
+            batch = next(stream)
+            metrics = step_fn(state, batch, seed)
+            if profile_steps and step_i == profile_steps[1]:
+                tracer.close()
+            s_end = step_i + 1
+            if s_end % log_every == 0:
+                log_row(s_end, metrics, batch["input_values"].shape[-1])
+            if ckpt_every and step_i // ckpt_every != s_end // ckpt_every:
+                mgr.save(s_end, dict(state.state_dict(), data_seed=seed))
+            if val_every and step_i // val_every != s_end // val_every:
+                if val_batches is None:  # built once, kept on the device
+                    val_batches = _val_batches(data_cfg, batch_size, seed + 1, device,
+                                               limit_val_batches)
+                losses = [eval_fn(state, vb, seed + 1 + i)["loss"]
+                          for i, vb in enumerate(val_batches)]
+                if losses:
+                    loss = float(torch.stack(losses).mean())
+                    logger.log(s_end, {"loss": loss}, prefix="val")
+                    print(f"  val loss: {loss:.4f}")
 
     save_params_npz(os.path.join(out_dir, "params_final.npz"), state.student.state_dict())
     return state

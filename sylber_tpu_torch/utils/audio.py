@@ -1,10 +1,15 @@
-"""Audio loading: WAV and FLAC read, resample to 16 kHz, normalise.
+"""Audio loading: WAV, FLAC and OGG read, resample to 16 kHz, normalise.
 
-Port of ``sylber_tpu/utils/audio.py``. The container is told by its magic
-bytes: RIFF WAV through ``scipy.io.wavfile``, FLAC through the port's own
-pure-Python decoder (``utils/flac.py``). OGG/Vorbis and anything else
-raise ValueError: the JAX package reads them through libsndfile, which the
-port does not use yet (see ROADMAP.md).
+Port of ``sylber_tpu/utils/audio.py``, with its order of decoders. The
+container is told by its magic bytes, not the extension:
+
+- RIFF WAV -> ``scipy.io.wavfile``;
+- FLAC (LibriSpeech's format) -> libsndfile when it is found (libFLAC,
+  the fastest), else the port's native C++ decoder (``native/flac.cc``,
+  built by g++ at first use), else the pure-Python one (``utils/flac.py``);
+  all three give the same samples;
+- OGG/Vorbis and anything else -> libsndfile (vendored copies are found,
+  see ``utils/sndfile.py``), else ``ValueError``.
 """
 
 from __future__ import annotations
@@ -19,28 +24,42 @@ TARGET_SR = 16000
 
 
 def _load_flac(path: str | Path) -> Tuple[np.ndarray, int]:
-    from .flac import FlacError, decode_flac
+    from . import sndfile
 
+    if sndfile.available():
+        return sndfile.read(path, dtype="float32")
     with open(path, "rb") as f:
         data = f.read()
     try:
-        pcm, sr, bps = decode_flac(data)
-    except FlacError as e:
-        raise FlacError(f"{path}: {e}") from e
+        from .native import NativeUnavailable, decode_flac_native
+
+        pcm, sr, bps = decode_flac_native(data)
+    except (NativeUnavailable, ValueError):
+        from .flac import FlacError, decode_flac
+
+        try:
+            pcm, sr, bps = decode_flac(data)
+        except FlacError as e:
+            raise FlacError(f"{path}: {e}") from e
     return pcm.astype(np.float32) / float(1 << (bps - 1)), sr
 
 
 def load_wav(path: str | Path) -> Tuple[np.ndarray, int]:
-    """Read a WAV or FLAC file -> (float32 (C, L) in [-1, 1], sample_rate)."""
+    """Read an audio file -> (float32 (C, L) in [-1, 1], sample_rate): WAV,
+    FLAC, and through libsndfile OGG/Vorbis and its other formats."""
     with open(path, "rb") as f:
         magic = f.read(4)
     if magic == b"fLaC":
         return _load_flac(path)
     if magic != b"RIFF":
-        kind = "OGG" if magic == b"OggS" else f"container {magic!r}"
-        raise ValueError(f"{path}: {kind} is not supported by sylber_tpu_torch: it "
-                         "decodes WAV and FLAC; OGG/Vorbis needs libsndfile, which "
-                         "the port does not use yet")
+        from . import sndfile
+
+        try:
+            return sndfile.read(path, dtype="float32")
+        except sndfile.SndfileUnavailable as e:
+            kind = "OGG" if magic == b"OggS" else f"container {magic!r}"
+            raise ValueError(f"{path}: {kind} is read only through libsndfile, which "
+                             f"failed ({e}); the built-in decoders cover WAV and FLAC") from e
     from scipy.io import wavfile
 
     sr, data = wavfile.read(str(path))

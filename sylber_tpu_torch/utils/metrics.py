@@ -1,6 +1,9 @@
-"""Agreement metrics: between two segmentations, and of resynthesized pitch."""
+"""Agreement metrics: between two segmentations, the token rate, and the
+fidelity of resynthesized pitch (port of ``sylber_tpu/utils/metrics.py``)."""
 
 from __future__ import annotations
+
+from typing import Sequence
 
 import numpy as np
 
@@ -17,6 +20,34 @@ def boundary_f1(pred: np.ndarray, ref: np.ndarray, tol_frames: int = 1) -> float
     precision = float((gap.min(axis=1) <= tol_frames).mean())
     recall = float((gap.min(axis=0) <= tol_frames).mean())
     return 2 * precision * recall / max(precision + recall, 1e-9)
+
+
+def segment_f1(pred: np.ndarray, ref: np.ndarray, tol_frames: int = 1) -> float:
+    """F1 over whole segments: a predicted [s, e) matches the first unused
+    reference segment whose edges both lie within ``tol_frames``."""
+    pred = np.asarray(pred, np.int64).reshape(-1, 2)
+    ref = np.asarray(ref, np.int64).reshape(-1, 2)
+    if len(pred) == 0 or len(ref) == 0:
+        return float(len(pred) == len(ref))
+    hit = 0
+    used = np.zeros(len(ref), bool)
+    for s, e in pred:
+        d = np.abs(ref - [s, e]).max(axis=1)
+        d[used] = tol_frames + 1
+        j = int(np.argmin(d))
+        if d[j] <= tol_frames:
+            hit += 1
+            used[j] = True
+    precision, recall = hit / len(pred), hit / len(ref)
+    return float(2 * precision * recall / max(precision + recall, 1e-9))
+
+
+def token_rate(segments_per_utt: Sequence[np.ndarray],
+               seconds_per_utt: Sequence[float]) -> float:
+    """Syllabic tokens per second of audio over a corpus (the reference
+    reports 4.27 on LibriSpeech)."""
+    total_tokens = sum(len(s) for s in segments_per_utt)
+    return total_tokens / max(float(sum(seconds_per_utt)), 1e-9)
 
 
 def pearson(a: np.ndarray, b: np.ndarray) -> float:

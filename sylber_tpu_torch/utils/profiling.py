@@ -1,14 +1,21 @@
-"""FLOPs of a distillation step and model FLOP utilisation on an H100.
+"""FLOPs of a distillation step, model FLOP utilisation on an H100, traces.
 
 Port of ``sylber_tpu/utils/profiling.py``. ``hubert_train_flops`` counts the
 conv frontend and the transformer matmuls of one step (teacher forward
 once, student forward and backward three times). ``mfu`` divides the rate
 by the H100's dense peak for the step's arithmetic: NVIDIA's H100 SXM data
 sheet figures, 989 TFLOP/s bf16 on the tensor cores, 495 TF32 and 67 fp32
-outside the tensor cores.
+outside the tensor cores. ``trace`` records a block with ``torch.profiler``
+into a Chrome trace.
 """
 
 from __future__ import annotations
+
+import contextlib
+import os
+from typing import Iterator
+
+import torch
 
 # H100 SXM data sheet, dense, at the 700 W power limit
 H100_PEAK_FLOPS = {"bfloat16": 989e12, "tf32": 495e12, "float32": 67e12}
@@ -47,3 +54,24 @@ def peak_flops(dtype: str, precision: str = "highest") -> float:
 def mfu(step_flops: float, step_time_s: float, dtype: str,
         precision: str = "highest") -> float:
     return step_flops / max(step_time_s, 1e-9) / peak_flops(dtype, precision)
+
+
+@contextlib.contextmanager
+def trace(log_dir: str) -> Iterator[None]:
+    """Profile the block with ``torch.profiler`` (the host's operators, and
+    the device's kernels and copies where a GPU is present) and write it as
+    a Chrome trace to ``<log_dir>/trace.json`` (open it in Perfetto or
+    ``chrome://tracing``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        try:
+            yield
+        finally:
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()  # the block's kernels end inside the trace
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

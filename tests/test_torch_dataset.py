@@ -172,6 +172,13 @@ def test_flac_fixture_decodes_to_the_wav_samples():
         assert np.array_equal(a, b)
 
 
-def test_ogg_raises_and_names_what_is_missing():
+def test_ogg_raises_and_names_what_is_missing(monkeypatch):
+    """OGG decodes only through libsndfile: with the probe finding none, the
+    error names OGG and libsndfile."""
+    from sylber_tpu_torch.utils import sndfile
+
+    monkeypatch.setattr(sndfile, "_candidate_paths", lambda: iter(()))
+    monkeypatch.setattr(sndfile, "_LIB", None)
+    monkeypatch.setattr(sndfile, "_SEARCHED", False)
     with pytest.raises(ValueError, match="OGG.*libsndfile"):
         load_wav(FIXTURES / "speechlike.ogg")

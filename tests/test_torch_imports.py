@@ -3,7 +3,8 @@
 A fresh interpreter imports every module of ``sylber_tpu_torch`` (walked
 with ``pkgutil``) and checks ``sys.modules``; then, with no GPU, the entry
 points (the resynthesis chain's and its trainers', ``fit_kmeans`` and
-``Sylber`` included) refuse to run unless the caller asks for the CPU.
+``Sylber`` included, and the corpus path's runners and ``mini_proof``)
+refuse to run unless the caller asks for the CPU.
 """
 
 import subprocess
@@ -43,6 +44,7 @@ from sylber_tpu_torch.train.synthesis_loop import train_synthesis
 from sylber_tpu_torch.train.vq_synthesis import train_vq_synthesis
 from sylber_tpu_torch.train_synthesis import main as train_synthesis_cli
 from sylber_tpu_torch.vocoder import VocoderTrainConfig, make_vocoder_train_step
+from sylber_tpu_torch import mini_proof, precompute_segments, segment_corpus
 for make in (lambda: LongFormSegmenter(Segmenter()), lambda: KMQuantizer([[0.0, 1.0]]),
              lambda: train({"data": {"synthetic": True}}, out_dir="/nonexistent"),
              lambda: train_cli(["--config", "/nonexistent.yaml"]),
@@ -52,7 +54,13 @@ for make in (lambda: LongFormSegmenter(Segmenter()), lambda: KMQuantizer([[0.0, 
              lambda: train_synthesis({}, out_dir="/nonexistent"),
              lambda: train_vq_synthesis({"speech_model_ckpt": "x"}, out_dir="/nonexistent"),
              lambda: train_synthesis_cli(["--config", "/nonexistent.yaml"]),
-             lambda: make_vocoder_train_step(VocoderTrainConfig())[0]()):
+             lambda: make_vocoder_train_step(VocoderTrainConfig())[0](),
+             lambda: segment_corpus.main(["--audio-dir", "/nonexistent", "--out", "/nonexistent"]),
+             lambda: precompute_segments.main(["--manifest", "/nonexistent", "--wav-dir", "/x",
+                                               "--out-dir", "/nonexistent"]),
+             lambda: mini_proof.main(["--out-dir", "/nonexistent"]),
+             lambda: mini_proof.evaluate({}, mini_proof.hubert_config({}), 1.0),
+             lambda: mini_proof.measure_norm_stats({}, mini_proof.hubert_config({}))):
     try:
         make()
     except RuntimeError as e:
@@ -73,5 +81,7 @@ def test_port_imports_no_jax_and_needs_a_gpu_or_cpu_choice():
     # the modules this test must reach, whatever else the package holds
     # (the trainer's train/, data/ and utils/ modules, the resynthesis
     # chain's flow/, vocoder/, models/voicebox, ops/pitch, synthesis and
-    # vq_tokenizer, and its trainers, flow/kmeans and models/sylber included)
-    assert int(count.split()[0]) >= 55, count
+    # vq_tokenizer, and its trainers, flow/kmeans and models/sylber included,
+    # and the corpus path's utils/native, utils/sndfile, ops/segment_np,
+    # segment_corpus, precompute_segments and mini_proof)
+    assert int(count.split()[0]) >= 61, count
