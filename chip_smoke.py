@@ -160,7 +160,24 @@ Phases, each of which fails the script when it fails:
    1 and 10 alone; ``--reproduce-distill`` phase 1 and ``mini_ckpt.json``'s
    recipe through ``python -m sylber_tpu_torch.mini_proof`` (F1 against the
    truth at least 0.88, fast against exact at least 0.995); neither prints a
-   result.
+   result;
+11. the mesh (``sylber_tpu_torch/parallel``): phase 6's bf16 recipe at
+   world size 1 three ways, 13 steps each with cuDNN deterministic: without
+   a process group, ``mesh: {dp: 1}`` and ``{dp: 1, fsdp: true}`` over
+   NCCL (the step p50 and peak memory of each; the dp run's parameters
+   bit-equal to the run without a group, the FSDP run's within 1e-5 of the
+   largest); dp=2 and mp=2 on two gloo ranks sharing cuda:0 (full width,
+   fp32 "highest", dropout 0, global B8 x 5 s, 3 steps; FSDP too where a
+   probe finds gloo's reduce-scatter on CUDA tensors) against one process
+   on the same global batch (losses rtol 1e-5, parameters within 1e-6),
+   every kernel of the training path launched on every rank; dp=2 over NCCL
+   across two cards where the machine has them (step p50, the NCCL
+   kernels' share); the ``Segmenter`` over a mesh of two replicas on cuda:0
+   on phase 3's batches and a 60 s long-form call (fp32 segments equal,
+   bf16 boundary F1 at tolerance 0 at least 0.995; RTFx beside the plain
+   Segmenter's, two calls each in turns). Its launches are the
+   ``mesh_launches`` of the kernels line. ``--only-mesh`` runs phases 1 and
+   11 and prints no result.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit
 (``nvidia-smi``), and as its last line
@@ -740,7 +757,8 @@ def profile(torch, fn, top: int = 12):
     ``device_ms`` is the time the device was busy: the union of the device
     events' intervals, so events that overlap (on other streams) count once;
     ``kernel_busy_ms`` the same without the copies and memsets (whose
-    pageable host copies vary by run). ``device_sum_ms`` is the plain sum of
+    pageable host copies vary by run), ``nccl_busy_ms`` the same over NCCL's
+    kernels alone. ``device_sum_ms`` is the plain sum of
     their durations, ``overlap_ms`` the difference, and ``duplicate_events``
     the events that share a name and a start with another (events the
     profiler reported twice)."""
@@ -772,7 +790,9 @@ def profile(torch, fn, top: int = 12):
     total = sum(by_name.values())
     busy = busy_us(kernels) / 1e3
     work = [e for e in kernels if not e.name.startswith(("Memcpy", "Memset"))]
+    nccl = [e for e in kernels if "nccl" in e.name.lower()]
     return dict(wall_ms=wall * 1e3, device_ms=busy, kernel_busy_ms=busy_us(work) / 1e3,
+                nccl_busy_ms=busy_us(nccl) / 1e3,
                 device_sum_ms=total, overlap_ms=total - busy,
                 duplicate_events=len(kernels) - len({(e.name, e.time_range.start)
                                                      for e in kernels}),
@@ -3737,6 +3757,403 @@ def corpus_phase(torch, counters, smi, device="cuda", n_utts=CORPUS_UTTS,
     return rep
 
 
+# ---------------------------------------------------------------- phase 11
+
+MESH_STEPS, MESH_WARM = 13, 3  # phase 6's: 3 untimed steps, 10 timed
+# FSDP at world size 1 against no process group, 13 bf16 steps: every
+# parameter within this of the largest |parameter| (FSDP's flat reduce and
+# its gathered copies may round the bf16 step's sums in another order)
+MESH_FSDP_REL_TOL = 1e-5
+# two ranks on one card against one process, fp32 "highest", dropout 0, 3
+# steps of the recipe (lr 5e-5): losses rtol 1e-5, parameters within 1e-6
+# (the steps move them by up to 1.5e-4; the rest is summation order)
+GLOO_BATCH, GLOO_STEPS = 8, 3
+GLOO_LOSS_RTOL, GLOO_PARAM_ATOL = 1e-5, 1e-6
+MESH_F1_GATE = 0.995  # bf16 replicas of 16 rows against one model of 32 (cuBLAS may differ)
+
+
+@contextlib.contextmanager
+def deterministic_cudnn(torch):
+    """cuDNN's deterministic algorithms, no autotuning: two runs of one
+    program give the same bits (the bit-equality of phase 11's runs)."""
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
+def world1_run(torch, counters, label, recipe, out_dir, smi):
+    """``train()`` for ``MESH_STEPS`` steps of ``recipe``: step p50 after
+    ``MESH_WARM``, peak memory, the launches, and the whole parameters."""
+    from sylber_tpu_torch.parallel.mesh import fetch_global
+    from sylber_tpu_torch.train.loop import train
+
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = train(recipe, out_dir=str(out_dir), max_steps=MESH_STEPS, log_every=1,
+                  ckpt_every=0, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    rows = [json.loads(ln) for ln in open(Path(out_dir) / "metrics.jsonl")]
+    rows = [r for r in rows if r["prefix"] == "train"]
+    if len(rows) != MESH_STEPS or not all(np.isfinite(r["loss"]) for r in rows):
+        raise AssertionError(f"phase 11 {label}: {len(rows)} metric rows or a loss not finite")
+    step_ms = [1e3 * (b["time"] - a["time"]) for a, b in zip(rows, rows[1:])][MESH_WARM - 1:]
+    params = fetch_global(state.student.state_dict(), state.mesh)
+    rec = dict(label=label, step_ms_p50=float(np.median(step_ms)), step_ms=step_ms,
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+               losses=[r["loss"] for r in rows], launches=launches, wall_s=wall)
+    log(f"phase 11 {label}: step p50 {rec['step_ms_p50']:.1f} ms (min {min(step_ms):.1f}, max "
+        f"{max(step_ms):.1f}), max_memory_allocated {rec['max_memory_allocated_gb']:.2f} GB, "
+        f"loss {rows[0]['loss']:.5g} -> {rows[-1]['loss']:.5g}, launches {launches}  [{smi}]")
+    del state
+    torch.cuda.empty_cache()
+    return rec, params
+
+
+def world1_phase(torch, counters, smi, tmp):
+    """Phase 6's bf16 recipe at world size 1 over NCCL: no process group,
+    ``mesh: {dp: 1}`` and ``{dp: 1, fsdp: true}`` (cuDNN deterministic in
+    all three, so that the first two can be compared bit for bit)."""
+    import torch.distributed as dist
+
+    recipe = stage2_recipe("bfloat16", "default", 100)
+    runs, params = {}, {}
+    with deterministic_cudnn(torch):
+        runs["no_group"], params["no_group"] = world1_run(torch, counters, "no process group",
+                                                          recipe, tmp / "w1_none", smi)
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", store=dist.FileStore(str(tmp / "w1_store"), 1),
+                                rank=0, world_size=1)
+        try:
+            for name, mesh in (("dp1", {"dp": 1}), ("dp1_fsdp", {"dp": 1, "fsdp": True})):
+                runs[name], params[name] = world1_run(
+                    torch, counters, f"mesh {mesh} over NCCL (world 1)", dict(recipe, mesh=mesh),
+                    tmp / f"w1_{name}", smi)
+        finally:
+            dist.destroy_process_group()
+    ref = params["no_group"]
+    bit_equal = all(torch.equal(ref[k], params["dp1"][k]) for k in ref)
+    largest = max(float(v.abs().max()) for v in ref.values())
+    fsdp_err = max(float((ref[k] - params["dp1_fsdp"][k]).abs().max()) for k in ref)
+    fsdp_bits = all(torch.equal(ref[k], params["dp1_fsdp"][k]) for k in ref)
+    rep = dict(runs=runs, dp1_bit_equal=bit_equal, fsdp_bit_equal=fsdp_bits,
+               fsdp_max_abs_err=fsdp_err, param_largest=largest,
+               fsdp_tol=MESH_FSDP_REL_TOL * largest)
+    base = runs["no_group"]["step_ms_p50"]
+    for name in ("dp1", "dp1_fsdp"):
+        r = runs[name]
+        log(f"phase 11 world 1 {name}: step p50 {r['step_ms_p50']:.1f} ms against "
+            f"{base:.1f} without a process group ({r['step_ms_p50'] - base:+.1f} ms), peak "
+            f"memory {r['max_memory_allocated_gb']:.2f} against "
+            f"{runs['no_group']['max_memory_allocated_gb']:.2f} GB  [{smi}]")
+    log(f"phase 11 world 1: dp=1 parameters after {MESH_STEPS} steps bit-equal to the run "
+        f"without a process group: {bit_equal}; FSDP max |diff| {fsdp_err:.3g} (tol "
+        f"{rep['fsdp_tol']:.3g}), bit-equal {fsdp_bits}")
+    if not bit_equal or fsdp_err > rep["fsdp_tol"]:
+        raise AssertionError(f"phase 11 world 1: bit-equal {bit_equal}, FSDP err {fsdp_err}")
+    return rep
+
+
+def gloo_recipe():
+    """Phase 6's recipe at fp32 "highest", dropout 0, global B8 x 5 s."""
+    recipe = stage2_recipe("float32", "highest", GLOO_BATCH)
+    recipe["model"]["hubert"] = {"hidden_dropout": 0.0, "attention_dropout": 0.0,
+                                 "activation_dropout": 0.0}
+    return recipe
+
+
+def gloo_steps(torch, recipe, mesh=None, fsdp=False, card=0):
+    """``GLOO_STEPS`` steps of ``recipe`` on ``cuda:card`` (this rank's rows
+    under ``mesh``): the losses, the kernels' launches, the whole
+    parameters."""
+    from sylber_tpu_torch import ops
+    from sylber_tpu_torch.parallel.mesh import fetch_global, shard_batch
+    from sylber_tpu_torch.train.distill import init_train_state, make_train_step
+    from sylber_tpu_torch.train.loop import distill_config_from_dict, train_batches
+
+    counters = [ops.frontend.conv0_gn_gelu, ops.smallattn.small_attention,
+                ops.flash.flash_attention, ops.segment.segment_pass1, ops.segment.segment_pass2]
+    dev = torch.device("cuda", card)
+    dcfg = distill_config_from_dict(recipe["model"])
+    state = init_train_state(dcfg, dev, thresholder_kwargs=recipe["model"]["thresholder_configs"],
+                             seed=0, mesh=mesh, fsdp=fsdp)
+    stream = train_batches(recipe["data"], GLOO_BATCH, recipe["seed"], 0, dev)
+    step = make_train_step(dcfg, mesh)
+    for fn in counters:
+        fn.launches = 0
+    losses = [float(step(state, shard_batch(next(stream), mesh), recipe["seed"])["loss"])
+              for _ in range(GLOO_STEPS)]
+    launches = {fn.__name__: fn.launches for fn in counters}
+    params = fetch_global(state.student.state_dict(), mesh)
+    return dict(losses=losses, launches=launches, params=params)
+
+
+def gloo_probe(rank, world):
+    """Whether gloo takes the collectives FSDP needs on CUDA tensors: the
+    decision, made before the runs (a refusal here is an answer)."""
+    import torch
+    import torch.distributed as dist
+
+    x = torch.ones(4, device="cuda:0")
+    try:
+        out = torch.empty(2, device="cuda:0")
+        dist.reduce_scatter_tensor(out, x)
+        full = torch.empty(4, device="cuda:0")
+        dist.all_gather_into_tensor(full, out)
+        return bool((full == 2).all())
+    except (RuntimeError, NotImplementedError) as e:
+        return f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+
+
+def gloo_world(rank, world, cases):
+    """Each of ``cases`` ((label, dp, mp, fsdp)) on two ranks sharing cuda:0
+    over gloo; rank 0 returns the parameters."""
+    import torch
+
+    from sylber_tpu_torch.parallel.mesh import make_mesh
+
+    torch.cuda.set_device(0)
+    out = {}
+    for label, dp, mp, fsdp in cases:
+        print(f"phase 11 gloo rank {rank}: {label}", flush=True)
+        rec = gloo_steps(torch, gloo_recipe(), make_mesh(dp, mp, device_type="cuda"), fsdp)
+        if rank:
+            rec.pop("params")
+        out[label] = rec
+    return out
+
+
+def check_exact_runs(label, ranks, ref, cases):
+    """Each of ``cases`` of ``ranks`` (rank 0's parameters) against the
+    one-process steps ``ref``: the losses within ``GLOO_LOSS_RTOL``, the
+    parameters within ``GLOO_PARAM_ATOL``, the segmentation and the
+    teacher's kernels launched on every rank. Returns (runs, launches)."""
+    runs, launches = {}, {}
+    for case, *_ in cases:
+        got = ranks[0][case]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got["losses"], ref["losses"]))
+        err = max(float((got["params"][k] - ref["params"][k]).abs().max()) for k in ref["params"])
+        ok = rel <= GLOO_LOSS_RTOL and err <= GLOO_PARAM_ATOL
+        per_rank = [r[case]["launches"] for r in ranks]
+        runs[case] = dict(losses=got["losses"], loss_rel_err=rel, param_max_abs_err=err,
+                          launches_by_rank=per_rank, ok=ok)
+        for r in per_rank:
+            for k, v in r.items():
+                launches[k] = launches.get(k, 0) + v
+        log(f"phase 11 {label} {case} (fp32 highest, global B{GLOO_BATCH} x 5 s, "
+            f"{GLOO_STEPS} steps): losses {['%.7g' % v for v in got['losses']]} against "
+            f"one process {['%.7g' % v for v in ref['losses']]} (rel {rel:.2g}, tol "
+            f"{GLOO_LOSS_RTOL}), parameters max |diff| {err:.3g} (tol {GLOO_PARAM_ATOL}); "
+            f"launches by rank {per_rank} ok={ok}")
+        if not ok:
+            raise AssertionError(f"phase 11 {label} {case}: {runs[case]}")
+        idle = [k for k in ("conv0_gn_gelu", "small_attention", "segment_pass1",
+                            "segment_pass2") if any(r[k] == 0 for r in per_rank)]
+        if idle:
+            raise AssertionError(f"phase 11 {label} {case}: kernels never launched on a "
+                                 f"rank: {idle}")
+    return runs, launches
+
+
+def gloo_phase(torch, smi, tmp):
+    """dp=2 and mp=2 (and FSDP where gloo allows it) on two ranks sharing
+    the card, against the one-process steps on the same global batch."""
+    from sylber_tpu_torch.parallel.launch import spawn
+
+    probe = spawn(gloo_probe, 2, str(tmp / "worlds"))[0]
+    cases = [("dp2", 2, 1, False), ("mp2", 1, 2, False)]
+    if probe is True:
+        cases.append(("dp2_fsdp", 2, 1, True))
+    log(f"phase 11 gloo on one card: FSDP's collectives on CUDA tensors: "
+        f"{'available' if probe is True else probe}; runs: {[c[0] for c in cases]}")
+    t0 = time.perf_counter()
+    ranks = spawn(gloo_world, 2, str(tmp / "worlds"), cases)
+    wall = time.perf_counter() - t0
+    ref = gloo_steps(torch, gloo_recipe())
+    runs, launches = check_exact_runs("gloo (2 ranks on cuda:0)", ranks, ref, cases)
+    return dict(fsdp_probe=probe, cases=[c[0] for c in cases], wall_s=wall,
+                one_process_losses=ref["losses"], runs=runs, launches=launches)
+
+
+NCCL_EXACT = [("dp2", 2, 1, False), ("dp2_fsdp", 2, 1, True)]
+
+
+def nccl_world(rank, world, recipe, out_dir):
+    """Phase 6's recipe at dp=2 over NCCL, one card a rank: ``train()`` for
+    ``MESH_STEPS`` steps, then one profiled step (the NCCL kernels' share);
+    then the gloo phase's exact runs (``NCCL_EXACT``) over NCCL (rank 0
+    returns their parameters)."""
+    import torch
+
+    from sylber_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    from sylber_tpu_torch.train.distill import make_train_step
+    from sylber_tpu_torch.train.loop import distill_config_from_dict, train, train_batches
+
+    state = train(recipe, out_dir=out_dir, max_steps=MESH_STEPS, log_every=1, ckpt_every=0)
+    dev = torch.device("cuda", rank)
+    mesh = state.mesh
+    dcfg = distill_config_from_dict(recipe["model"])
+    step = make_train_step(dcfg, mesh)
+    batch = shard_batch(next(train_batches(recipe["data"], recipe["data"]["batch_size"],
+                                           recipe["seed"], MESH_STEPS, dev)), mesh)
+    torch.distributed.barrier()   # both ranks enter the profiled step together, so that
+    torch.cuda.synchronize()      # NCCL's kernels do not count one rank's wait for the other
+    prof = profile(torch, lambda: step(state, batch, recipe["seed"]), top=40)
+    out = dict(device_ms=prof["device_ms"], nccl_ms=prof["nccl_busy_ms"],
+               wall_ms=prof["wall_ms"], peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    del state
+    for case, dp, mp, fsdp in NCCL_EXACT:
+        rec = gloo_steps(torch, gloo_recipe(), make_mesh(dp, mp, device_type="cuda"), fsdp,
+                         card=rank)
+        if rank:
+            rec.pop("params")
+        out[case] = rec
+    return out
+
+
+def nccl_phase(torch, smi, tmp):
+    """dp=2 across two cards, where the machine has them."""
+    from sylber_tpu_torch.parallel.launch import spawn
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f"phase 11 NCCL across cards: the machine has {n} card; not run")
+        return dict(cards=n, run=False)
+    recipe = dict(stage2_recipe("bfloat16", "default", 100), mesh={"dp": 2})
+    out_dir = tmp / "nccl_dp2"
+    ranks = spawn(nccl_world, 2, str(tmp / "worlds"), recipe, str(out_dir), backend="nccl")
+    rows = [json.loads(ln) for ln in open(out_dir / "metrics.jsonl")]
+    rows = [r for r in rows if r["prefix"] == "train"]
+    step_ms = [1e3 * (b["time"] - a["time"]) for a, b in zip(rows, rows[1:])][MESH_WARM - 1:]
+    p50 = float(np.median(step_ms))
+    share = [r["nccl_ms"] / r["device_ms"] for r in ranks]
+    log(f"phase 11 NCCL dp=2 across 2 cards (global B100 x 5 s bf16): step p50 {p50:.1f} ms; "
+        f"NCCL's kernels' busy share of a profiled step's device time by rank "
+        f"{['%.3f' % s for s in share]}  [{smi}]")
+    runs, launches = check_exact_runs("NCCL (cuda:0 and cuda:1)", ranks,
+                                      gloo_steps(torch, gloo_recipe()), NCCL_EXACT)
+    for r in ranks:
+        for case, *_ in NCCL_EXACT:
+            r.pop(case)
+    return dict(cards=n, run=True, step_ms_p50=p50, step_ms=step_ms, nccl_share=share,
+                ranks=ranks, exact_runs=runs, launches=launches)
+
+
+def segmenter_mesh_phase(torch, Segmenter, HubertConfig, counters, smi,
+                         devices=("cuda:0", "cuda:0")):
+    """A mesh of two replicas on ``devices`` against the plain ``Segmenter``
+    on the first (the same seeded weights) on phase 3's batches and a 60 s
+    long-form call: fp32 "highest" segments equal, bf16 boundary F1 at
+    tolerance 0 at least ``MESH_F1_GATE``. Long-form over the mesh takes the
+    non-resident path, so its yardstick is a one-replica mesh."""
+    from sylber_tpu_torch.longform import LongFormSegmenter
+    from sylber_tpu_torch.parallel.mesh import make_mesh
+    from sylber_tpu_torch.utils.metrics import boundary_f1
+
+    rng = np.random.RandomState(1)
+    batches = {"small_32x5s": [speechlike(rng, 5 * 16000) for _ in range(32)],
+               "flash_32x12-20s": [speechlike(rng, int(rng.uniform(12, 20) * 16000))
+                                   for _ in range(32)]}
+    long_wav = speechlike(np.random.RandomState(11), 60 * 16000)
+    modes = {"fp32_highest": HubertConfig(),
+             "bf16_default": HubertConfig(dtype="bfloat16", frontend_dtype="bfloat16",
+                                          precision="default")}
+    rep, launches = {}, {fn.__name__: 0 for fn in counters}
+    for mode, cfg in modes.items():
+        plain = Segmenter(hubert_config=cfg, device=devices[0])
+        dp = Segmenter(hubert_config=cfg, mesh=make_mesh(2, devices=list(devices)))
+        one = Segmenter(hubert_config=cfg, mesh=make_mesh(1, devices=[devices[0]]))
+        calls = {name: (plain.process, dp.process, wavs) for name, wavs in batches.items()}
+        calls["longform_60s"] = (lambda w: [LongFormSegmenter(one)(wav=w[0], in_second=False)],
+                                 lambda w: [LongFormSegmenter(dp)(wav=w[0], in_second=False)],
+                                 [long_wav])
+        for name, (ref_fn, dp_fn, wavs) in calls.items():
+            lf = name == "longform_60s"
+            call = lambda fn: fn(wavs) if lf else fn(wavs, in_second=False)  # noqa: E731
+            want = call(ref_fn)
+            call(dp_fn)  # warm-up
+            torch.cuda.synchronize()
+            for fn in counters:
+                fn.launches = 0
+            got = call(dp_fn)
+            for fn in counters:
+                launches[fn.__name__] += fn.launches
+            walls = {"ref": [], "mesh": []}  # in turns: ref, mesh, mesh, ref
+            for side in ("ref", "mesh", "mesh", "ref"):
+                t0 = time.perf_counter()
+                call(ref_fn if side == "ref" else dp_fn)
+                walls[side].append(time.perf_counter() - t0)
+            equal = sum(a["segments"].tolist() == b["segments"].tolist()
+                        for a, b in zip(got, want))
+            f1 = float(np.mean([boundary_f1(a["segments"], b["segments"], tol_frames=0)
+                                for a, b in zip(got, want)]))
+            ok = equal == len(want) if mode == "fp32_highest" else f1 >= MESH_F1_GATE
+            audio_s = sum(len(w) for w in wavs) / 16000.0
+            rtfx = {k: audio_s / float(np.mean(v)) for k, v in walls.items()}
+            rep[f"{mode}/{name}"] = dict(items=len(want), equal=equal, boundary_f1_tol0=f1,
+                                         rtfx_mesh=rtfx["mesh"], rtfx_reference=rtfx["ref"],
+                                         ok=ok)
+            ref_name = "a one-replica mesh" if lf else "the plain Segmenter"
+            log(f"phase 11 Segmenter mesh of 2 replicas on {'+'.join(devices)}, {mode} {name}: "
+                f"{equal} of "
+                f"{len(want)} items' segments equal to {ref_name}'s, boundary F1 (tol 0) "
+                f"{f1:.5f} ok={ok}; RTFx (mean of 2 calls, in turns) {rtfx['mesh']:.1f} against "
+                f"{rtfx['ref']:.1f} for {ref_name}  [{smi}]")
+            if not ok:
+                raise AssertionError(f"phase 11 Segmenter mesh on {devices} {mode} {name}: {rep}")
+        del plain, dp, one
+        torch.cuda.empty_cache()
+    idle = [k for k, v in launches.items() if v == 0]
+    if idle:
+        raise AssertionError(f"phase 11 Segmenter mesh on {devices}: kernels never launched: "
+                             f"{idle}")
+    return dict(devices=list(devices), calls=rep, launches=launches)
+
+
+def two_card_phases(torch, Segmenter, HubertConfig, counters, smi, tmp):
+    """What phase 11 runs only where there are two cards: dp=2 over NCCL
+    across them, and the Segmenter's replicas on cuda:0 and cuda:1 (each
+    replica's kernels launched on its own card); None for either on a
+    machine with one card."""
+    nccl = nccl_phase(torch, smi, tmp)
+    if torch.cuda.device_count() < 2:
+        log("phase 11 Segmenter mesh across cards: the machine has one card; not run")
+        return nccl, None
+    return nccl, segmenter_mesh_phase(torch, Segmenter, HubertConfig, counters, smi,
+                                      devices=("cuda:0", "cuda:1"))
+
+
+def mesh_phase(torch, Segmenter, HubertConfig, counters, smi):
+    """Phase 11: the mesh. Any failed check raises."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        world1 = world1_phase(torch, counters, smi, tmp)
+        t1 = time.perf_counter()
+        gloo = gloo_phase(torch, smi, tmp)
+        t2 = time.perf_counter()
+        nccl, seg2 = two_card_phases(torch, Segmenter, HubertConfig, counters, smi, tmp)
+        seg = segmenter_mesh_phase(torch, Segmenter, HubertConfig, counters, smi)
+        t3 = time.perf_counter()
+    launches = {fn.__name__: 0 for fn in counters}
+    for part in [*(r["launches"] for r in world1["runs"].values()), gloo["launches"],
+                 seg["launches"], *([seg2["launches"]] if seg2 else []),
+                 *([nccl["launches"]] if nccl["run"] else [])]:
+        for k, v in part.items():
+            launches[k] += v
+    log(f"phase 11: world 1 {t1 - t0:.1f} s, gloo {t2 - t1:.1f} s, NCCL and the Segmenter "
+        f"{t3 - t2:.1f} s; launches over the phase's paths {launches}  [{smi}]")
+    return dict(world1=world1, gloo=gloo, nccl=nccl, segmenter=seg, segmenter_two_cards=seg2,
+                launches=launches)
+
+
 # the gates of --reproduce-distill, set before its first run: JAX's recorded
 # boundary F1 against the truth (0.9187) less 0.04, since the port's draws
 # differ from JAX's by design (ROADMAP.md record (n)); and the fast mode's gate
@@ -3797,6 +4214,15 @@ def main() -> int:
     ap.add_argument("--only-corpus", action="store_true",
                     help="build the kernels and run phase 10 alone (the offline corpus "
                          "path); prints no result line")
+    ap.add_argument("--only-mesh", action="store_true",
+                    help="build the kernels and run phase 11 alone (the mesh: world-size-1 "
+                         "NCCL runs, two gloo ranks on the card, the Segmenter's replicas); "
+                         "prints no result line")
+    ap.add_argument("--only-two-cards", action="store_true",
+                    help="build the kernels and run the parts of phase 11 that need two "
+                         "cards (dp=2 over NCCL across cards, the Segmenter's replicas on "
+                         "cuda:0 and cuda:1); fails on a machine with one card; prints no "
+                         "result line")
     ap.add_argument("--reproduce-distill", action="store_true",
                     help="build the kernels, then train mini_ckpt.json's recipe with "
                          "python -m sylber_tpu_torch.mini_proof (into runs/mini_proof_torch) "
@@ -3849,6 +4275,24 @@ def main() -> int:
         return 0
     if args.reproduce_distill:
         reproduce_distill(torch, smi)
+        return 0
+    if args.only_mesh:
+        p11 = mesh_phase(torch, Segmenter, HubertConfig, counters, smi)
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(dict(card=smi, mesh=p11), indent=1,
+                                                 default=str))
+        return 0
+    if args.only_two_cards:
+        if torch.cuda.device_count() < 2:
+            raise SystemExit("chip_smoke --only-two-cards: the machine has one card")
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_cards_") as tmp:
+            nccl, seg2 = two_card_phases(torch, Segmenter, HubertConfig, counters, smi,
+                                         Path(tmp))
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(dict(card=smi, nccl=nccl, segmenter=seg2),
+                                                 indent=1, default=str))
         return 0
     if args.only_int8:
         p9 = int8_phase(torch, ops, counters, smi)
@@ -3955,6 +4399,11 @@ def main() -> int:
         f"{time.perf_counter() - t10:.1f} s  [{smi}]")
     launches = {k: v + corpus["launches"][k] for k, v in launches.items()}
 
+    t11 = time.perf_counter()
+    mesh = mesh_phase(torch, Segmenter, HubertConfig, counters, smi)
+    log(f"phase 11 took {time.perf_counter() - t11:.1f} s  [{smi}]")
+    launches = {k: v + mesh["launches"][k] for k, v in launches.items()}
+
     sources = {"conv0_gn_gelu": ("frontend.cu", "sylber_tpu/ops/pallas/frontend.py:122"),
                "small_attention": ("smallattn.cu", "sylber_tpu/ops/pallas/smallattn.py:78"),
                "flash_attention": ("flash.cu", "sylber_tpu/ops/pallas/flash.py:125"),
@@ -4018,6 +4467,7 @@ def main() -> int:
         entry["resynthesis_launches"] = resynthesis["launches"][name]
         entry["synthesis_training_launches"] = synthesis_training["launches"][name]
         entry["corpus_launches"] = corpus["launches"][name]
+        entry["mesh_launches"] = mesh["launches"][name]
     # the seeding kernel (phase 8): its main path is fit_kmeans; the headline
     # shape is the production seed pool's width at 2,000 centers
     seeding = synthesis_training["kmeanspp"]
@@ -4054,8 +4504,8 @@ def main() -> int:
                                                   training=training,
                                                   resynthesis=resynthesis,
                                                   synthesis_training=synthesis_training,
-                                                  int8=int8, corpus=corpus),
-                                             indent=1))
+                                                  int8=int8, corpus=corpus, mesh=mesh),
+                                             indent=1, default=str))
     log(json.dumps({"kernels": line}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

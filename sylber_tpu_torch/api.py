@@ -18,11 +18,13 @@ GPU and without ``device="cpu"`` it raises.
 
 from __future__ import annotations
 
+import copy
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .data.device import pcm_normalize
 from .io.checkpoint import load_state_dict, state_dict_from_jax_params
@@ -30,6 +32,7 @@ from .models.hubert import (HubertConfig, HubertModel, as_dtype,
                             feature_vector_attention_mask, init_weights,
                             matmul_precision)
 from .ops.segment import segment_batch
+from .parallel.mesh import Mesh, local_rank
 from .utils.audio import load_for_inference
 
 FRAME_RATE = 50.0  # 320x conv stride at 16 kHz
@@ -40,11 +43,14 @@ def _round_up(x: int, m: int) -> int:
 
 
 def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
-    """``cuda`` by default; raise rather than fall back to the CPU."""
+    """``cuda`` by default (``cuda:LOCAL_RANK`` in a process group, one rank
+    a GPU); raise rather than fall back to the CPU."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError("sylber_tpu_torch runs on a CUDA device and none "
                                "is available; pass device='cpu' to run on the CPU")
+        if dist.is_initialized():
+            return torch.device("cuda", local_rank())
         return torch.device("cuda")
     return torch.device(device)
 
@@ -55,8 +61,15 @@ class Segmenter:
     ``model_ckpt``: a PyTorch ``sylber.ckpt``-style state dict file, a
     ``.npz`` parameter file of the JAX package, or ``None`` for seeded random
     weights (tests and benchmarks). ``params`` takes a JAX parameter tree of
-    numpy arrays directly. ``mesh`` data parallelism is not ported yet: a mesh
-    raises, and ``self.mesh`` is always ``None``.
+    numpy arrays directly.
+
+    ``mesh`` (``parallel/mesh.py::make_mesh(dp, devices=[...])``, a mesh of
+    replicas in this process): a copy of the encoder on each of its ``dp``
+    devices (a device may hold several); each padded batch is split into
+    ``dp`` equal row blocks, every replica's forward and segmentation are
+    enqueued before anything waits, and the results are concatenated in
+    order on the first device (``self.device``). The batch buckets keep
+    only multiples of ``dp`` (``(dp,)`` if none is), as in JAX.
 
     ``speculative_tokens_per_s`` (serving): right after the forward is
     enqueued, start one copy to pinned host memory of the segment counts,
@@ -85,12 +98,13 @@ class Segmenter:
         speculative_tokens_per_s: Optional[float] = None,
         device: Union[None, str, torch.device] = None,
     ) -> None:
-        if mesh is not None:
-            raise NotImplementedError("mesh data parallelism is not ported yet")
-        self.mesh = None
+        if mesh is not None and not (isinstance(mesh, Mesh) and mesh.device_mesh is None):
+            raise ValueError("the Segmenter takes a data-parallel mesh of replicas in this "
+                             "process: parallel.mesh.make_mesh(dp, devices=[...])")
+        self.mesh = mesh
         self.speculative_tokens_per_s = (float(speculative_tokens_per_s)
                                          if speculative_tokens_per_s else None)
-        self.device = resolve_device(device)
+        self.device = resolve_device(device) if mesh is None else mesh.devices[0]
         self.config = hubert_config or HubertConfig(
             num_hidden_layers=encoding_layer, dtype=as_dtype(dtype),
             precision=precision)
@@ -98,6 +112,9 @@ class Segmenter:
         self.merge_threshold = float(merge_threshold)
         self.length_bucket = int(length_bucket_s * 16000)
         self.batch_buckets = tuple(sorted(batch_buckets))
+        if mesh is not None:
+            self.batch_buckets = tuple(b for b in self.batch_buckets
+                                       if b % mesh.dp == 0) or (mesh.dp,)
 
         model = HubertModel(self.config)
         if params is None and model_ckpt is None:
@@ -111,17 +128,39 @@ class Segmenter:
             if missing:
                 raise KeyError(f"checkpoint lacks {missing}")
         self.model = model.to(self.device).eval()
+        self.replicas = [self.model]
+        if mesh is not None:
+            self.replicas += [copy.deepcopy(model).to(d).eval() for d in mesh.devices[1:]]
 
     @torch.inference_mode()
     def _forward_segment(self, wavs: torch.Tensor, attention_mask: torch.Tensor,
                          norm_threshold: float, merge_threshold: float):
-        """Encoder forward + segmentation + pooling on one padded batch.
+        """Encoder forward + segmentation + pooling on one padded batch (on
+        ``self.device``); under a mesh, each replica on its rows.
 
         ``wavs`` may be int16 PCM: it is then normalised on the device to
         zero mean and unit variance over the attended samples."""
+        if self.mesh is None:
+            return self._forward_replica(self.model, wavs, attention_mask, norm_threshold,
+                                         merge_threshold)
+        dp = self.mesh.dp
+        outs = [self._forward_replica(m, w.to(d, non_blocking=True),
+                                      a.to(d, non_blocking=True), norm_threshold,
+                                      merge_threshold)
+                for m, d, w, a in zip(self.replicas, self.mesh.devices, wavs.chunk(dp),
+                                      attention_mask.chunk(dp))]
+        hidden = torch.cat([h.to(self.device, non_blocking=True) for h, _ in outs])
+        res = type(outs[0][1])(*(torch.cat([r[i].to(self.device, non_blocking=True)
+                                            for _, r in outs])
+                                 for i in range(len(outs[0][1]))))
+        return hidden, res
+
+    def _forward_replica(self, model: HubertModel, wavs: torch.Tensor,
+                         attention_mask: torch.Tensor, norm_threshold: float,
+                         merge_threshold: float):
         if wavs.dtype == torch.int16:
             wavs = pcm_normalize(wavs, attention_mask)
-        hidden = self.model(wavs, attention_mask).float()
+        hidden = model(wavs, attention_mask).float()
         frame_valid = feature_vector_attention_mask(
             self.config, attention_mask, hidden.shape[1]).bool()
         with matmul_precision("highest"):

@@ -602,12 +602,19 @@ __global__ void __launch_bounds__(256)
 
 // --------------------------------------------------------------- launches
 
+// cudaFuncSetAttribute sets the attribute for the current device only, so
+// each instance keeps a flag a device.
+constexpr int MAX_DEVICES = 64;
+
 template <typename K>
-int configure(K kernel, size_t smem, bool* done) {
-  if (*done) return 0;
+int configure(K kernel, size_t smem, bool (&done)[MAX_DEVICES]) {
+  int device = 0;
+  if (const cudaError_t err = cudaGetDevice(&device)) return (int)err;
+  if (device < 0 || device >= MAX_DEVICES) return (int)cudaErrorInvalidValue;
+  if (done[device]) return 0;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  *done = err == cudaSuccess;
+  done[device] = err == cudaSuccess;
   return (int)err;
 }
 
@@ -616,8 +623,8 @@ int launch_mma(const Args& a, int vec, cudaStream_t stream) {
   constexpr int BM = NW * MW * 16;
   constexpr size_t smem = sizeof(__nv_bfloat16) * (DP + 8) * (BM + 2 * ST * BN_MMA);
   static_assert(smem <= 232448, "a block may use 227 KB of shared memory");
-  static bool done = false;
-  if (int err = configure(attn_mma_kernel<DP, NW, MW, ST, XLA>, smem, &done)) return err;
+  static bool done[MAX_DEVICES] = {};
+  if (int err = configure(attn_mma_kernel<DP, NW, MW, ST, XLA>, smem, done)) return err;
   const dim3 grid(ceil_div(a.L, BM), a.B * a.H);
   attn_mma_kernel<DP, NW, MW, ST, XLA><<<grid, NW * 32, smem, stream>>>(a, vec);
   return (int)cudaGetLastError();
@@ -629,8 +636,8 @@ int launch_f32(const Args& a, int vec, cudaStream_t stream) {
   constexpr size_t smem =
       sizeof(float) * ((DP + 4) * (BM + 4 * BN) + BN * (BM + 4));
   static_assert(smem <= 232448, "a block may use 227 KB of shared memory");
-  static bool done = false;
-  if (int err = configure(attn_f32_kernel<DP, BM, XLA>, smem, &done)) return err;
+  static bool done[MAX_DEVICES] = {};
+  if (int err = configure(attn_f32_kernel<DP, BM, XLA>, smem, done)) return err;
   const dim3 grid(ceil_div(a.L, BM), a.B * a.H);
   attn_f32_kernel<DP, BM, XLA><<<grid, 256, smem, stream>>>(a, vec);
   return (int)cudaGetLastError();

@@ -1,7 +1,7 @@
 """Batches on the device: the corpus uploaded once, or each batch copied ahead.
 
-Port of ``sylber_tpu/data/device.py`` for one device (the JAX package's
-``shard_batch`` over a mesh is not ported). For a corpus that fits in device
+Port of ``sylber_tpu/data/device.py`` (under a mesh each rank gathers the
+global batch and keeps its rows: ``parallel/mesh.py::shard_batch``). For a corpus that fits in device
 memory (the synthetic one), :func:`precollate` collates every item once
 (the host stream would give the same items: they are deterministic and
 cached) and uploads it; :func:`device_stream` then gathers each batch on the

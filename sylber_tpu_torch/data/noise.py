@@ -13,7 +13,7 @@ else the given noise clip; the magnitude is uniform in ``magnitude_range``
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -41,13 +41,16 @@ def noise_draws(generator: torch.Generator, batch: int, device) -> Dict[str, tor
 
 
 def mix_noise_apply(wav: torch.Tensor, noise: torch.Tensor, draws: Dict[str, torch.Tensor],
-                    cfg: NoiseMixerConfig = NoiseMixerConfig()) -> torch.Tensor:
-    """wav, noise: (B, L). Returns the augmented wav."""
+                    cfg: NoiseMixerConfig = NoiseMixerConfig(),
+                    source: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """wav, noise: (B, L). Returns the augmented wav. ``source``: the rows
+    that ``draws["perm"]`` indexes for utterance mixing (default ``wav``;
+    under data parallelism the global batch, of which ``wav`` is a share)."""
     B, L = wav.shape
     dt = wav.dtype
     is_aug = (draws["aug"] <= cfg.augment_prob).to(dt)
     is_utt = (draws["utt"] <= cfg.utterance_mix_ratio).to(dt)
-    shuffled = wav[draws["perm"]]
+    shuffled = (wav if source is None else source)[draws["perm"]]
     lo, hi = cfg.shift_range
     shift = draws["shift"] * (hi - lo) + lo
     ramp = torch.linspace(0.0, 1.0, L, device=wav.device)[None, :]

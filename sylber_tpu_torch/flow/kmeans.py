@@ -29,7 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..kernels import check, lib, require_cuda, stream_of
+from ..kernels import check, device_of, lib, require_cuda, stream_of
 from ..models.hubert import matmul_precision
 
 MIN_WEIGHT = 1e-30  # the floor of a squared distance as a draw's weight (JAX's)
@@ -81,9 +81,10 @@ def _launch(x: torch.Tensor, u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tenso
     block_sums = torch.empty(kl.sylber_kmeanspp_blocks(n), dtype=torch.float64, device=x.device)
     rows = torch.empty(k, dtype=torch.int32, device=x.device)
     centers = torch.empty(k, d, dtype=torch.float32, device=x.device)
-    check(kl.sylber_kmeanspp(x.data_ptr(), u.data_ptr(), d2.data_ptr(), block_sums.data_ptr(),
-                             rows.data_ptr(), centers.data_ptr(), n, d, k, stream_of(x)),
-          "kmeanspp")
+    with device_of(x):
+        check(kl.sylber_kmeanspp(x.data_ptr(), u.data_ptr(), d2.data_ptr(), block_sums.data_ptr(),
+                                 rows.data_ptr(), centers.data_ptr(), n, d, k, stream_of(x)),
+              "kmeanspp")
     kmeanspp.launches += 1
     return centers, rows.long()
 

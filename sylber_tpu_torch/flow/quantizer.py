@@ -25,6 +25,7 @@ import dataclasses
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..quantizer import KMQuantizer, ResidualKMQuantizer, _nearest, load_km_quantizer
@@ -127,7 +128,7 @@ def vq_reseed_draw(generator: torch.Generator, mask: torch.Tensor, shape) -> tor
 def vq_ema_update(state: VQState, cfg: GroupedResidualVQConfig, x: torch.Tensor,
                   indices: torch.Tensor, generator: Optional[torch.Generator] = None,
                   mask: Optional[torch.Tensor] = None,
-                  sample_idx: Optional[torch.Tensor] = None) -> VQState:
+                  sample_idx: Optional[torch.Tensor] = None, group=None) -> VQState:
     """EMA k-means update of the codebooks (vector-quantize-pytorch
     semantics, ``sylber_tpu/flow/quantizer.py::vq_ema_update``): per group
     and quantizer, the one-hot counts and sums of the residual (masked by
@@ -137,7 +138,13 @@ def vq_ema_update(state: VQState, cfg: GroupedResidualVQConfig, x: torch.Tensor,
     ``sample_idx`` (groups, quantizers, K)), codes whose EMA count fell
     below ``dead_threshold`` are reseeded, when any point is valid, from
     valid batch vectors (:func:`vq_reseed_draw`), with count
-    ``2 * dead_threshold``."""
+    ``2 * dead_threshold``.
+
+    ``group`` (data parallelism: ``x`` is this rank's equal share of the
+    global batch, in rank order): the counts and sums are all-reduced over
+    it, and ``sample_idx`` indexes the global batch's points (each rank
+    contributes the seeds among its own, and one all-reduce assembles
+    them), so every rank's codebooks stay those of the global batch."""
     parts = torch.split(x.reshape(-1, cfg.dim), cfg.dim_group, dim=-1)
     flat_idx = indices.reshape(-1, cfg.groups * cfg.num_quantizers)
     n_pts = flat_idx.shape[0]
@@ -145,7 +152,14 @@ def vq_ema_update(state: VQState, cfg: GroupedResidualVQConfig, x: torch.Tensor,
         m = torch.broadcast_to(mask, x.shape[:-1]).reshape(n_pts).to(x.dtype)
     else:
         m = torch.ones(n_pts, dtype=x.dtype, device=x.device)
-    any_valid = m.sum() > 0
+    offset = 0
+    if group is not None:
+        offset = dist.get_rank(group) * n_pts
+        m_total = m.sum()
+        dist.all_reduce(m_total, group=group)
+        any_valid = m_total > 0
+    else:
+        any_valid = m.sum() > 0
     reseed = generator is not None or sample_idx is not None
     if reseed and sample_idx is None:
         sample_idx = vq_reseed_draw(generator, m,
@@ -160,13 +174,23 @@ def vq_ema_update(state: VQState, cfg: GroupedResidualVQConfig, x: torch.Tensor,
             onehot = F.one_hot(idx, cfg.codebook_size).to(part.dtype) * m[:, None]
             counts = onehot.sum(0)
             sums = onehot.T @ residual
+            if group is not None:
+                both = torch.cat([counts[:, None], sums], 1)
+                dist.all_reduce(both, group=group)
+                counts, sums = both[:, 0], both[:, 1:]
             sz = state.cluster_sizes[g, q] * cfg.decay + counts * (1 - cfg.decay)
             avg = state.embed_avgs[g, q] * cfg.decay + sums * (1 - cfg.decay)
             cb = torch.where(counts[:, None] > 0, avg / torch.clamp_min(sz, cfg.eps)[:, None],
                              state.codebooks[g, q])
             if reseed:
                 dead = (sz < cfg.dead_threshold) & any_valid
-                seeds = residual[sample_idx[g, q].long()]
+                if group is None:
+                    seeds = residual[sample_idx[g, q].long()]
+                else:
+                    at = sample_idx[g, q].long() - offset
+                    mine = (at >= 0) & (at < n_pts)
+                    seeds = torch.where(mine[:, None], residual[at.clamp(0, n_pts - 1)], 0.0)
+                    dist.all_reduce(seeds, group=group)
                 grace = 2.0 * cfg.dead_threshold
                 cb = torch.where(dead[:, None], seeds, cb)
                 sz = torch.where(dead, torch.full_like(sz, grace), sz)

@@ -6,12 +6,20 @@ import torch
 
 from ._build import BUILD_DIR, build, check, lib
 
-__all__ = ["BUILD_DIR", "build", "check", "lib", "stream_of", "require_cuda"]
+__all__ = ["BUILD_DIR", "build", "check", "device_of", "lib", "stream_of", "require_cuda"]
 
 
 def stream_of(t: torch.Tensor) -> int:
     """The current CUDA stream on ``t``'s device, as the C entry points take it."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def device_of(t: torch.Tensor) -> torch.cuda.device:
+    """``t``'s card made current for a ``with`` block around a launch:
+    CUDA launches a kernel, and sets its attributes, on the current device,
+    whatever card the stream passed belongs to (a replica on ``cuda:1``
+    while ``cuda:0`` is current). Does nothing for a CPU tensor."""
+    return torch.cuda.device(t.get_device())
 
 
 def require_cuda(name: str, *tensors: torch.Tensor, contiguous: bool = True) -> None:

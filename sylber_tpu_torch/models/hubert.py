@@ -329,20 +329,28 @@ class EncoderLayer(nn.Module):
         self.output_dense = nn.Linear(cfg.intermediate_size, d)
         self.final_layer_norm = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
         self._int8_weights = QuantizedWeights()
+        # parallel/mesh.py::tensor_parallel: this rank's piece of the split
+        # leaves, one all-reduce at the end of each sublayer
+        self.tp = None
 
     def forward(self, x: torch.Tensor, kv_len: torch.Tensor, seed: Optional[int] = None,
                 differentiable: bool = False) -> torch.Tensor:
         """``seed`` set: train mode, the dropout masks drawn from a generator
         seeded with it (so a recomputation draws them again);
-        ``differentiable``: the attention core in torch ops, not the kernel."""
-        cfg, dt = self.cfg, self.cfg.dtype
+        ``differentiable``: the attention core in torch ops, not the kernel.
+        Under tensor parallelism the split tensors (attention probabilities,
+        the feed-forward's hidden units) draw from a generator of the rank's
+        own (``Dropout.shard``)."""
+        cfg, dt, tp = self.cfg, self.cfg.dtype, self.tp
         drop = Dropout(seed, x.device) if seed is not None else Dropout.OFF
+        drop_split = drop if tp is None else drop.shard(tp.rank)
         attn = self.attention(x, kv_len, dt, differentiable=differentiable,
-                              dropout=drop, dropout_rate=cfg.attention_dropout)
+                              dropout=drop_split, dropout_rate=cfg.attention_dropout)
         x = x + drop(attn, cfg.hidden_dropout)
         x = _layer_norm(x, self.layer_norm, dt)
-        h = _gelu(self._dense(x, "intermediate_dense"), cfg.gelu_approximate)
-        h = drop(h, cfg.activation_dropout)
+        h = _gelu(self._dense(x if tp is None else tp.enter(x), "intermediate_dense"),
+                  cfg.gelu_approximate)
+        h = drop_split(h, cfg.activation_dropout)
         x = x + drop(self._dense(h, "output_dense"), cfg.hidden_dropout)
         return _layer_norm(x, self.final_layer_norm, dt)
 
@@ -351,6 +359,9 @@ class EncoderLayer(nn.Module):
         if self.cfg.int8_encoder:
             wq, sw = self._int8_weights(name, [layer.weight])
             return int8_linear(x, wq, sw, layer.bias, self.cfg.dtype)
+        if self.tp is not None and name == "output_dense":  # input columns: partial sums
+            dt = self.cfg.dtype
+            return self.tp.exit(F.linear(x.to(dt), layer.weight.to(dt))) + layer.bias.to(dt)
         return linear(x, layer, self.cfg.dtype)
 
 

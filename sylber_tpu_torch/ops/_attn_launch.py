@@ -14,7 +14,7 @@ import ctypes
 
 import torch
 
-from ..kernels import check, lib, require_cuda, stream_of
+from ..kernels import check, device_of, lib, require_cuda, stream_of
 
 _Strides = ctypes.c_longlong * 12
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -57,8 +57,9 @@ def launch_attention(entry: str, name: str, q: torch.Tensor, k: torch.Tensor,
     out = empty_like_heads(q)
     strides = _Strides(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                        *out.stride()[:3])
-    check(getattr(lib(), entry)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
-        out.data_ptr(), B, H, L, D, strides, scale,
-        q.dtype == torch.bfloat16, stream_of(q)), name)
+    with device_of(q):
+        check(getattr(lib(), entry)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
+            out.data_ptr(), B, H, L, D, strides, scale,
+            q.dtype == torch.bfloat16, stream_of(q)), name)
     return out

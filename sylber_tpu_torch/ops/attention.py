@@ -61,6 +61,7 @@ class Dropout:
     recomputation in the backward pass needs. ``Dropout.OFF`` drops nothing."""
 
     def __init__(self, seed: Optional[int], device):
+        self.seed, self.device = seed, device
         self.generator = None
         if seed is not None:
             self.generator = torch.Generator(device=device)
@@ -72,6 +73,15 @@ class Dropout:
         keep = 1.0 - rate
         mask = torch.rand(x.shape, generator=self.generator, device=x.device) < keep
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+    def shard(self, rank: int) -> "Dropout":
+        """A generator of its own for the tensors that tensor parallelism
+        splits, seeded from this one's seed and the mp ``rank``: the pieces
+        of a split tensor draw different masks, while every rank draws the
+        same masks for the replicated ones from this generator."""
+        if self.seed is None:
+            return self
+        return Dropout((int(self.seed) * 1_000_003 + rank + 1) % 2 ** 62, self.device)
 
 
 Dropout.OFF = Dropout(None, "cpu")
@@ -113,6 +123,7 @@ class MultiHeadSelfAttention(nn.Module):
             raise ValueError(f"d_model {d_model} not divisible by {num_heads} heads")
         self.num_heads = num_heads
         self.fused_qkv, self.int8 = fused_qkv, int8
+        self.tp = None  # parallel/mesh.py::tensor_parallel: this rank's heads only
         self.q_proj = nn.Linear(d_model, d_model)
         self.k_proj = nn.Linear(d_model, d_model)
         self.v_proj = nn.Linear(d_model, d_model)
@@ -137,10 +148,17 @@ class MultiHeadSelfAttention(nn.Module):
                 differentiable: bool = False, dropout: Dropout = Dropout.OFF,
                 dropout_rate: float = 0.0) -> torch.Tensor:
         """The kernels' core, or with ``differentiable`` :func:`attention_xla`
-        (which alone applies ``dropout`` to the probabilities)."""
-        B, L, d = x.shape
-        h = self.num_heads
+        (which alone applies ``dropout`` to the probabilities). Under tensor
+        parallelism (``self.tp``) the projections are this rank's
+        ``num_heads / mp`` heads and the out projection's partial sums are
+        all-reduced before its bias."""
+        B, L, _ = x.shape
+        tp = self.tp
+        h = self.num_heads if tp is None else self.num_heads // tp.size
+        if tp is not None:
+            x = tp.enter(x)
         q, k, v = self._qkv(x, dtype)
+        d = q.shape[-1]
         # (B, H, L, D) views of the projections: the kernels take strides and
         # write the output with its heads side by side, so nothing is copied here
         split = lambda t: t.view(B, L, h, d // h).transpose(1, 2)  # noqa: E731
@@ -152,4 +170,7 @@ class MultiHeadSelfAttention(nn.Module):
         if self.int8:
             wq, sw = self._int8_weights("out", [self.out_proj.weight])
             return int8_linear(out, wq, sw, self.out_proj.bias, dtype)
+        if tp is not None:
+            partial = F.linear(out.to(dtype), self.out_proj.weight.to(dtype))
+            return tp.exit(partial) + self.out_proj.bias.to(dtype)
         return linear(out, self.out_proj, dtype)

@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..kernels import check, lib, require_cuda, stream_of
+from ..kernels import check, device_of, lib, require_cuda, stream_of
 
 KERNEL_SIZE, STRIDE = 10, 5
 
@@ -93,10 +93,11 @@ def _launch(x, w, gamma, beta, T0, eps, out_dtype) -> torch.Tensor:
                        dtype=torch.float64, device=x.device)
     fold = torch.empty(B, D, 2, dtype=torch.float32, device=x.device)
     out = torch.empty(B, D, T0, dtype=out_dtype, device=x.device)
-    check(kl.sylber_conv0_gn_gelu(
-        x.data_ptr(), w.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-        part.data_ptr(), fold.data_ptr(), out.data_ptr(), B, L, T0, D, float(eps),
-        int(out_dtype == torch.bfloat16), stream_of(x)), "conv0_gn_gelu")
+    with device_of(x):
+        check(kl.sylber_conv0_gn_gelu(
+            x.data_ptr(), w.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+            part.data_ptr(), fold.data_ptr(), out.data_ptr(), B, L, T0, D, float(eps),
+            int(out_dtype == torch.bfloat16), stream_of(x)), "conv0_gn_gelu")
     conv0_gn_gelu.launches += 1
     return out
 

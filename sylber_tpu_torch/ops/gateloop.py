@@ -31,7 +31,7 @@ import ctypes
 
 import torch
 
-from ..kernels import check, lib, require_cuda, stream_of
+from ..kernels import check, device_of, lib, require_cuda, stream_of
 
 _Strides = ctypes.c_longlong * 6
 
@@ -122,8 +122,9 @@ def _launch(q: torch.Tensor, kv: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     B, L, D = q.shape
     out = torch.empty(B, L, D, dtype=torch.float32, device=q.device)
     strides = _Strides(*q.stride()[:2], *kv.stride()[:2], *a.stride()[:2])
-    check(lib().sylber_gate_loop(q.data_ptr(), kv.data_ptr(), a.data_ptr(), out.data_ptr(),
-                                 B, L, D, strides, stream_of(q)), "gate_loop_operator")
+    with device_of(q):
+        check(lib().sylber_gate_loop(q.data_ptr(), kv.data_ptr(), a.data_ptr(), out.data_ptr(),
+                                     B, L, D, strides, stream_of(q)), "gate_loop_operator")
     gate_loop_operator.launches += 1
     return out
 

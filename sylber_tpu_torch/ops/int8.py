@@ -29,7 +29,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from ..kernels import check, lib, require_cuda, stream_of
+from ..kernels import check, device_of, lib, require_cuda, stream_of
 
 MIN_AMAX = 1e-8
 QMAX = 127.0
@@ -118,9 +118,10 @@ def _launch_quantize(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> None:
     R, K = x.shape
     v = 16 // x.element_size()  # values a 16-byte load
     vec = K % v == 0 and x.stride(0) % v == 0 and x.data_ptr() % 16 == 0
-    check(lib().sylber_quantize_rows(
-        x.data_ptr(), q.data_ptr(), s.data_ptr(), R, K, x.stride(0), q.stride(0),
-        int(x.dtype == torch.bfloat16), int(vec), stream_of(x)), "quantize_rows")
+    with device_of(x):
+        check(lib().sylber_quantize_rows(
+            x.data_ptr(), q.data_ptr(), s.data_ptr(), R, K, x.stride(0), q.stride(0),
+            int(x.dtype == torch.bfloat16), int(vec), stream_of(x)), "quantize_rows")
     quantize_rows.launches += 1
 
 
@@ -214,11 +215,12 @@ def int8_gemm(xq: torch.Tensor, sx: torch.Tensor, wq: torch.Tensor, sw: torch.Te
 
 def _launch_gemm(xq, sx, wq, sw, bias, out) -> None:
     (M, K), N = xq.shape, wq.shape[0]
-    check(lib().sylber_int8_gemm(
-        xq.data_ptr(), wq.data_ptr(), sx.data_ptr(), sw.data_ptr(),
-        None if bias is None else bias.data_ptr(), out.data_ptr(), M, N, K, xq.stride(0),
-        wq.stride(0), out.stride(0), int(out.dtype == torch.bfloat16), stream_of(xq)),
-        "int8_gemm")
+    with device_of(xq):
+        check(lib().sylber_int8_gemm(
+            xq.data_ptr(), wq.data_ptr(), sx.data_ptr(), sw.data_ptr(),
+            None if bias is None else bias.data_ptr(), out.data_ptr(), M, N, K, xq.stride(0),
+            wq.stride(0), out.stride(0), int(out.dtype == torch.bfloat16), stream_of(xq)),
+            "int8_gemm")
     int8_gemm.launches += 1
 
 

@@ -40,7 +40,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..kernels import check, lib, require_cuda, stream_of
+from ..kernels import check, device_of, lib, require_cuda, stream_of
 
 MAX_DIM = 1024       # csrc/segment_scan.cu: the widest frame its blocks hold
 PASS2_WARPS = 8      # csrc/segment_scan.cu: the warps of a pass-2 block
@@ -150,12 +150,13 @@ def _launch_pass1(states, voiced, merge_threshold) -> Pass1Events:
     mids = torch.empty(B, L + 1, 2, dtype=torch.int32, device=dev)
     final_start, nseg, nmid = (torch.empty(B, dtype=torch.int32, device=dev)
                                for _ in range(3))
-    check(lib().sylber_segment_pass1(
-        states.data_ptr(), voiced.data_ptr(), close.data_ptr(),
-        boundary.data_ptr(), seg_start.data_ptr(), final_start.data_ptr(),
-        segs.data_ptr(), nseg.data_ptr(), mids.data_ptr(), nmid.data_ptr(),
-        B, L, d, merge_threshold, stream_of(states)),
-        "segment_pass1")
+    with device_of(states):
+        check(lib().sylber_segment_pass1(
+            states.data_ptr(), voiced.data_ptr(), close.data_ptr(),
+            boundary.data_ptr(), seg_start.data_ptr(), final_start.data_ptr(),
+            segs.data_ptr(), nseg.data_ptr(), mids.data_ptr(), nmid.data_ptr(),
+            B, L, d, merge_threshold, stream_of(states)),
+            "segment_pass1")
     segment_pass1.launches += 1
     return Pass1Events(close, boundary, seg_start, final_start, segs, nseg, mids, nmid)
 
@@ -300,11 +301,12 @@ def _launch_pass2(states, norms, P, segs, nseg, mids, nmid, merge_threshold):
     win = torch.empty(B, PASS2_WARPS, 2, L, dtype=torch.float32, device=dev)
     out = torch.empty_like(segs)
     nout = torch.empty_like(nseg)
-    check(lib().sylber_segment_pass2(
-        states.data_ptr(), norms.data_ptr(), P.data_ptr(), segs.data_ptr(),
-        nseg.data_ptr(), mids.data_ptr(), nmid.data_ptr(), work.data_ptr(),
-        chains.data_ptr(), win.data_ptr(), out.data_ptr(), nout.data_ptr(), B, L, d,
-        merge_threshold, stream_of(states)), "segment_pass2")
+    with device_of(states):
+        check(lib().sylber_segment_pass2(
+            states.data_ptr(), norms.data_ptr(), P.data_ptr(), segs.data_ptr(),
+            nseg.data_ptr(), mids.data_ptr(), nmid.data_ptr(), work.data_ptr(),
+            chains.data_ptr(), win.data_ptr(), out.data_ptr(), nout.data_ptr(), B, L, d,
+            merge_threshold, stream_of(states)), "segment_pass2")
     segment_pass2.launches += 1
     return out, nout
 

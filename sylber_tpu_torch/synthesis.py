@@ -57,6 +57,7 @@ from .models.hubert import (HubertConfig, HubertModel, feature_vector_attention_
 from .models.voicebox import Regressor, RegressorConfig, init_regressor
 from .ops.attention import Dropout
 from .ops.segment import averaged_target_fill, segment_batch
+from .parallel.mesh import all_reduce_mean_, reduce_mean, shard_batch
 from .train.distill import apply_gradients, global_norm, make_optimizer, step_generators
 from .train.lr import cosine_warmup_schedule
 from .train.thresholder import get_threshold, thresholder_init
@@ -480,12 +481,15 @@ def init_synthesis_train_state(synth: SegmentSynthesis,
 
 
 def train_update(synth: SegmentSynthesis, state, optimizer: SynthesisOptimizer, schedule,
-                 loss_fn: Callable[[], Tuple[torch.Tensor, Dict[str, torch.Tensor]]]):
+                 loss_fn: Callable[[], Tuple[torch.Tensor, Dict[str, torch.Tensor]]],
+                 mesh=None):
     """One update of ``state.params`` in place: the synth's trainable
     modules in train mode, ``loss_fn() -> (loss, aux)`` and its backward
-    under the regressor's precision, then the global-norm clip and AdamW
-    (``train/distill.py::apply_gradients``) at ``state.step``. Returns
-    ``(loss, aux, grad_norm)``; the caller advances ``state.step``."""
+    under the regressor's precision, the gradients averaged over ``mesh``'s
+    dp ranks (one flat all-reduce; the state is replicated), then the
+    global-norm clip and AdamW (``train/distill.py::apply_gradients``) at
+    ``state.step``. Returns ``(loss, aux, grad_norm)``; the caller advances
+    ``state.step``."""
     for p in state.params:
         p.grad = None
     for m in synth.trainable_modules():
@@ -496,6 +500,8 @@ def train_update(synth: SegmentSynthesis, state, optimizer: SynthesisOptimizer, 
             loss.backward()
             grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                      for p in state.params]
+            if mesh is not None:
+                all_reduce_mean_(grads, mesh.group("dp"), mesh.dp)
             grad_norm = global_norm(grads)
             apply_gradients(state.params, grads, state.optimizer, None, state.step,
                             optimizer, schedule)
@@ -505,25 +511,39 @@ def train_update(synth: SegmentSynthesis, state, optimizer: SynthesisOptimizer, 
     return loss, aux, grad_norm
 
 
+def global_cfm_draws(shape, gens, device, mesh=None) -> CFMDraws:
+    """The draws for this rank's ``shape[0]`` rows from the step's
+    generators ``gens`` (``step_generators(seed, step, device, rank=dp
+    rank)``): those of the global batch (``shape[0] * dp`` rows) sliced to
+    the rank's, the dropout seed the rank's own."""
+    dp = 1 if mesh is None else mesh.dp
+    d = cfm_draws((shape[0] * dp,) + tuple(shape[1:]), gens.noise, gens.mask, gens.drop, device)
+    if mesh is None:
+        return d
+    return CFMDraws(*shard_batch([d.x0, d.times, d.frac_u, d.start_u], mesh), d.dropout_seed)
+
+
 def make_synthesis_train_step(synth: SegmentSynthesis, optimizer: SynthesisOptimizer,
-                              loss_scale: float = 1.0):
+                              loss_scale: float = 1.0, mesh=None):
     """Returns ``(state, batch, seed, draws=None) -> metrics``: one update in
     place, its draws from ``step_generators(seed, state.step)`` unless
     given; ``cfm_loss`` (times ``loss_scale``) and ``grad_norm`` are device
-    tensors."""
+    tensors. Under ``mesh`` (``parallel/mesh.py``) ``batch`` is this rank's
+    rows of the global batch, the draws those of the global batch but the
+    dropout seed (the rank's own), and the metrics are the global batch's."""
     schedule = optimizer.schedule()
 
     def train_step(state: SynthesisTrainState, batch: Mapping[str, torch.Tensor], seed: int,
                    draws: Optional[CFMDraws] = None) -> Dict[str, torch.Tensor]:
         if draws is None:
             device = state.params[0].device
-            g = step_generators(seed, state.step, device)
-            draws = cfm_draws(batch["art"].shape, g.noise, g.mask, g.drop, device)
+            g = step_generators(seed, state.step, device, rank=mesh.dp_rank if mesh else 0)
+            draws = global_cfm_draws(batch["art"].shape, g, device, mesh)
         loss, _, grad_norm = train_update(
             synth, state, optimizer, schedule,
-            lambda: (loss_scale * synth.loss(batch, draws, train=True), {}))
+            lambda: (loss_scale * synth.loss(batch, draws, train=True), {}), mesh)
         state.step += 1
-        return {"cfm_loss": loss.detach(), "grad_norm": grad_norm}
+        return {**reduce_mean({"cfm_loss": loss.detach()}, mesh), "grad_norm": grad_norm}
 
     return train_step
 

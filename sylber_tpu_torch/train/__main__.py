@@ -9,6 +9,13 @@ The same YAML recipes as the JAX package's ``train.py``. ``speech_model_ckpt``
 take a PyTorch state dict (HF ``HubertModel`` or ``sylber.ckpt``) or a
 JAX-layout ``.npz``; an Orbax directory raises. Runs on the GPU unless
 ``--device cpu`` is given, and refuses to start without one.
+
+Several GPUs: ``torchrun --nproc_per_node N -m sylber_tpu_torch.train
+--config ...`` (one process a GPU; the recipe's ``mesh:`` lays them out),
+or on several hosts a ``distributed:`` block or the ``SYLBER_TPU_DIST``,
+``SYLBER_TPU_COORDINATOR``, ``SYLBER_TPU_NUM_PROCESSES`` and
+``SYLBER_TPU_PROCESS_ID`` variables (``parallel/mesh.py``); the output
+directory must then be one all hosts see.
 """
 
 from __future__ import annotations
@@ -30,13 +37,18 @@ def main(argv=None) -> int:
 
     import yaml
 
+    import torch.distributed as dist
+
     from ..api import resolve_device
     from ..io.checkpoint import load_state_dict
+    from ..parallel.mesh import maybe_distributed_init
     from .loop import train
 
-    device = resolve_device(args.device)
+    resolve_device(args.device)  # no GPU and no --device cpu: refuse to start
     with open(args.config) as f:
         cfg = yaml.safe_load(f)
+    formed = maybe_distributed_init(cfg.get("distributed"), args.device)
+    device = resolve_device(args.device)  # cuda:LOCAL_RANK in a process group
     path = cfg.get("speech_model_ckpt") or cfg.get("model_ckpt")
     init = None
     if path:
@@ -46,6 +58,8 @@ def main(argv=None) -> int:
           ckpt_every=args.ckpt_every, val_every=args.val_every,
           limit_val_batches=cfg.get("limit_val_batches", 100), init_params=init,
           device=device)
+    if formed:
+        dist.destroy_process_group()
     return 0
 
 

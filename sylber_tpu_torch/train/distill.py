@@ -29,6 +29,22 @@ as device tensors. The step's randomness comes from generators seeded from
 ``(seed, step)`` (:func:`step_generators`), so a resumed run repeats an
 uninterrupted one. The state is updated in place (the JAX step returns a
 new one).
+
+Under a mesh (``parallel/mesh.py``; ``make_train_step(cfg, mesh)``) each
+rank takes its rows of the global batch and the step is the global batch's:
+
+- the span mask's and the noise mixer's draws are drawn for the global
+  batch and sliced to the rank's rows (utterance mixing reads the global
+  batch, gathered over ``dp``); the merge threshold is drawn on the host
+  from ``(seed, step)``, the same on every rank. Dropout is the exception:
+  each dp rank seeds its masks from ``(seed, step, rank)`` (``ROADMAP.md``
+  section 3), as drawing the global masks would cost dp times the draws;
+- the thresholder's sums and counts are all-reduced over ``dp``;
+- the gradients are averaged over ``dp`` by one all-reduce of a flat buffer
+  after the backward pass (FSDP reduce-scatters those of the leaves it
+  shards itself), and the clip takes the norm of the reduced gradient over
+  every shard;
+- ``loss``, ``num_segments`` and ``masked_frames`` are reduced over ``dp``.
 """
 
 from __future__ import annotations
@@ -38,12 +54,16 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.device import pcm_normalize
-from ..data.noise import NoiseMixerConfig, mix_noise
+from ..data.noise import NoiseMixerConfig, mix_noise, mix_noise_apply, noise_draws
 from ..models.hubert import (HubertConfig, HubertModel, feature_vector_attention_mask,
                              init_weights, matmul_precision)
 from ..ops.segment import averaged_target_fill, segment_batch
+from ..parallel.mesh import (FSDP_MIN_SIZE, Mesh, all_gather_cat, all_reduce_mean_, gather_full,
+                             is_dtensor, local, reduce_mean, shard_batch, shard_like,
+                             shard_params, tp_dim)
 from .ema import ema_init, ema_update
 from .lr import cosine_warmup_schedule
 from .thresholder import ThresholderState, get_threshold, thresholder_init, update_stats
@@ -81,26 +101,74 @@ class TrainState:
     optimizer: torch.optim.AdamW
     thresholder: ThresholderState
     acc_grads: Optional[List[torch.Tensor]] = None  # MultiSteps mean gradient
+    mesh: Optional[Mesh] = None       # the student, teacher and moments sharded over it
 
     @property
     def ema(self) -> Dict[str, torch.Tensor]:
         return self.teacher.state_dict()
 
     def state_dict(self) -> Dict[str, Any]:
-        return dict(step=self.step, params=self.student.state_dict(),
-                    ema=self.teacher.state_dict(), optimizer=self.optimizer.state_dict(),
-                    thresholder=tuple(self.thresholder), acc_grads=self.acc_grads)
+        """The whole state; under a mesh every leaf gathered whole (all ranks
+        call this together), so a checkpoint has one layout whatever the mesh."""
+        if self.mesh is None:
+            return dict(step=self.step, params=self.student.state_dict(),
+                        ema=self.teacher.state_dict(), optimizer=self.optimizer.state_dict(),
+                        thresholder=tuple(self.thresholder), acc_grads=self.acc_grads)
+        names = [n for n, _ in self.student.named_parameters()]
+        full = lambda sd: {k: gather_full(v, k, self.mesh).cpu() for k, v in sd.items()}  # noqa: E731
+        # the moments keyed by the student's parameter order in one group
+        # (the layout without a mesh), whatever groups the optimizer has
+        order, pos = self._optimizer_names(), {n: i for i, n in enumerate(names)}
+        opt = self.optimizer.state_dict()
+        opt = dict(opt, param_groups=[dict(opt["param_groups"][0], params=list(range(len(names))))],
+                   state={pos[order[i]]: {k: (gather_full(v, order[i], self.mesh).cpu()
+                                              if k != "step" else v) for k, v in st.items()}
+                          for i, st in opt["state"].items()})
+        acc = (None if self.acc_grads is None else
+               [gather_full(a, n, self.mesh).cpu() for a, n in zip(self.acc_grads, names)])
+        return dict(step=self.step, params=full(self.student.state_dict()),
+                    ema=full(self.teacher.state_dict()), optimizer=opt,
+                    thresholder=tuple(t.cpu() for t in self.thresholder), acc_grads=acc)
 
     def load_state_dict(self, d: Dict[str, Any]) -> None:
+        """From :meth:`state_dict` (whole leaves); under a mesh each rank
+        keeps its pieces."""
         self.step = int(d["step"])
-        self.student.load_state_dict(d["params"])
-        self.teacher.load_state_dict(d["ema"])
-        self.optimizer.load_state_dict(d["optimizer"])
+        mesh = self.mesh
+        named = dict(self.student.named_parameters())
+        names = list(named)
+
+        def pieces(sd, live):
+            if mesh is None:
+                return sd
+            return {k: shard_like(v, k, mesh, live[k]) for k, v in sd.items()}
+
+        self.student.load_state_dict(pieces(d["params"], self.student.state_dict()))
+        self.teacher.load_state_dict(pieces(d["ema"], self.teacher.state_dict()))
+        opt = d["optimizer"]
+        if mesh is not None:   # from the student's order in one group to the optimizer's
+            order, saved = self._optimizer_names(), opt["state"]
+            pos = {n: i for i, n in enumerate(names)}
+            groups, start = [], 0
+            for g in self.optimizer.param_groups:
+                n = len(g["params"])
+                groups.append(dict(opt["param_groups"][0], params=list(range(start, start + n))))
+                start += n
+            opt = dict(opt, param_groups=groups, state={
+                i: {k: (shard_like(v, name, mesh, named[name]) if k != "step" else v)
+                    for k, v in saved[pos[name]].items()}
+                for i, name in enumerate(order) if pos[name] in saved})
+        self.optimizer.load_state_dict(opt)
         dev = self.thresholder.signal_mean.device
         self.thresholder = ThresholderState(*(t.to(dev) for t in d["thresholder"]))
         if d["acc_grads"] is not None:
-            for a, b in zip(self.acc_grads, d["acc_grads"]):
-                a.copy_(b)
+            for a, b, n in zip(self.acc_grads, d["acc_grads"], names):
+                local(a).copy_(local(shard_like(b, n, mesh, a)) if mesh is not None else b)
+
+    def _optimizer_names(self) -> List[str]:
+        """The student's parameter names in the optimizer's order."""
+        name = {id(p): n for n, p in self.student.named_parameters()}
+        return [name[id(p)] for g in self.optimizer.param_groups for p in g["params"]]
 
 
 class StepGenerators(NamedTuple):
@@ -110,9 +178,14 @@ class StepGenerators(NamedTuple):
     drop: torch.Generator   # CPU: the dropout seeds of the student's layers
 
 
-def step_generators(seed: int, step: int, device) -> StepGenerators:
-    """Four independent generators for step ``step`` of a run seeded ``seed``."""
+def step_generators(seed: int, step: int, device, rank: int = 0) -> StepGenerators:
+    """Four independent generators for step ``step`` of a run seeded
+    ``seed``; the dropout generator of dp ``rank`` > 0 is seeded from
+    ``(seed, step, rank)`` (the others are the same on every rank)."""
     s = np.random.SeedSequence([int(seed), int(step)]).generate_state(4, np.uint64)
+    if rank:
+        s[3] = np.random.SeedSequence([int(seed), int(step), int(rank)]).generate_state(
+            1, np.uint64)[0]
     s = [int(v) & (2 ** 63 - 1) for v in s]
     dev = torch.device(device)
     return StepGenerators(torch.Generator().manual_seed(s[0]),
@@ -122,17 +195,27 @@ def step_generators(seed: int, step: int, device) -> StepGenerators:
 
 
 def make_optimizer(cfg: DistillConfig, params) -> torch.optim.AdamW:
-    """AdamW at lr 0; the step sets the schedule's rate before each update."""
-    return torch.optim.AdamW(params, lr=0.0, betas=(0.9, 0.95), eps=1e-4,
-                             weight_decay=cfg.weight_decay)
+    """AdamW at lr 0; the step sets the schedule's rate before each update.
+    The leaves FSDP shards (DTensors) and the others form two groups: a
+    foreach kernel takes no mix of the two."""
+    params = list(params)
+    groups = [[p for p in params if is_dtensor(p)], [p for p in params if not is_dtensor(p)]]
+    return torch.optim.AdamW([{"params": g} for g in groups if g], lr=0.0, betas=(0.9, 0.95),
+                             eps=1e-4, weight_decay=cfg.weight_decay)
 
 
 def init_train_state(cfg: DistillConfig, device, params: Optional[Dict[str, torch.Tensor]] = None,
-                     thresholder_kwargs: Optional[dict] = None, seed: int = 0) -> TrainState:
+                     thresholder_kwargs: Optional[dict] = None, seed: int = 0,
+                     mesh: Optional[Mesh] = None, fsdp: bool = False,
+                     fsdp_min_size: int = FSDP_MIN_SIZE) -> TrainState:
     """Student from ``params`` (a HubertModel state dict; layers past the
     config's are ignored, a missing weight raises) or seeded random weights;
     the teacher a copy of it (an fp32 shadow where ``ema_decay < 1``; the
-    port keeps float32 parameters, so the copy is float32 either way)."""
+    port keeps float32 parameters, so the copy is float32 either way).
+    Under ``mesh`` both are split over its mp axis and, with ``fsdp``, the
+    leaves of JAX's FSDP plan (``fsdp_min_size``) sharded over its dp axis
+    (``shard_params``); the AdamW moments and accumulators follow the
+    parameters."""
     student = HubertModel(cfg.model)
     if params is None:
         init_weights(student, torch.Generator().manual_seed(seed))
@@ -143,13 +226,16 @@ def init_train_state(cfg: DistillConfig, device, params: Optional[Dict[str, torc
     student.to(device)
     teacher = HubertModel(cfg.model).to(device).eval().requires_grad_(False)
     teacher.load_state_dict(ema_init(student.state_dict(), fp32_shadow=cfg.ema_decay < 1.0))
+    if mesh is not None:
+        for m in (student, teacher):
+            shard_params(m, mesh, fsdp=fsdp, fsdp_min_size=fsdp_min_size)
     acc = None
     if cfg.accumulate_grad_batches > 1:
         acc = [torch.zeros_like(p) for p in student.parameters()]
     return TrainState(step=0, student=student, teacher=teacher,
                       optimizer=make_optimizer(cfg, student.parameters()),
                       thresholder=thresholder_init(**(thresholder_kwargs or {}), device=device),
-                      acc_grads=acc)
+                      acc_grads=acc, mesh=mesh)
 
 
 # ---- span mask: draws, then a pure function of them ------------------------
@@ -194,12 +280,28 @@ def span_mask_apply(draws: Dict[str, torch.Tensor], segments: torch.Tensor,
     return torch.cumsum(delta[:, :num_frames], dim=1) > 0
 
 
-def _span_mask(generator, segments, num_segments, num_frames, cfg: DistillConfig):
+def _dp_group(mesh: Optional[Mesh]):
+    return None if mesh is None else mesh.group("dp")
+
+
+def _span_mask(generator, segments, num_segments, num_frames, cfg: DistillConfig,
+               mesh: Optional[Mesh] = None):
     B, MS, _ = segments.shape
     if cfg.mask_prob <= 0.0 and cfg.min_mask_n <= 0:
         return torch.zeros(B, num_frames, dtype=torch.bool, device=segments.device)
-    draws = span_mask_draws(generator, B, MS, cfg, segments.device)
+    dp = 1 if mesh is None else mesh.dp
+    draws = shard_batch(span_mask_draws(generator, B * dp, MS, cfg, segments.device), mesh)
     return span_mask_apply(draws, segments, num_segments, num_frames, cfg)
+
+
+def _mix_noise(generator, wav, noise, cfg: DistillConfig, mesh: Optional[Mesh]):
+    """The noise mixer's draws for the global batch, this rank's rows of
+    them, utterance mixing from the global batch."""
+    if mesh is None:
+        return mix_noise(generator, wav, noise, cfg.noise_mixer)
+    draws = shard_batch(noise_draws(generator, wav.shape[0] * mesh.dp, wav.device), mesh)
+    source = all_gather_cat(wav, 0, mesh.group("dp"))
+    return mix_noise_apply(wav, noise, draws, cfg.noise_mixer, source=source)
 
 
 def merge_threshold_draw(generator: torch.Generator, cfg: DistillConfig) -> float:
@@ -228,20 +330,23 @@ def teacher_targets(teacher: HubertModel, batch: Dict[str, Optional[torch.Tensor
 
 @torch.no_grad()
 def online_segments(target: torch.Tensor, attention_mask: Optional[torch.Tensor],
-                    thresholder: ThresholderState, gens: StepGenerators, cfg: DistillConfig):
+                    thresholder: ThresholderState, gens: StepGenerators, cfg: DistillConfig,
+                    mesh: Optional[Mesh] = None):
     """Stage 2's segmentation of the teacher's states: ``(segments,
     num_segments, thresholder, norm_mask)``, the thresholder updated from
-    the frame norms (signal only with ``use_train_thrupdate``)."""
+    the frame norms (signal only with ``use_train_thrupdate``) of the
+    global batch."""
     norm_threshold = get_threshold(thresholder)
     norms = torch.sqrt((target ** 2).sum(-1) + 1e-8)
     norm_mask = norms >= norm_threshold
     flat, fmask = norms.reshape(-1), norm_mask.reshape(-1)
     if cfg.use_train_thrupdate:
         new_thr = update_stats(thresholder, signal=flat, signal_mask=fmask,
-                               decay=cfg.thresholder_decay)
+                               decay=cfg.thresholder_decay, group=_dp_group(mesh))
     else:
         new_thr = update_stats(thresholder, signal=flat, signal_mask=fmask, noise=flat,
-                               noise_mask=~fmask, decay=cfg.thresholder_decay)
+                               noise_mask=~fmask, decay=cfg.thresholder_decay,
+                               group=_dp_group(mesh))
     frame_valid = None
     if attention_mask is not None:
         frame_valid = feature_vector_attention_mask(cfg.model, attention_mask,
@@ -255,17 +360,19 @@ def student_loss(student: HubertModel, wav: torch.Tensor,
                  attention_mask: Optional[torch.Tensor], noise: Optional[torch.Tensor],
                  target: torch.Tensor, segments: torch.Tensor, num_segments: torch.Tensor,
                  thresholder: ThresholderState, norm_mask: Optional[torch.Tensor],
-                 gens: StepGenerators, cfg: DistillConfig, train: bool = True):
+                 gens: StepGenerators, cfg: DistillConfig, train: bool = True,
+                 mesh: Optional[Mesh] = None):
     """Span mask, noise mixing, the student's forward and the loss against
-    the segment-averaged teacher fill; returns ``(loss, aux)``."""
+    the segment-averaged teacher fill; returns ``(loss, aux)`` (this rank's
+    rows: the loss their mean, the counts their sums)."""
     T = target.shape[1]
     with torch.no_grad():
-        mask_time_indices = _span_mask(gens.mask, segments, num_segments, T, cfg)
+        mask_time_indices = _span_mask(gens.mask, segments, num_segments, T, cfg, mesh)
         student_in = wav
         if cfg.do_noise_augment and noise is not None:
             if noise.dtype == torch.int16:
                 noise = pcm_normalize(noise, attention_mask)
-            student_in = mix_noise(gens.noise, wav, noise, cfg.noise_mixer)
+            student_in = _mix_noise(gens.noise, wav, noise, cfg, mesh)
 
     student.train(train)
     with torch.enable_grad() if train else torch.no_grad():
@@ -277,7 +384,7 @@ def student_loss(student: HubertModel, wav: torch.Tensor,
             train_norms = torch.sqrt((hidden.detach() ** 2).sum(-1) + 1e-8)
             thresholder = update_stats(thresholder, noise=train_norms.reshape(-1),
                                        noise_mask=(~norm_mask).reshape(-1),
-                                       decay=cfg.thresholder_decay)
+                                       decay=cfg.thresholder_decay, group=_dp_group(mesh))
         target_fill = averaged_target_fill(target, segments, num_segments)
     loss = ((hidden - target_fill) ** 2).sum(-1).mean()
 
@@ -290,51 +397,77 @@ def student_loss(student: HubertModel, wav: torch.Tensor,
 
 def distill_loss(student: HubertModel, teacher: HubertModel, thresholder: ThresholderState,
                  batch: Dict[str, Optional[torch.Tensor]], gens: StepGenerators,
-                 cfg: DistillConfig, train: bool = True):
+                 cfg: DistillConfig, train: bool = True, mesh: Optional[Mesh] = None):
     """The distillation loss and its aux dict (``distillation_loss``, the new
     ``thresholder``, ``num_segments``, ``masked_frames``, ``normthreshold``
     in stage 2), all on the device.
 
     ``batch``: input_values (B, L) float32 normalised or int16 PCM;
     attention_mask (B, L) or None; noise (B, L) or None; segments (B, MS, 2)
-    and num_segments (B,) for stage 1, None for online segmentation."""
+    and num_segments (B,) for stage 1, None for online segmentation. Under
+    ``mesh`` the batch is this rank's rows of the global batch."""
     wav, attention_mask, target = teacher_targets(teacher, batch)
     norm_mask = None
     if batch.get("segments") is not None:
         segments, num_segments = batch["segments"], batch["num_segments"]
     elif cfg.segment_online:
         segments, num_segments, thresholder, norm_mask = online_segments(
-            target, attention_mask, thresholder, gens, cfg)
+            target, attention_mask, thresholder, gens, cfg, mesh)
     else:
         raise ValueError("the batch has no segments and segment_online is off")
     return student_loss(student, wav, attention_mask, batch.get("noise"), target, segments,
-                        num_segments, thresholder, norm_mask, gens, cfg, train)
+                        num_segments, thresholder, norm_mask, gens, cfg, train, mesh)
 
 
-def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares over every element of every tensor."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+def global_norm(tensors: List[torch.Tensor], mesh: Optional[Mesh] = None,
+                names: Optional[List[str]] = None) -> torch.Tensor:
+    """sqrt of the sum of squares over every element of every tensor: under
+    a mesh, of the whole tensors (the squares of the TP-split leaves, by
+    ``names``, summed over ``mp``; those of FSDP's shards over ``dp``)."""
+    pieces = [local(t) for t in tensors]
+    # FSDP shards over a dp group of one are whole tensors
+    shard = [mesh is not None and mesh.dp > 1 and is_dtensor(t) for t in tensors]
+    if mesh is None or (mesh.mp == 1 and not any(shard)):
+        return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(pieces)))
+    split = [tp_dim(n) is not None for n in names]
+
+    def sum_sq(tp, dp):  # no tensor built from the host: the step stays asynchronous
+        ts = [t for t, s, d in zip(pieces, split, shard) if s == tp and d == dp]
+        if not ts:
+            return torch.zeros((), device=pieces[0].device)
+        return torch.stack(torch._foreach_norm(ts)).float().square().sum()
+
+    # the TP pieces summed over mp, then the FSDP shards over dp
+    split_sq = torch.stack([sum_sq(True, True), sum_sq(True, False)])
+    if mesh.mp > 1:
+        dist.all_reduce(split_sq, group=mesh.group("mp"))
+    sharded_sq = split_sq[0] + sum_sq(False, True)
+    if any(shard):
+        dist.all_reduce(sharded_sq, group=mesh.group("dp"))
+    return torch.sqrt(sharded_sq + split_sq[1] + sum_sq(False, False))
 
 
 @torch.no_grad()
 def apply_gradients(params: List[torch.Tensor], grads: List[torch.Tensor],
                     optimizer: torch.optim.Optimizer, acc_grads: Optional[List[torch.Tensor]],
-                    step: int, cfg: DistillConfig, schedule) -> None:
+                    step: int, cfg: DistillConfig, schedule, norm=global_norm) -> None:
     """``optax.MultiSteps(chain(clip_by_global_norm, adamw))`` on ``grads``
     (one per parameter) at micro-batch ``step``: accumulate the running
     mean in ``acc_grads``, and at the k-th micro-batch clip it and take one
-    AdamW step at the schedule's rate for the update count."""
+    AdamW step at the schedule's rate for the update count. ``norm``: the
+    global norm of a list of gradients (a mesh's, :func:`global_norm`)."""
     k = cfg.accumulate_grad_batches
     if k > 1:
         n = step % k
-        torch._foreach_add_(acc_grads, torch._foreach_div(
-            torch._foreach_sub(grads, acc_grads), n + 1))
+        acc = [local(a) for a in acc_grads]
+        torch._foreach_add_(acc, torch._foreach_div(
+            torch._foreach_sub([local(g) for g in grads], acc), n + 1))
         if n < k - 1:
             return
         grads = [a.clone() for a in acc_grads]
-        torch._foreach_zero_(acc_grads)
-    factor = torch.clamp(cfg.grad_clip / global_norm(grads), max=1.0)
-    torch._foreach_mul_(grads, factor)
+        torch._foreach_zero_(acc)
+    factor = torch.clamp(cfg.grad_clip / norm(grads), max=1.0)
+    torch._foreach_mul_([local(g) for g in grads], factor)
     for p, g in zip(params, grads):
         p.grad = g
     for group in optimizer.param_groups:
@@ -342,9 +475,19 @@ def apply_gradients(params: List[torch.Tensor], grads: List[torch.Tensor],
     optimizer.step()
 
 
-def make_train_step(cfg: DistillConfig):
+def _reduce_metrics(loss, aux, mesh: Optional[Mesh]):
+    """The global batch's ``loss`` (the mean of the ranks' means) and
+    counts (sums over dp), in one all-reduce."""
+    counts = [k for k in ("num_segments", "masked_frames") if k in aux]
+    out = reduce_mean({"loss": loss, **{k: aux[k] for k in counts}}, mesh, sums=counts)
+    return out.pop("loss"), dict(aux, **out)
+
+
+def make_train_step(cfg: DistillConfig, mesh: Optional[Mesh] = None):
     """Returns ``(state, batch, seed) -> metrics``: one step, in place on
-    ``state``; the metrics are device tensors."""
+    ``state``; the metrics are device tensors. Under ``mesh`` (the state's,
+    from ``init_train_state(..., mesh=)``) ``batch`` is this rank's rows and
+    the metrics are the global batch's."""
     if cfg.model.int8_encoder:
         # its rounding has no gradient and no straight-through estimator:
         # training over it would barely move the projections (as JAX asserts)
@@ -356,36 +499,46 @@ def make_train_step(cfg: DistillConfig):
     def train_step(state: TrainState, batch: Dict, seed: int) -> Dict[str, Any]:
         if cfg.ema_decay < 1.0 and state.step % cfg.accumulate_grad_batches == 0:
             ema_update(state.ema, state.student.state_dict(), cfg.ema_decay)
-        params = list(state.student.parameters())
+        named = list(state.student.named_parameters())
+        names, params = [n for n, _ in named], [p for _, p in named]
         for p in params:
             p.grad = None
-        device = params[0].device
+        device = local(params[0]).device
+        gens = step_generators(seed, state.step, device, rank=mesh.dp_rank if mesh else 0)
+        norm = (lambda g: global_norm(g, mesh, names)) if mesh is not None else global_norm  # noqa: E731
         # the TF32 flags hold for the backward pass too (cuDNN's default is on)
         with matmul_precision(cfg.model.precision):
             loss, aux = distill_loss(state.student, state.teacher, state.thresholder, batch,
-                                     step_generators(seed, state.step, device), cfg)
+                                     gens, cfg, mesh=mesh)
             loss.backward()
             # a parameter the loss does not reach (masked_spec_embed without
             # masking) has a zero gradient in JAX, and AdamW still decays it
             grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
-            grad_norm = global_norm(grads)
+            # FSDP reduce-scatters its shards' gradients in the backward
+            whole = [g for p, g in zip(params, grads) if not is_dtensor(p)]
+            if mesh is not None and whole:
+                all_reduce_mean_(whole, mesh.group("dp"), mesh.dp)
+            grad_norm = norm(grads)
             apply_gradients(params, grads, state.optimizer, state.acc_grads, state.step, cfg,
-                            schedule)
+                            schedule, norm)
         state.thresholder = aux.pop("thresholder")
         state.step += 1
+        loss, aux = _reduce_metrics(loss, aux, mesh)
         return {"loss": loss.detach(), "grad_norm": grad_norm, **aux}
 
     return train_step
 
 
-def make_eval_step(cfg: DistillConfig):
+def make_eval_step(cfg: DistillConfig, mesh: Optional[Mesh] = None):
     """Returns ``(state, batch, seed) -> metrics``: the loss with the student
-    in eval mode; the state is not changed."""
+    in eval mode; the state is not changed. Under ``mesh`` the metrics are
+    the global batch's."""
     def eval_step(state: TrainState, batch: Dict, seed: int) -> Dict[str, Any]:
-        device = next(state.student.parameters()).device
+        device = local(next(state.student.parameters())).device
         loss, aux = distill_loss(state.student, state.teacher, state.thresholder, batch,
-                                 step_generators(seed, 0, device), cfg, train=False)
+                                 step_generators(seed, 0, device), cfg, train=False, mesh=mesh)
         aux.pop("thresholder")
+        loss, aux = _reduce_metrics(loss, aux, mesh)
         return {"loss": loss, **aux}
 
     return eval_step

@@ -3,7 +3,9 @@
 Port of ``sylber_tpu/train/ema.py``. The teacher starts as a copy of the
 student; ``fp32_shadow`` keeps it in float32 whatever the student's dtype,
 so that increments of ``(1 - decay) * param`` do not vanish in bf16. The
-update is done in place (``torch._foreach_*``), where JAX builds a new tree.
+update is done in place (``torch._foreach_*``), where JAX builds a new tree;
+under FSDP it works on each rank's shards (the EMA and the student are
+sharded alike).
 """
 
 from __future__ import annotations
@@ -11,6 +13,8 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
+
+from ..parallel.mesh import local
 
 Params = Dict[str, torch.Tensor]
 
@@ -27,10 +31,10 @@ def ema_update(ema: Params, params: Params, decay: float) -> None:
     """``ema = ema * decay + param * (1 - decay)``, in place, in each EMA
     leaf's dtype."""
     keys = [k for k, e in ema.items() if e.is_floating_point()]
-    e = [ema[k] for k in keys]
+    e = [local(ema[k]) for k in keys]
     torch._foreach_mul_(e, decay)
-    torch._foreach_add_(e, [params[k].detach().to(ema[k].dtype) * (1.0 - decay)
-                            for k in keys])
+    torch._foreach_add_(e, [local(params[k]).detach().to(ei.dtype) * (1.0 - decay)
+                            for k, ei in zip(keys, e)])
 
 
 def ema_restore(ema: Params, params_like: Params) -> Params:

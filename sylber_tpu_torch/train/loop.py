@@ -1,6 +1,6 @@
 """Training loop: config -> data -> step loop -> checkpoints and metrics.
 
-Port of ``sylber_tpu/train/loop.py`` for one device. The same YAML keys
+Port of ``sylber_tpu/train/loop.py``. The same YAML keys
 (``distill_config_from_dict``); data from the synthetic corpus, uploaded
 once and gathered on the device (``data.device_resident``, the default for
 it), or from files, assembled on the host (``data.num_workers`` worker
@@ -11,11 +11,27 @@ N``); a Chrome trace of steps ``a`` to ``b`` with ``profile_steps=(a, b)``
 (``<out_dir>/profile/trace.json``); the final student parameters as
 ``params_final.npz`` in the JAX layout.
 
-Differences from the JAX loop: the device mesh (dp, mp, fsdp), multi-host
-runs, ``steps_per_dispatch`` and ``rng_impl`` are not ported (``rng_impl``
-is read and ignored); a resumed run is not reseeded: the batches of step
-``s`` depend on ``(seed, s)`` alone, so it sees what an uninterrupted run
-sees (the JAX loop reseeds the data with ``seed + 1_000_003 * start``).
+The mesh (``mesh: {dp, mp, fsdp, fsdp_min_size}``, ``distributed:``;
+``parallel/mesh.py``; FSDP shards the leaves of JAX's plan, those of at
+least ``fsdp_min_size`` elements outside the convolutions): the process first joins the run's process group
+(``maybe_distributed_init``: a ``distributed:`` block, the ``SYLBER_TPU_*``
+variables or a torchrun launch, one process a GPU), then lays a ``dp x mp``
+mesh over the ranks (``dp: -1`` fills the world; a mesh that is not the
+world raises, as does a ``dp`` that does not divide the batch). Every rank
+builds the same global batch from ``(seed, step)`` and keeps its rows; with
+``data.device_resident`` each rank uploads the whole corpus and gathers the
+global batch on its device (JAX's loop places each host's share of a
+host-built batch). Rank 0 alone prints and writes ``metrics.jsonl``, the
+checkpoints and ``params_final.npz``, whose leaves are gathered whole first
+(a checkpoint resumes under any mesh); the val loss is the global batch's;
+MFU is over the ``dp`` cards, as in JAX.
+
+Differences from the JAX loop: ``steps_per_dispatch`` and ``rng_impl`` are
+not ported (both are read: the loop says it runs one step a dispatch, and
+that ``rng_impl`` selects a JAX generator); a resumed run is not reseeded:
+the batches of step ``s`` depend on ``(seed, s)`` alone, so it sees what an
+uninterrupted run sees (the JAX loop reseeds the data with
+``seed + 1_000_003 * start``).
 """
 
 from __future__ import annotations
@@ -27,6 +43,7 @@ import time
 from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..api import resolve_device
 from ..data.dataset import (SpeechDataset, SyntheticSpeechDataset, load_manifest, prefetch,
@@ -35,6 +52,8 @@ from ..data.device import device_stream, precollate, to_device, wait_ready
 from ..data.noise import NoiseMixerConfig
 from ..io.checkpoint import TrainCheckpointManager, save_params_npz
 from ..models.hubert import HubertConfig
+from ..parallel.mesh import (FSDP_MIN_SIZE, fetch_global, is_main, maybe_distributed_init,
+                             mesh_from_config, shard_batch)
 from ..utils.profiling import hubert_train_flops, mfu, trace
 from .distill import DistillConfig, TrainState, init_train_state, make_eval_step, make_train_step
 
@@ -148,11 +167,17 @@ def train(cfg: Dict[str, Any], out_dir: str = "runs/sylber", max_steps: Optional
           limit_val_batches: int = 100, init_params: Optional[Dict[str, torch.Tensor]] = None,
           device=None, profile_steps: Optional[Tuple[int, int]] = None) -> TrainState:
     """Train from the recipe dict ``cfg`` (the JAX loop's keys) on ``device``
-    (``cuda`` unless the caller asks for the CPU; raises without a GPU).
-    ``init_params``: a HubertModel state dict for the student and teacher.
-    ``profile_steps=(a, b)``: trace steps ``a`` to ``b`` (0-based, both
-    included) into ``<out_dir>/profile``."""
+    (``cuda`` unless the caller asks for the CPU, ``cuda:LOCAL_RANK`` in a
+    process group; raises without a GPU). ``init_params``: a HubertModel
+    state dict for the student and teacher. ``profile_steps=(a, b)``: trace
+    steps ``a`` to ``b`` (0-based, both included) into
+    ``<out_dir>/profile`` (rank 0's)."""
+    maybe_distributed_init(cfg.get("distributed"), device)
     device = resolve_device(device)
+    mesh_cfg = dict(cfg.get("mesh") or {})
+    mesh = mesh_from_config(mesh_cfg, device)
+    dp = mesh.dp if mesh is not None else 1
+    main = is_main()
     model_cfg = dict(cfg.get("model", {}))
     if "accumulate_grad_batches" in cfg:
         model_cfg.setdefault("accumulate_grad_batches", cfg["accumulate_grad_batches"])
@@ -161,21 +186,33 @@ def train(cfg: Dict[str, Any], out_dir: str = "runs/sylber", max_steps: Optional
     batch_size = data_cfg.get("batch_size", 8)
     max_steps = max_steps or cfg.get("max_steps", dcfg.total_steps)
     seed = int(cfg.get("seed", 0))
-    if cfg.get("rng_impl", "threefry") not in ("threefry", "threefry2x32"):
+    if batch_size % dp:
+        raise ValueError(f"mesh dp={dp} does not divide the batch of {batch_size}")
+    if main and cfg.get("rng_impl", "threefry") not in ("threefry", "threefry2x32"):
         print(f"rng_impl {cfg['rng_impl']!r} selects a JAX generator; ignored here")
+    if main and int(cfg.get("steps_per_dispatch", 1)) > 1:
+        print(f"steps_per_dispatch={cfg['steps_per_dispatch']}: not ported; running one "
+              "step per dispatch")
+    if main and mesh is not None:
+        print(f"mesh: dp={mesh.dp} mp={mesh.mp}{' fsdp' if mesh_cfg.get('fsdp') else ''} over "
+              f"{dist.get_world_size()} ranks ({dist.get_backend()})")
 
     state = init_train_state(dcfg, device, params=init_params,
                              thresholder_kwargs=model_cfg.get("thresholder_configs") or {},
-                             seed=seed)
+                             seed=seed, mesh=mesh,
+                             fsdp=bool(mesh_cfg.get("fsdp", False)) and mesh is not None,
+                             fsdp_min_size=int(mesh_cfg.get("fsdp_min_size", FSDP_MIN_SIZE)))
     mgr = TrainCheckpointManager(os.path.join(out_dir, "ckpts"))
     if mgr.latest_step is not None:
         state.load_state_dict(mgr.restore())
-        print(f"resumed from step {state.step}")
+        if main:
+            print(f"resumed from step {state.step}")
     start = state.step
-    logger = MetricLogger(out_dir)
-    stream = train_batches(data_cfg, batch_size, seed, start, device)
-    step_fn = make_train_step(dcfg)
-    eval_fn = make_eval_step(dcfg)
+    logger = MetricLogger(out_dir) if main else None
+    stream = (shard_batch(b, mesh)
+              for b in train_batches(data_cfg, batch_size, seed, start, device))
+    step_fn = make_train_step(dcfg, mesh)
+    eval_fn = make_eval_step(dcfg, mesh)
 
     def log_row(step, metrics, crop_len):
         nonlocal t_last, s_last
@@ -185,7 +222,9 @@ def train(cfg: Dict[str, Any], out_dir: str = "runs/sylber", max_steps: Optional
         t_last, s_last = now, step
         m["mfu"] = mfu(hubert_train_flops(dcfg.model, batch_size, crop_len),
                        1.0 / max(m["steps_per_sec"], 1e-9),
-                       str(dcfg.model.dtype).replace("torch.", ""), dcfg.model.precision)
+                       str(dcfg.model.dtype).replace("torch.", ""), dcfg.model.precision, dp)
+        if not main:
+            return
         row = logger.log(step, m)
         print(f"step {step}: " + " ".join(f"{k}={v:.4g}" for k, v in row.items()
                                         if k not in ("time", "prefix")))
@@ -194,7 +233,7 @@ def train(cfg: Dict[str, Any], out_dir: str = "runs/sylber", max_steps: Optional
     val_batches = None
     with contextlib.ExitStack() as tracer:  # closed after step b, or on an error
         for step_i in range(start, max_steps):
-            if profile_steps and step_i == profile_steps[0]:
+            if profile_steps and step_i == profile_steps[0] and main:
                 tracer.enter_context(trace(os.path.join(out_dir, "profile")))
             batch = next(stream)
             metrics = step_fn(state, batch, seed)
@@ -204,17 +243,24 @@ def train(cfg: Dict[str, Any], out_dir: str = "runs/sylber", max_steps: Optional
             if s_end % log_every == 0:
                 log_row(s_end, metrics, batch["input_values"].shape[-1])
             if ckpt_every and step_i // ckpt_every != s_end // ckpt_every:
-                mgr.save(s_end, dict(state.state_dict(), data_seed=seed))
+                full = state.state_dict()  # every rank gathers its pieces
+                if main:
+                    mgr.save(s_end, dict(full, data_seed=seed))
             if val_every and step_i // val_every != s_end // val_every:
                 if val_batches is None:  # built once, kept on the device
-                    val_batches = _val_batches(data_cfg, batch_size, seed + 1, device,
-                                               limit_val_batches)
+                    val_batches = [shard_batch(vb, mesh) for vb in _val_batches(
+                        data_cfg, batch_size, seed + 1, device, limit_val_batches)]
                 losses = [eval_fn(state, vb, seed + 1 + i)["loss"]
                           for i, vb in enumerate(val_batches)]
-                if losses:
+                if losses and main:
                     loss = float(torch.stack(losses).mean())
                     logger.log(s_end, {"loss": loss}, prefix="val")
                     print(f"  val loss: {loss:.4f}")
 
-    save_params_npz(os.path.join(out_dir, "params_final.npz"), state.student.state_dict())
+    final = fetch_global(state.student.state_dict(), mesh) if mesh is not None \
+        else state.student.state_dict()
+    if main:
+        save_params_npz(os.path.join(out_dir, "params_final.npz"), final)
+    if mesh is not None:
+        dist.barrier()  # the outputs exist when any rank returns
     return state

@@ -22,8 +22,15 @@ package's ``load_params_npz`` and the port's ``SegmentSynthesis`` read),
 ``eval.json`` and ``metrics.jsonl``. The JAX loop writes an Orbax directory
 instead (intended difference (y), ``ROADMAP.md`` section 3).
 
-One device: ``mesh: {dp: -1 | 1}`` (the shipped recipes) is this device; a
-larger ``dp`` raises (data parallelism is ``ROADMAP.md`` section 1, item 5).
+Data parallelism (``mesh: {dp}``, ``distributed:``; JAX's
+``synthesis_loop.py:286-356``): the process joins the run's process group
+(``parallel/mesh.py::maybe_distributed_init``, one process a GPU), every
+rank precomputes the whole corpus's features and keeps the state
+replicated, each step's batch is cut into the ranks' rows, the gradients
+are averaged over ``dp``; rank 0 alone logs, evaluates and writes. ``mp >
+1`` raises (the regressor has no tensor-parallel rules), as does a ``dp``
+that does not divide the batch. Without a process group ``mesh: {dp: -1 |
+1}`` (the shipped recipes) is this device, and a larger ``dp`` raises.
 """
 
 from __future__ import annotations
@@ -37,6 +44,8 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
 from ..api import resolve_device
 from ..data.dataset import _zero_mean_unit_var
 from ..data.synthetic import synth_utterance
@@ -44,6 +53,7 @@ from ..io.checkpoint import load_state_dict, save_tree_npz
 from ..models.hubert import HubertModel, matmul_precision
 from ..ops.pitch import segment_pitch_cond
 from ..ops.segment import averaged_target_fill, segment_batch
+from ..parallel.mesh import is_main, maybe_distributed_init, mesh_from_config, shard_batch
 from ..synthesis import (SegmentSynthesis, SynthesisConfig, init_synthesis_train_state,
                          make_synthesis_optimizer, make_synthesis_train_step,
                          synthesis_config_from_dict)
@@ -123,16 +133,24 @@ def evaluate_synthesis(synth: SegmentSynthesis, features, art_truth: np.ndarray,
 
 
 def check_mesh(cfg: Dict[str, Any]) -> None:
-    """``mesh: {dp: -1 | 1, mp: 1}`` runs on this one device; anything else
-    raises."""
+    """``mesh: {mp: 1}``: the synthesis trainers shard over dp only."""
     mesh = dict(cfg.get("mesh", {}) or {})
     if int(mesh.get("mp", 1)) != 1:
         raise ValueError("the synthesis trainers shard over dp only (mp must be 1)")
-    dp = mesh.get("dp", -1)
-    if dp not in (-1, None, 1):
-        raise NotImplementedError(
-            f"mesh dp={dp}: data-parallel training is not ported yet (ROADMAP.md section 1, "
-            "item 5); use dp: -1 or 1 for one device")
+
+
+def synthesis_mesh(cfg: Dict[str, Any], device, batch_size: int):
+    """The recipe's dp mesh over the process group (None for one process
+    alone); raises where ``dp`` does not divide ``batch_size``."""
+    check_mesh(cfg)
+    mesh = mesh_from_config(cfg.get("mesh"), device)
+    if mesh is not None:
+        if batch_size % mesh.dp:
+            raise ValueError(f"mesh dp={mesh.dp} does not divide the batch of {batch_size}")
+        if is_main():
+            print(f"mesh: dp={mesh.dp} over {dist.get_world_size()} ranks "
+                  f"({dist.get_backend()})")
+    return mesh
 
 
 def setup(cfg: Dict[str, Any], seed: int, device, quantizer=None):
@@ -184,9 +202,11 @@ def batch_order(n_utts: int, batch_size: int, seed: int):
 
 
 def run_steps(step_fn, state, gather, n_utts: int, batch_size: int, total_steps: int,
-              seed: int, log_every: int, logger: MetricLogger, device) -> None:
+              seed: int, log_every: int, logger: Optional[MetricLogger], device,
+              mesh=None) -> None:
     """The step loop both trainers share: batches gathered on the device by
-    index, the metrics read every ``log_every`` steps, ``gc.collect()``
+    index (under ``mesh`` this rank's rows of them), the metrics read every
+    ``log_every`` steps (logged where ``logger`` is given), ``gc.collect()``
     every 50."""
     if n_utts < batch_size:
         raise ValueError(f"{n_utts} utterances for a batch of {batch_size}")
@@ -194,12 +214,14 @@ def run_steps(step_fn, state, gather, n_utts: int, batch_size: int, total_steps:
     order = batch_order(n_utts, batch_size, seed)
     for step_i in range(total_steps):
         idx = torch.from_numpy(next(order)).to(device)
-        metrics = step_fn(state, gather(idx), seed)
+        metrics = step_fn(state, shard_batch(gather(idx), mesh), seed)
         if (step_i + 1) % log_every == 0:
             m = _fetch(metrics)
             now = time.perf_counter()
             m["steps_per_sec"] = (step_i + 1 - s_last) / max(now - t_last, 1e-9)
             t_last, s_last = now, step_i + 1
+            if logger is None:
+                continue
             row = logger.log(step_i + 1, m)
             print(f"step {step_i + 1}: " + " ".join(
                 f"{k}={v:.4g}" for k, v in row.items() if k not in ("time", "prefix")),
@@ -215,9 +237,13 @@ def train_synthesis(cfg: Dict[str, Any], out_dir: str = "runs/synthesis",
     ``train``, ``eval``, ``mesh`` sections) on ``device`` (``cuda`` unless
     the caller asks for the CPU); returns ``(SynthesisTrainState, eval
     metrics)``. The trained weights are ``synthesis_final.npz`` in
-    ``out_dir`` and in ``state.synth``'s modules."""
+    ``out_dir`` and in ``state.synth``'s modules. Under a mesh the eval
+    metrics are rank 0's (empty on the other ranks)."""
+    maybe_distributed_init(cfg.get("distributed"), device)
     device = resolve_device(device)
     data_cfg, train_cfg = dict(cfg.get("data", {})), dict(cfg.get("train", {}))
+    batch_size = train_cfg.get("batch_size", 32)
+    mesh = synthesis_mesh(cfg, device, batch_size)
     model_cfg, sc, synth, norm_thr, merge_thr = setup(cfg, seed, device)
     if not data_cfg.get("synthetic", True):
         raise ValueError("only the synthetic (wav, art) corpus is available offline")
@@ -237,7 +263,7 @@ def train_synthesis(cfg: Dict[str, Any], out_dir: str = "runs/synthesis",
                                          total_steps=total_steps,
                                          min_factor=train_cfg.get("min_factor", 0.05))
     state = init_synthesis_train_state(synth, optimizer)
-    step_fn = make_synthesis_train_step(synth, optimizer)
+    step_fn = make_synthesis_train_step(synth, optimizer, mesh=mesh)
 
     def gather(idx):
         batch = {"features": features[idx], "art": art[idx]}
@@ -245,11 +271,13 @@ def train_synthesis(cfg: Dict[str, Any], out_dir: str = "runs/synthesis",
             batch["pitch_cond"] = pitch_cond[idx]
         return batch
 
-    os.makedirs(out_dir, exist_ok=True)
-    logger = MetricLogger(out_dir)
-    run_steps(step_fn, state, gather, n_utts, train_cfg.get("batch_size", 32), total_steps,
-              seed, log_every, logger, device)
+    logger = MetricLogger(out_dir) if is_main() else None
+    run_steps(step_fn, state, gather, n_utts, batch_size, total_steps, seed, log_every, logger,
+              device, mesh)
     del features, art, pitch_cond
+    if not is_main():
+        dist.barrier()  # rank 0 evaluates and writes
+        return state, {}
 
     n_eval = dict(cfg.get("eval", {})).get("n_utts", 24)
     heldout = build_synthesis_corpus(n_eval, seconds, seed=seed + 90001, style=style)
@@ -261,4 +289,6 @@ def train_synthesis(cfg: Dict[str, Any], out_dir: str = "runs/synthesis",
     save_tree_npz(os.path.join(out_dir, "synthesis_final.npz"), synth.jax_tree())
     with open(os.path.join(out_dir, "eval.json"), "w") as f:
         json.dump(metrics, f, indent=1)
+    if mesh is not None:
+        dist.barrier()
     return state, metrics

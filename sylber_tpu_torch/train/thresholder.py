@@ -4,6 +4,9 @@ Port of ``sylber_tpu/train/thresholder.py``: exponentially decayed
 signal/noise Gaussians over frame norms, with the threshold at the root of
 the quadratic that equates the two likelihoods. Every value stays a 0-d
 tensor on the device of the norms, so the training step reads nothing back.
+Under data parallelism the masked means are those of the global batch: each
+sum and count is all-reduced over the ``dp`` group (``group=``) before the
+division, so every rank holds the same thresholder.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ import math
 from typing import NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 
 class ThresholderState(NamedTuple):
@@ -50,18 +54,21 @@ def get_threshold(state: ThresholderState, eta: float = 1.0) -> torch.Tensor:
     return torch.where(torch.isnan(state.fixed), thr, state.fixed)
 
 
-def _masked_mean(x: torch.Tensor, mask: torch.Tensor):
-    cnt = mask.sum()
-    mean = torch.where(cnt > 0, (x * mask).sum() / cnt.clamp_min(1.0),
-                       torch.zeros_like(cnt))
+def _masked_mean(x: torch.Tensor, mask: torch.Tensor, group=None):
+    total, cnt = (x * mask).sum(), mask.sum()
+    if group is not None:
+        both = torch.stack([total, cnt])
+        dist.all_reduce(both, group=group)
+        total, cnt = both[0], both[1]
+    mean = torch.where(cnt > 0, total / cnt.clamp_min(1.0), torch.zeros_like(cnt))
     return mean, cnt
 
 
-def _update(mean0, var0, x, mask, decay):
+def _update(mean0, var0, x, mask, decay, group=None):
     mask = (torch.ones_like(x) if mask is None else mask).float()
-    mean, cnt = _masked_mean(x, mask)
+    mean, cnt = _masked_mean(x, mask, group)
     new_mean = decay * mean0 + (1 - decay) * mean
-    var, _ = _masked_mean((x - new_mean) ** 2, mask)
+    var, _ = _masked_mean((x - new_mean) ** 2, mask, group)
     new_var = decay * var0 + (1 - decay) * var
     return torch.where(cnt > 0, new_mean, mean0), torch.where(cnt > 0, new_var, var0)
 
@@ -70,15 +77,16 @@ def update_stats(state: ThresholderState, signal: Optional[torch.Tensor] = None,
                  signal_mask: Optional[torch.Tensor] = None,
                  noise: Optional[torch.Tensor] = None,
                  noise_mask: Optional[torch.Tensor] = None,
-                 decay: float = 0.9999) -> ThresholderState:
+                 decay: float = 0.9999, group=None) -> ThresholderState:
     """Decayed stats update over the masked entries of flat ``signal`` /
     ``noise`` norms; an empty selection leaves its stats as they are, the
-    variance uses the updated mean, and a fixed threshold never updates."""
+    variance uses the updated mean, and a fixed threshold never updates.
+    ``group``: the process group whose ranks hold the rest of the batch."""
     sm, sv, nm, nv = state.signal_mean, state.signal_var, state.noise_mean, state.noise_var
     if signal is not None:
-        sm, sv = _update(sm, sv, signal, signal_mask, decay)
+        sm, sv = _update(sm, sv, signal, signal_mask, decay, group)
     if noise is not None:
-        nm, nv = _update(nm, nv, noise, noise_mask, decay)
+        nm, nv = _update(nm, nv, noise, noise_mask, decay, group)
     est = torch.isnan(state.fixed)
     return ThresholderState(torch.where(est, sm, state.signal_mean),
                             torch.where(est, sv, state.signal_var),

@@ -19,6 +19,14 @@ pass JAX's in (``draws=``, ``sample_idx=``).
 
 The trained state loads into ``vq_tokenizer.py::TrainedVQTokenizer`` and,
 through its ``save_npz``, into the JAX package's ``TrainedVQTokenizer.load_npz``.
+
+Data parallelism (``mesh: {dp}``, as ``train/synthesis_loop.py`` takes it;
+JAX's ``vq_synthesis.py:325-350``): each rank takes its rows of the global
+batch, the draws are the global batch's (but dropout, seeded per rank), the
+gradients are averaged over ``dp``; the pitch loss divides by the global
+batch's voiced count; the codebooks' EMA counts and sums are all-reduced
+and the dead codes reseeded from the global batch's points, so the ranks'
+codebooks never drift apart.
 """
 
 from __future__ import annotations
@@ -31,13 +39,15 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..api import resolve_device
-from ..flow.cfm import CFMDraws, cfm_draws
+from ..flow.cfm import CFMDraws
 from ..flow.quantizer import (QuantizerConfig, QuantizerState, quantizer_forward,
                               quantizer_init, quantizer_to, vq_ema_update, vq_reseed_draw)
 from ..io.checkpoint import save_tree_npz, tree_from_state_dict
-from ..synthesis import (InputMLP, SegmentSynthesis, SynthesisOptimizer,
+from ..parallel.mesh import all_gather_cat, is_main, maybe_distributed_init, reduce_mean
+from ..synthesis import (InputMLP, SegmentSynthesis, SynthesisOptimizer, global_cfm_draws,
                          make_synthesis_optimizer, train_update)
 from ..utils.metrics import pearson
 from ..vq_tokenizer import TrainedVQTokenizer, quantizer_config_from_dict
@@ -92,13 +102,14 @@ def init_vq_synthesis_train_state(synth: SegmentSynthesis, qcfg: QuantizerConfig
 
 def make_vq_synthesis_train_step(synth: SegmentSynthesis, qcfg: QuantizerConfig,
                                  optimizer: SynthesisOptimizer, commit_weight: float = 1.0,
-                                 pitch_weight: float = 0.0):
+                                 pitch_weight: float = 0.0, mesh=None):
     """Returns ``(state, batch, seed, draws=None, sample_idx=None) ->
     metrics``: one update in place. ``batch``: ``features`` (B, L, d),
     ``art`` (B, L, 14), optional ``mask``. ``sample_idx``: the reseed draws
     of the art and the pitch VQ (each (groups, quantizers, K)), else drawn.
     The metrics (``loss``, ``cfm_loss``, ``commit_loss``, ``pitch_loss``,
-    ``grad_norm``) are device tensors; nothing is read back."""
+    ``grad_norm``) are device tensors; nothing is read back. Under ``mesh``
+    ``batch`` is this rank's rows and the metrics are the global batch's."""
     c = synth.config
     schedule = optimizer.schedule()
     n_art = qcfg.art_vq.groups * qcfg.art_vq.num_quantizers
@@ -110,9 +121,10 @@ def make_vq_synthesis_train_step(synth: SegmentSynthesis, qcfg: QuantizerConfig,
         device = state.params[0].device
         feats = batch["features"]
         non_blank = (feats ** 2).sum(-1) > 0
-        gens = step_generators(seed, state.step, device)
-        if draws is None:
-            draws = cfm_draws(batch["art"].shape, gens.noise, gens.mask, gens.drop, device)
+        gens = step_generators(seed, state.step, device, rank=mesh.dp_rank if mesh else 0)
+        if draws is None:   # the reseed draws follow the CFM's on gens.mask
+            draws = global_cfm_draws(batch["art"].shape, gens, device, mesh)
+        group = None if mesh is None else mesh.group("dp")
         out = {}
 
         def loss_fn():
@@ -125,13 +137,19 @@ def make_vq_synthesis_train_step(synth: SegmentSynthesis, qcfg: QuantizerConfig,
             voiced = batch["art"][..., 13] > 0.02
             pmask = (non_blank & voiced).float()
             perr = (pred - batch["art"][..., 12] * c.pitch_amp) ** 2
-            pitch_loss = (perr * pmask).sum() / torch.clamp_min(pmask.sum(), 1.0)
+            count = pmask.sum()
+            if mesh is not None:   # the global batch's voiced frames; the mean
+                count = count.detach().clone()   # of the ranks' gradients is then its
+                dist.all_reduce(count, group=group)   # gradient
+                pitch_loss = (perr * pmask).sum() * mesh.dp / torch.clamp_min(count, 1.0)
+            else:
+                pitch_loss = (perr * pmask).sum() / torch.clamp_min(count, 1.0)
             commit = out["commitment_loss"]
             total = cfm + commit_weight * commit + pitch_weight * pitch_loss
             return total, {"cfm_loss": cfm.detach(), "commit_loss": commit.detach(),
                            "pitch_loss": pitch_loss.detach()}
 
-        total, aux, grad_norm = train_update(synth, state, optimizer, schedule, loss_fn)
+        total, aux, grad_norm = train_update(synth, state, optimizer, schedule, loss_fn, mesh)
 
         # the codebooks' EMA update from the pre-VQ outputs (the
         # straight-through path never updates them), blanks masked out
@@ -139,16 +157,19 @@ def make_vq_synthesis_train_step(synth: SegmentSynthesis, qcfg: QuantizerConfig,
         q = state.quantizer
         if sample_idx is None:
             m = non_blank.reshape(-1).float()
+            if mesh is not None:   # the draw is over the global batch's points
+                m = all_gather_cat(m, 0, group)
             sample_idx = tuple(
                 vq_reseed_draw(gens.mask, m, (v.groups, v.num_quantizers, v.codebook_size))
                 for v in (qcfg.art_vq, qcfg.pitch_vq))
         art_vq = vq_ema_update(q.art_vq, qcfg.art_vq, pre[..., :-P], idx[..., :n_art],
-                               mask=non_blank, sample_idx=sample_idx[0])
+                               mask=non_blank, sample_idx=sample_idx[0], group=group)
         pitch_vq = vq_ema_update(q.pitch_vq, qcfg.pitch_vq, pre[..., -P:], idx[..., n_art:],
-                                 mask=non_blank, sample_idx=sample_idx[1])
+                                 mask=non_blank, sample_idx=sample_idx[1], group=group)
         state.quantizer = QuantizerState(q.encoder, art_vq, pitch_vq)
         state.step += 1
-        return {"loss": total.detach(), **aux, "grad_norm": grad_norm}
+        metrics = reduce_mean({"loss": total.detach(), **aux}, mesh)
+        return {**metrics, "grad_norm": grad_norm}
 
     return train_step
 
@@ -196,13 +217,18 @@ def train_vq_synthesis(cfg: Dict[str, Any], out_dir: str = "runs/vq_synth",
     with a ``model.quantizer_configs`` block; returns ``(VQSynthState,
     QuantizerConfig, eval metrics of the wav -> tokens -> CFM chain)``.
     Writes ``vq_synthesis_final.npz`` (``input_mlp``, ``regressor``),
-    ``vq_tokenizer.npz``, ``eval.json`` and ``metrics.jsonl``."""
-    from .synthesis_loop import build_synthesis_corpus, corpus_features, run_steps, setup
+    ``vq_tokenizer.npz``, ``eval.json`` and ``metrics.jsonl`` (rank 0, whose
+    eval metrics alone are returned under a mesh)."""
+    from .synthesis_loop import (build_synthesis_corpus, corpus_features, run_steps, setup,
+                                 synthesis_mesh)
 
+    maybe_distributed_init(cfg.get("distributed"), device)
     device = resolve_device(device)
     if not cfg.get("speech_model_ckpt"):
         raise ValueError("train_vq_synthesis needs a trained encoder (speech_model_ckpt)")
     data_cfg, train_cfg = dict(cfg.get("data", {})), dict(cfg.get("train", {}))
+    batch_size = train_cfg.get("batch_size", 32)
+    mesh = synthesis_mesh(cfg, device, batch_size)
     model_cfg, sc, synth, norm_thr, merge_thr = setup(cfg, seed, device)
     qcfg = quantizer_config_from_dict(model_cfg.get("quantizer_configs"),
                                       input_dim=sc.hubert.hidden_size)
@@ -223,12 +249,14 @@ def train_vq_synthesis(cfg: Dict[str, Any], out_dir: str = "runs/vq_synth",
     state = init_vq_synthesis_train_state(synth, qcfg, optimizer, seed=seed + 7)
     step_fn = make_vq_synthesis_train_step(
         synth, qcfg, optimizer, commit_weight=float(train_cfg.get("commit_weight", 1.0)),
-        pitch_weight=float(train_cfg.get("pitch_loss_weight", 0.0)))
-    os.makedirs(out_dir, exist_ok=True)
-    logger = MetricLogger(out_dir)
+        pitch_weight=float(train_cfg.get("pitch_loss_weight", 0.0)), mesh=mesh)
+    logger = MetricLogger(out_dir) if is_main() else None
     run_steps(step_fn, state, lambda idx: {"features": features[idx], "art": art[idx]}, n_utts,
-              train_cfg.get("batch_size", 32), total_steps, seed, log_every, logger, device)
+              batch_size, total_steps, seed, log_every, logger, device, mesh)
     del features, art
+    if not is_main():
+        dist.barrier()  # rank 0 evaluates and writes
+        return state, qcfg, {}
 
     tok = tokenizer_of(state, qcfg)
     synth.quantizer = tok
@@ -243,4 +271,6 @@ def train_vq_synthesis(cfg: Dict[str, Any], out_dir: str = "runs/vq_synth",
                    "regressor": tree_from_state_dict(synth.regressor.state_dict())})
     with open(os.path.join(out_dir, "eval.json"), "w") as f:
         json.dump(metrics, f, indent=1)
+    if mesh is not None:
+        dist.barrier()
     return state, qcfg, metrics

@@ -13,6 +13,8 @@ or ``mini_vq_synth`` with ``--tokens``, plus ``mini_vq_tokenizer.npz``) with
 a ``<prefix>.json`` of the recipe and the eval, the fixtures' layout;
 nothing is written there unless the flag names the directory. Runs on the
 GPU unless ``--device cpu`` is given, and refuses to start without one.
+Several GPUs: ``torchrun --nproc_per_node N -m sylber_tpu_torch.train_synthesis``
+with ``mesh: {dp: -1}`` in the recipe (data parallel; rank 0 writes).
 """
 
 from __future__ import annotations
@@ -45,12 +47,17 @@ def main(argv=None) -> int:
 
     import yaml
 
+    import torch.distributed as dist
+
     from .api import resolve_device
     from .io.checkpoint import save_tree_npz, tree_from_state_dict
+    from .parallel.mesh import is_main, maybe_distributed_init
 
-    device = resolve_device(args.device)
+    resolve_device(args.device)  # no GPU and no --device cpu: refuse to start
     with open(args.config) as f:
         cfg = yaml.safe_load(f)
+    formed = maybe_distributed_init(cfg.get("distributed"), args.device)
+    device = resolve_device(args.device)  # cuda:LOCAL_RANK in a process group
     out_dir = args.out_dir or f"runs/{cfg.get('name', 'synthesis')}"
     seed = int(cfg.get("seed", 0))
     kw = dict(out_dir=out_dir, max_steps=args.max_steps, log_every=args.log_every,
@@ -67,7 +74,10 @@ def main(argv=None) -> int:
         state, metrics = train_synthesis(cfg, **kw)
         base = args.fixture_prefix or "mini_synth"
         meta = {"config": cfg, "eval": metrics}
-    if args.fixture_dir:
+    main = is_main()
+    if formed:
+        dist.destroy_process_group()
+    if args.fixture_dir and main:
         fx = Path(args.fixture_dir)
         fx.mkdir(parents=True, exist_ok=True)
         synth = state.synth

@@ -52,8 +52,10 @@ def peak_flops(dtype: str, precision: str = "highest") -> float:
 
 
 def mfu(step_flops: float, step_time_s: float, dtype: str,
-        precision: str = "highest") -> float:
-    return step_flops / max(step_time_s, 1e-9) / peak_flops(dtype, precision)
+        precision: str = "highest", n_chips: int = 1) -> float:
+    """The share of ``n_chips`` cards' peak that a step of ``step_flops``
+    in ``step_time_s`` reaches."""
+    return step_flops / max(step_time_s, 1e-9) / (peak_flops(dtype, precision) * n_chips)
 
 
 @contextlib.contextmanager

@@ -380,7 +380,7 @@ def generator_step_loss(cfg: VocoderTrainConfig, generator, mpd, msd, features, 
     return loss, {"adv": adv.detach(), "fm": fm.detach(), "mel_l1": mel_l1.detach()}
 
 
-def make_vocoder_train_step(cfg: VocoderTrainConfig, precision: str = "default"):
+def make_vocoder_train_step(cfg: VocoderTrainConfig, precision: str = "default", mesh=None):
     """Returns ``(init_fn, step_fn)`` for adversarial vocoder training.
 
     ``init_fn(device=None, seed=0, generator_state=None,
@@ -391,7 +391,14 @@ def make_vocoder_train_step(cfg: VocoderTrainConfig, precision: str = "default")
     generator against the updated discriminators; ``noise`` is the harmonic
     source's noise channel (B, T * total_upsample). The metrics (``d_loss``,
     ``g_loss``, ``mel_l1``, ``fm``, ``adv``) are device tensors. Convs and
-    matmuls run under ``precision`` ("highest": no TF32)."""
+    matmuls run under ``precision`` ("highest": no TF32).
+
+    ``mesh`` (``parallel/mesh.py``, data parallel; the state replicated):
+    the inputs are this rank's rows of the global batch, each optimizer's
+    gradients are averaged over ``dp`` (the GAN losses are batch means, so
+    that is the global batch's gradient) and the metrics are the global
+    batch's."""
+    from ..parallel.mesh import all_reduce_mean_, reduce_mean
     from ..models.hubert import matmul_precision
 
     def adam(params):
@@ -426,15 +433,21 @@ def make_vocoder_train_step(cfg: VocoderTrainConfig, precision: str = "default")
             with torch.no_grad():
                 fake = state.generator(features, cond, noise=noise)
             d_loss = discriminator_step_loss(state.mpd, state.msd, wav_real, fake)
-            for p, gr in zip(disc_params, torch.autograd.grad(d_loss, disc_params)):
+            grads = list(torch.autograd.grad(d_loss, disc_params))
+            if mesh is not None:
+                all_reduce_mean_(grads, mesh.group("dp"), mesh.dp)
+            for p, gr in zip(disc_params, grads):
                 p.grad = gr
             state.opt_disc.step()
             g_loss, aux = generator_step_loss(cfg, state.generator, state.mpd, state.msd,
                                               features, wav_real, cond, noise)
-            for p, gr in zip(gen_params, torch.autograd.grad(g_loss, gen_params)):
+            grads = list(torch.autograd.grad(g_loss, gen_params))
+            if mesh is not None:
+                all_reduce_mean_(grads, mesh.group("dp"), mesh.dp)
+            for p, gr in zip(gen_params, grads):
                 p.grad = gr
             state.opt_gen.step()
         state.step += 1
-        return {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(), **aux}
+        return reduce_mean({"d_loss": d_loss.detach(), "g_loss": g_loss.detach(), **aux}, mesh)
 
     return init_fn, step_fn

@@ -1,7 +1,8 @@
 """The port imports torch, never JAX, and nothing of ``sylber_tpu``.
 
 A fresh interpreter imports every module of ``sylber_tpu_torch`` (walked
-with ``pkgutil``) and checks ``sys.modules``; then, with no GPU, the entry
+with ``pkgutil``, ``parallel.mesh`` and ``parallel.launch`` among them) and
+checks ``sys.modules``; then, with no GPU, the entry
 points (the resynthesis chain's and its trainers', ``fit_kmeans`` and
 ``Sylber`` included, and the corpus path's runners and ``mini_proof``)
 refuse to run unless the caller asks for the CPU.
@@ -20,6 +21,7 @@ import sylber_tpu_torch
 
 names = ["sylber_tpu_torch"] + [m.name for m in pkgutil.walk_packages(
     sylber_tpu_torch.__path__, "sylber_tpu_torch.")]
+assert {"sylber_tpu_torch.parallel.mesh", "sylber_tpu_torch.parallel.launch"} <= set(names)
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
@@ -83,5 +85,6 @@ def test_port_imports_no_jax_and_needs_a_gpu_or_cpu_choice():
     # chain's flow/, vocoder/, models/voicebox, ops/pitch, synthesis and
     # vq_tokenizer, and its trainers, flow/kmeans and models/sylber included,
     # and the corpus path's utils/native, utils/sndfile, ops/segment_np,
-    # segment_corpus, precompute_segments and mini_proof)
-    assert int(count.split()[0]) >= 61, count
+    # segment_corpus, precompute_segments and mini_proof, and the mesh's
+    # parallel/)
+    assert int(count.split()[0]) >= 64, count

@@ -162,5 +162,5 @@ def test_entry_points_need_a_device_choice_without_gpu(monkeypatch):
             hidden_size=16, num_attention_heads=2, intermediate_size=32,
             conv_dim=(8,) * 7, num_conv_pos_embeddings=4,
             num_conv_pos_embedding_groups=2, num_hidden_layers=1))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="replicas"):  # not a mesh of replicas
         Segmenter(mesh=object(), device="cpu")
