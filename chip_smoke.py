@@ -177,7 +177,29 @@ Phases, each of which fails the script when it fails:
    bf16 boundary F1 at tolerance 0 at least 0.995; RTFx beside the plain
    Segmenter's, two calls each in turns). Its launches are the
    ``mesh_launches`` of the kernels line. ``--only-mesh`` runs phases 1 and
-   11 and prints no result.
+   11 and prints no result;
+12. ``steps_per_dispatch`` (``train/dispatch.py``): phase 6's bf16 recipe
+   (B100 x 5 s) with cuDNN deterministic through ``train()`` at K 1 and K
+   8, 24 steps each (16 timed): every step's loss, grad norm, norm threshold and
+   segment count and the final parameters bit-equal; the step p50 (a
+   dispatch's wall over 8, and K 1's per step and per 8 steps), peak
+   memory, the capture's seconds, the replays, each kernel's launches in
+   the captured step (conv0, small attention and both segmentation passes
+   must launch there); one dispatch under ``set_sync_debug_mode("error")``;
+   the host's launch calls and the device's idle share in a profiled
+   dispatch and a profiled one-step step. Layer 0 at (8, 4) (the
+   runtime-shaped kernels) against its plain version on 32 x 80,000, timed
+   beside its bound; a full-width ``conv_bias=True`` Segmenter (biases
+   drawn non-zero) on 32 x 5 s fp32: conv0's kernel launched, the hidden
+   states within 1e-3 of the same Segmenter with layer 0 on the standard
+   path (the bias added), the same segments. Phase 7's 8 x 5 s resynthesis
+   with the regressor in float32 and in bfloat16 (RTFx, the cosine of the
+   outputs), the bf16 GateLoop layers once (the GateLoop kernel must
+   launch); both attention kernels at the bf16 regressor's shapes with
+   float32 q, k, v (its core) and bf16 ones (not its core), against their
+   plain versions and SDPA. Five stage-1 bf16 steps at ``ema_decay`` 0.999
+   with and without ``ema_fp32_shadow``: step ms and peak memory.
+   ``--only-dispatch`` runs phases 1 and 12 and prints no result.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit
 (``nvidia-smi``), and as its last line
@@ -4160,6 +4182,500 @@ def mesh_phase(torch, Segmenter, HubertConfig, counters, smi):
 REPRODUCE_F1_GATE = 0.88
 
 
+# ---------------------------------------------------------------- phase 12
+
+DISPATCH_K, DISPATCH_WARM, DISPATCH_STEPS = 8, 8, 24  # the first dispatch untimed
+EMA_STEPS = 5
+# full width, fp32 "highest": conv 0's bias cancels in its GroupNorm, so the
+# kernel without it and the standard path with it differ by rounding only
+LAYER0_BIAS_TOL = 1e-3
+
+
+def host_launches(torch, prof) -> dict:
+    """The host's launch calls in a profiled region, by name (the CUDA
+    runtime's and driver's kernel launches, graph launches and copies)."""
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith("cu") and any(
+                t in e.name for t in ("Launch", "Memcpy", "Memset")):
+            out[e.name] = out.get(e.name, 0) + 1
+    return out
+
+
+def dispatch_runs(torch, counters, smi, tmp):
+    """Phase 6's bf16 recipe (B100 x 5 s) with cuDNN deterministic through
+    ``train()``: K 1 and K 8 (``steps_per_dispatch``), ``DISPATCH_STEPS``
+    steps each with every row logged (K 8 fetches a dispatch's rows at its
+    end), and K 1 again logging every 8th step (one wait in 8 steps, as K
+    8); the K 8 run's launches from 0 with each kernel's launches in the
+    captured step. Then on its state: one dispatch under
+    ``set_sync_debug_mode("error")``, one profiled dispatch and one profiled
+    one-step step."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from sylber_tpu_torch.train import loop as L
+    from sylber_tpu_torch.train.distill import make_train_step
+    from sylber_tpu_torch.train.loop import distill_config_from_dict
+
+    made = []
+
+    class Recorded(L.StepDispatch):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.per_replay = {}
+            made.append(self)
+
+        def _capture(self, state):
+            before = {fn.__name__: fn.launches for fn in counters}
+            graph = super()._capture(state)
+            self.per_replay = {fn.__name__: fn.launches - before[fn.__name__]
+                               for fn in counters}
+            return graph
+
+    recipe = stage2_recipe("bfloat16", "default", 100)
+    runs, params = {}, {}
+    saved = L.StepDispatch
+    L.StepDispatch = Recorded
+    try:
+        with deterministic_cudnn(torch):
+            for name, k, log_every in (("k1", 1, 1), ("k8", DISPATCH_K, 1),
+                                       ("k1_log8", 1, DISPATCH_K)):
+                for fn in counters:
+                    fn.launches = 0
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                state = L.train(dict(recipe, steps_per_dispatch=k), out_dir=str(tmp / name),
+                                max_steps=DISPATCH_STEPS, log_every=log_every, ckpt_every=0,
+                                device="cuda")
+                torch.cuda.synchronize()
+                rows = [json.loads(ln) for ln in open(tmp / name / "metrics.jsonl")]
+                rows = [r for r in rows if r["prefix"] == "train"]
+                times = {r["step"]: r["time"] for r in rows}
+                ends = [s for s in range(DISPATCH_WARM, DISPATCH_STEPS + 1, DISPATCH_K)]
+                if name == "k1":
+                    step_ms = [1e3 * (times[s + 1] - times[s])
+                               for s in range(DISPATCH_WARM, DISPATCH_STEPS)]
+                else:  # a dispatch's (or 8 steps') wall over 8
+                    step_ms = [1e3 * (times[b] - times[a]) / DISPATCH_K
+                               for a, b in zip(ends, ends[1:])]
+                rec = dict(steps_per_dispatch=k, log_every=log_every, step_ms=step_ms,
+                           step_ms_p50=float(np.median(step_ms)),
+                           max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+                           launches={fn.__name__: fn.launches for fn in counters},
+                           rows={r["step"]: {m: r[m] for m in ("loss", "grad_norm",
+                                                               "normthreshold",
+                                                               "num_segments")}
+                                 for r in rows})
+                if k > 1:
+                    disp = made[-1]
+                    rec.update(capture_s=disp.capture_s, replays=disp.replays,
+                               eager_steps=disp.eager_steps,
+                               launches_per_replay=disp.per_replay)
+                runs[name] = rec
+                log(f"phase 12 {name}: B100 x 5 s bf16, {DISPATCH_STEPS} steps, K {k}, rows "
+                    f"every {log_every}: step p50 {rec['step_ms_p50']:.1f} ms over "
+                    f"{len(step_ms)} {'steps' if name == 'k1' else 'spans of 8 steps'} after "
+                    f"{DISPATCH_WARM} (min {min(step_ms):.1f}, max {max(step_ms):.1f}); "
+                    f"max_memory_allocated {rec['max_memory_allocated_gb']:.2f} GB; launches "
+                    f"{rec['launches']}"
+                    + (f"; capture {rec['capture_s']:.2f} s, {rec['replays']} replays, "
+                       f"{rec['eager_steps']} eager steps, each kernel's launches in the "
+                       f"captured step {rec['launches_per_replay']}" if k > 1 else "")
+                    + f"  [{smi}]")
+                if name == "k1_log8":
+                    del state
+                    continue
+                params[name] = {n: p.detach().cpu() for n, p in
+                                state.student.state_dict().items()}
+                if name == "k8":
+                    kept = state
+                del state
+            state, disp = kept, made[-1]
+            seed = recipe["seed"]
+            order = np.random.RandomState(5).permutation(100)
+            idx = np.stack([np.roll(order, i) for i in range(DISPATCH_K)])
+            disp.dispatch(state, seed, idx)
+            torch.cuda.synchronize()
+            disp._done = None  # the host's wait for the dispatch before lies outside
+            forbid_host_syncs(torch, disp.dispatch)(state, seed, idx)  # raises on a host sync
+            torch.cuda.synchronize()
+            disp._done = None
+            with torch_profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA]) as prof:
+                disp.dispatch(state, seed, idx)
+                torch.cuda.synchronize()
+            host = host_launches(torch, prof)
+            disp._done = None
+            dprof = profile(torch, lambda: disp.dispatch(state, seed, idx), top=6)
+            step_fn = make_train_step(distill_config_from_dict(
+                dict(recipe["model"], accumulate_grad_batches=1)))
+            batch = {k: v.index_select(0, torch.as_tensor(order, device="cuda"))
+                     for k, v in disp.data.items()}
+            batch.update({k: None for k in disp.absent})
+            step_fn(state, batch, seed)
+            torch.cuda.synchronize()
+            with torch_profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA]) as prof1:
+                step_fn(state, batch, seed)
+                torch.cuda.synchronize()
+            host1 = host_launches(torch, prof1)
+            sprof = profile(torch, lambda: step_fn(state, batch, seed), top=6)
+            del state, kept, disp, made[:]
+            torch.cuda.empty_cache()
+    finally:
+        L.StepDispatch = saved
+    idle = [n for n in ("conv0_gn_gelu", "small_attention", "segment_pass1", "segment_pass2")
+            if runs["k8"]["launches"][n] == 0 or runs["k8"]["launches_per_replay"][n] == 0]
+    if idle:
+        raise AssertionError(f"phase 12: kernels never launched in the K {DISPATCH_K} run, or "
+                             f"not in its captured step: {idle}")
+    a, b = runs["k1"]["rows"], runs["k8"]["rows"]
+    rows_equal = a == b
+    pa, pb = params["k1"], params["k8"]
+    bit_equal = all(torch.equal(pa[k], pb[k]) for k in pa)
+    max_diff = max(float((pa[k] - pb[k]).abs().max()) for k in pa)
+    rep = dict(runs=runs, rows_bit_equal=rows_equal, params_bit_equal=bit_equal,
+               params_max_abs_diff=max_diff,
+               host_launches_per_dispatch=host, host_launches_per_step_k1=host1,
+               dispatch_profile=dprof, step_profile=sprof,
+               idle_share_dispatch=1.0 - dprof["device_ms"] / dprof["wall_ms"],
+               idle_share_step=1.0 - sprof["device_ms"] / sprof["wall_ms"])
+    log(f"phase 12: K {DISPATCH_K} against K 1 over {DISPATCH_STEPS} steps: losses, grad "
+        f"norms, norm thresholds and segment counts of every step bit-equal {rows_equal}; "
+        f"parameters bit-equal {bit_equal} (max |diff| {max_diff:.3g}); a dispatch under "
+        f"set_sync_debug_mode('error'): no host sync")
+    log(f"phase 12: host launches a dispatch of {DISPATCH_K} steps {sum(host.values())} "
+        f"({host}); a one-step step {sum(host1.values())}; profiled dispatch: device busy "
+        f"{dprof['device_ms']:.1f} of {dprof['wall_ms']:.1f} ms (idle share "
+        f"{rep['idle_share_dispatch']:.4f}), {dprof['launches']} device events; one-step "
+        f"step: busy {sprof['device_ms']:.1f} of {sprof['wall_ms']:.1f} ms (idle share "
+        f"{rep['idle_share_step']:.4f})  [{smi}]")
+    if not (rows_equal and bit_equal):
+        raise AssertionError(f"phase 12: K {DISPATCH_K} is not K 1: rows equal {rows_equal}, "
+                             f"parameters max |diff| {max_diff}")
+    return rep
+
+
+def conv0_other_taps_record(torch, ops, k=8, s=4, B=32, L=80000, D=512):
+    """conv0 + GroupNorm + GELU at taps ``k`` and stride ``s`` (the
+    runtime-shaped kernels) on B x L, both output dtypes: against the plain
+    version, timed beside it, the library form and the bound."""
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(B, L, device="cuda", generator=gen)
+    w = torch.randn(D, 1, k, device="cuda", generator=gen) / k ** 0.5
+    gamma = torch.rand(D, device="cuda", generator=gen) + 0.5
+    beta = 0.1 * torch.randn(D, device="cuda", generator=gen)
+    T0 = (L - k) // s + 1
+    rec = {}
+    for dt, tol in (("float32", 2e-4), ("bfloat16", 2e-2)):
+        tdt = getattr(torch, dt)
+        run = lambda: ops.frontend.conv0_gn_gelu(x, w, gamma, beta, stride=s,  # noqa: E731
+                                                 out_dtype=tdt)
+        plain = lambda: ops.frontend.conv0_gn_gelu_plain(x, w, gamma, beta, stride=s,  # noqa: E731
+                                                         out_dtype=tdt)
+        library = lambda: F.gelu(F.group_norm(F.conv1d(x[:, None], w, stride=s), D,  # noqa: E731
+                                              gamma, beta)).to(tdt)
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+        nbytes = 4 * (B * L + D * (k + 2)) + B * T0 * D * got.element_size()
+        del got, want
+        b_ms, b_by = bound_ms(nbytes, B * T0 * D * (2 * k + 4), "float32")
+        rec[dt] = dict(max_abs_err=err, tol=tol, ok=bool(ok), ms=graph_time_ms(torch, run, 5),
+                       plain_ms=time_ms(torch, plain, 5), library_ms=time_ms(torch, library, 5),
+                       eager_ms=time_ms(torch, run, 10), bound_ms=b_ms, bound_by=b_by,
+                       shape=[B, L, D, k, s])
+        torch.cuda.empty_cache()
+    return rec
+
+
+CONV0_OTHER_EDGES = [(6, 3, 3, 1001, 72), (13, 7, 2, 4003, 40), (20, 10, 2, 9000, 24),
+                     (32, 16, 1, 48, 8), (8, 4, 2, 12, 8)]  # k, s, B, L, D
+
+
+def conv0_other_taps_edges(torch, ops):
+    """The runtime-shaped conv0 kernels at other taps (each rounding of k up
+    to 4, k at its largest, two frames) against the plain version, both
+    output dtypes."""
+    out = []
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for k, s, B, L, D in CONV0_OTHER_EDGES:
+        x = torch.randn(B, L, device="cuda", generator=gen)
+        w = torch.randn(D, 1, k, device="cuda", generator=gen) / k ** 0.5
+        gamma = torch.rand(D, device="cuda", generator=gen) + 0.5
+        beta = 0.1 * torch.randn(D, device="cuda", generator=gen)
+        for dt, tol in (("float32", 2e-4), ("bfloat16", 2e-2)):
+            tdt = getattr(torch, dt)
+            got = ops.frontend.conv0_gn_gelu(x, w, gamma, beta, stride=s, out_dtype=tdt).float()
+            want = ops.frontend.conv0_gn_gelu_plain(x, w, gamma, beta, stride=s,
+                                                    out_dtype=tdt).float()
+            err = (got - want).abs().max().item()
+            out.append(dict(taps=k, stride=s, shape=[B, L, D], dtype=dt, max_abs_err=err,
+                            tol=tol, ok=bool(torch.allclose(got, want, rtol=tol, atol=tol))))
+    return out
+
+
+def conv_bias_segmenter(torch, Segmenter, HubertConfig, counters, smi):
+    """A full-width Segmenter with ``conv_bias=True`` (every conv bias drawn
+    non-zero) on 32 x 5 s, fp32 "highest": conv0's kernel launched (launches
+    from 0); the hidden states within ``LAYER0_BIAS_TOL`` of the same
+    Segmenter whose layer 0 takes the standard fp32 conv (with the bias) +
+    GroupNorm + exact GELU, and the same segments."""
+    import sylber_tpu_torch.models.hubert as H
+
+    rng = np.random.RandomState(1)
+    wavs = [speechlike(rng, 5 * 16000) for _ in range(32)]
+    seg = Segmenter(hubert_config=HubertConfig(conv_bias=True))
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    with torch.no_grad():
+        for conv in seg.model.feature_extractor.convs:
+            conv.bias.normal_(0.0, 0.5, generator=gen)
+    seg.process(wavs, in_second=False)
+    for fn in counters:
+        fn.launches = 0
+    outs = seg.process(wavs, in_second=False)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    cfg, fused = seg.config, H.conv0_gn_gelu
+
+    def standard(x, w, gamma, beta, *, stride, eps, out_dtype):
+        return H.conv0_standard(x, w, seg.model.feature_extractor.convs[0].bias, gamma, beta,
+                                cfg)
+
+    H.conv0_gn_gelu = standard
+    try:
+        want = seg.process(wavs, in_second=False)
+    finally:
+        H.conv0_gn_gelu = fused
+    err = max(float(np.abs(a["hidden_states"] - b["hidden_states"]).max())
+              for a, b in zip(outs, want))
+    same = all(np.array_equal(a["segments"], b["segments"]) for a, b in zip(outs, want))
+    rec = dict(launches=launches, max_abs_err=err, tol=LAYER0_BIAS_TOL, segments_equal=same,
+               segments=int(sum(len(o["segments"]) for o in outs)))
+    log(f"phase 12 conv_bias=True Segmenter, 32 x 5 s fp32: launches {launches}; hidden states "
+        f"against the standard layer 0 with its bias max |diff| {err:.3g} (tol "
+        f"{LAYER0_BIAS_TOL}), segments equal {same} ({rec['segments']} segments)  [{smi}]")
+    del seg
+    torch.cuda.empty_cache()
+    if launches["conv0_gn_gelu"] == 0 or err > LAYER0_BIAS_TOL or not same:
+        raise AssertionError(f"phase 12 conv_bias: {rec}")
+    return rec
+
+
+def bf16_regressor_runs(torch, counters, smi):
+    """Phase 7's 8 x 5 s resynthesis at "default" precision, midpoint with 5
+    steps, cond_scale 1, with the regressor in float32 and in bfloat16
+    (``RegressorConfig.dtype``): wav -> wav RTFx of five calls each, the
+    cosine of the bf16 articulatory output to the fp32 one; the bf16 run's
+    launches from 0 (conv0, small attention and both segmentation passes
+    must launch); the GateLoop layers in bf16 run once (the GateLoop kernel
+    must launch). Seeded random weights, the same in every run."""
+    import dataclasses
+    import warnings
+
+    import yaml
+
+    from sylber_tpu_torch.synthesis import SegmentSynthesis, SynthesisConfig
+    from sylber_tpu_torch.vocoder import SparcDecoder
+
+    yaml_cfg = yaml.safe_load((ROOT / "configs" / "sylber_resynthesis.yaml").read_text())
+    base = SynthesisConfig.from_yaml_dict(yaml_cfg)
+    wavs = [speechlike(np.random.RandomState(7), 5 * 16000) for _ in range(8)]
+    wav_np, spk = np.stack(wavs), np.zeros((8, 64), np.float32)
+    dev = torch.device("cuda")
+    vocoder = SparcDecoder(device=dev)
+    runs, arts = {}, {}
+    for name, dtype, gated in (("float32", "float32", False), ("bfloat16", "bfloat16", False),
+                               ("bfloat16_gateloop", "bfloat16", True)):
+        cfg = dataclasses.replace(base, regressor=dataclasses.replace(
+            base.regressor, dtype=dtype, use_gateloop_layers=gated))
+        synth = SegmentSynthesis(config=cfg, thresholder_configs=yaml_cfg["thresholder_configs"],
+                                 device=dev)
+
+        def call():
+            art, segs = synth.resynthesize(input_values=wav_np, steps=5)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # random-init vocoder: noise, not speech
+                return art, segs, synth.decode_audio(art, spk, vocoder=vocoder)
+
+        call()  # warm-up
+        torch.cuda.synchronize()
+        for fn in counters:
+            fn.launches = 0
+        walls = []
+        for _ in range(1 if gated else 5):
+            t0 = time.perf_counter()
+            art, segs, audio = call()
+            walls.append(time.perf_counter() - t0)
+        launches = {fn.__name__: fn.launches for fn in counters}
+        check_resynthesis_outputs(art, segs, audio, wavs, cfg)
+        rtfx = sorted(wav_np.size / 16000.0 / w for w in walls)
+        arts[name] = art.astype(np.float64)
+        runs[name] = dict(rtfx=rtfx[len(rtfx) // 2], wall_s=walls, launches=launches)
+        del synth
+        torch.cuda.empty_cache()
+    a, b = arts["float32"].reshape(8, -1), arts["bfloat16"].reshape(8, -1)
+    cos = (a * b).sum(1) / np.linalg.norm(a, axis=1) / np.linalg.norm(b, axis=1)
+    rep = dict(runs=runs, cosine_bf16_fp32=[float(c) for c in cos],
+               max_abs_diff=float(np.abs(a - b).max()), largest=float(np.abs(a).max()))
+    log(f"phase 12 resynthesis 8 x 5 s, regressor float32 / bfloat16: RTFx median of 5 "
+        f"{runs['float32']['rtfx']:.1f} / {runs['bfloat16']['rtfx']:.1f}; cosine of the bf16 "
+        f"articulatory output to fp32's per item min {cos.min():.5f} (max |diff| "
+        f"{rep['max_abs_diff']:.3g} of {rep['largest']:.3g}); bf16 launches "
+        f"{runs['bfloat16']['launches']}; GateLoop layers in bf16, one call: RTFx "
+        f"{runs['bfloat16_gateloop']['rtfx']:.1f}, launches "
+        f"{runs['bfloat16_gateloop']['launches']}  [{smi}]")
+    need = {"bfloat16": ("conv0_gn_gelu", "small_attention", "segment_pass1", "segment_pass2"),
+            "bfloat16_gateloop": ("gate_loop_operator",)}
+    idle = [(n, k) for n, ks in need.items() for k in ks if runs[n]["launches"][k] == 0]
+    if idle or not np.isfinite(cos).all():
+        raise AssertionError(f"phase 12 bf16 regressor: idle {idle}, cosine {cos}")
+    return rep
+
+
+def regressor_attention_bf16_records(torch, ops):
+    """Both attention kernels at the bf16 regressor's shapes: its core is the
+    float32 kernels (JAX promotes q and k to float32: the RMS norms' gammas
+    and the rotary angles are float32) on a bf16-rounded v; beside them the
+    bf16 kernels on the same q, k, v rounded to bf16, the form the core is
+    not given, with their gap to the float32 plain version (the scale of 10
+    magnifies the rounding of q and k). Times, bounds, plain versions and
+    SDPA as ``regressor_attention_records``."""
+    F = torch.nn.functional
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    out = {}
+    for name, B, L, fn, plain_fn in (
+            ("small_attention", 8, 265, ops.smallattn.small_attention,
+             ops.smallattn.small_attention_plain),
+            ("flash_attention", 1, 1015, ops.flash.flash_attention,
+             ops.flash.flash_attention_plain)):
+        H, D, scale = 8, 64, 10.0
+        q, k, v = (torch.randn(B, L, H, D, device=dev, generator=gen).transpose(1, 2)
+                   for _ in range(3))
+        q, k = (8.0 * t / t.norm(dim=-1, keepdim=True) for t in (q, k))
+        v = v.bfloat16().float()
+        lens = torch.full((B,), L, dtype=torch.int32, device=dev)
+        want = plain_fn(q, k, v, lens, scale)
+        rec = {}
+        for dt in ("float32", "bfloat16"):
+            tq, tk, tv = (t.to(getattr(torch, dt)) for t in (q, k, v))
+            run = lambda: fn(tq, tk, tv, lens, scale)  # noqa: E731
+            plain = lambda: plain_fn(tq, tk, tv, lens, scale)  # noqa: E731
+            library = lambda: F.scaled_dot_product_attention(tq, tk, tv, scale=scale)  # noqa: E731
+            got, own = run(), plain()
+            torch.cuda.synchronize()
+            err = (got.float() - own.float()).abs().max().item()
+            tol = REGRESSOR_ATTN_TOL if dt == "float32" else 2e-2
+            ok = bool(torch.isfinite(got).all()) and torch.allclose(
+                got.float(), own.float(), rtol=tol, atol=tol)
+            size = 4 if dt == "float32" else 2
+            nbytes = size * B * L * H * D * 4 + 4 * B
+            b_ms, b_by = bound_ms(nbytes, 4.0 * H * D * L * L * B, dt)
+            rec[dt] = dict(max_abs_err=err, tol=tol, ok=ok, scale=scale,
+                           gap_to_float32=(got.float() - want).abs().max().item(),
+                           ms=graph_time_ms(torch, run, 20), plain_ms=graph_time_ms(torch, plain, 5),
+                           library_ms=graph_time_ms(torch, library, 20),
+                           eager_ms=time_ms(torch, run, 20), bound_ms=b_ms, bound_by=b_by,
+                           shape=[B, H, L, D], on_path=dt == "float32")
+        out[name] = rec
+    return out
+
+
+def ema_shadow_runs(torch, smi):
+    """Stage 1 of phase 6's bf16 recipe (the synthetic corpus's segments,
+    B100 x 5 s) with ``ema_decay`` 0.999, ``EMA_STEPS`` steps with the EMA
+    teacher a float32 shadow and without it: step ms (the last four, each
+    waited for) and peak memory. The port keeps float32 parameters, as
+    flax does, so both teachers are float32 (JAX's rule)."""
+    import dataclasses
+
+    from sylber_tpu_torch.train import distill as D
+    from sylber_tpu_torch.train.loop import distill_config_from_dict, train_batches
+
+    recipe = stage2_recipe("bfloat16", "default", 100)
+    model = dict(recipe["model"], segment_online=False, ema_decay=0.999,
+                 accumulate_grad_batches=1)
+    data = dict(recipe["data"], segment_online_data=False)
+    runs = {}
+    for shadow in (True, False):
+        cfg = dataclasses.replace(distill_config_from_dict(model), ema_fp32_shadow=shadow)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = D.init_train_state(cfg, "cuda", seed=0)
+        step = D.make_train_step(cfg)
+        stream = train_batches(data, 100, 0, 0, torch.device("cuda"))
+        walls = []
+        for _ in range(EMA_STEPS):
+            batch = next(stream)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = step(state, batch, 0)
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+        dtypes = sorted({str(v.dtype) for v in state.ema.values()})
+        runs["shadow" if shadow else "no_shadow"] = dict(
+            step_ms=walls, step_ms_p50=float(np.median(walls[1:])),
+            max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+            teacher_dtypes=dtypes, loss=float(m["loss"]))
+        del state, stream
+    a, b = runs["shadow"], runs["no_shadow"]
+    log(f"phase 12 ema_decay 0.999, stage 1 bf16 B100 x 5 s, {EMA_STEPS} steps: fp32 shadow / "
+        f"none: step p50 {a['step_ms_p50']:.1f} / {b['step_ms_p50']:.1f} ms, "
+        f"max_memory_allocated {a['max_memory_allocated_gb']:.2f} / "
+        f"{b['max_memory_allocated_gb']:.2f} GB, teacher dtypes {a['teacher_dtypes']} / "
+        f"{b['teacher_dtypes']}  [{smi}]")
+    return runs
+
+
+def dispatch_phase(torch, ops, Segmenter, HubertConfig, counters, smi):
+    """Phase 12: ``steps_per_dispatch`` as CUDA-graph replay, layer 0 at
+    other taps and with a bias, the bf16 regressor, ``ema_fp32_shadow``."""
+    counters = counters + [ops.gateloop.gate_loop_operator]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dispatch_") as tmp:
+        dispatch = dispatch_runs(torch, counters[:5], smi, Path(tmp))
+    from sylber_tpu_torch.models.hubert import matmul_precision
+
+    with matmul_precision("highest"):
+        conv0 = conv0_other_taps_record(torch, ops)
+        edges = conv0_other_taps_edges(torch, ops)
+    log(f"phase 12 conv0_gn_gelu at (k, s) {[(e['taps'], e['stride']) for e in edges[::2]]}, "
+        f"fp32 and bf16: {sum(e['ok'] for e in edges)} of {len(edges)} within tolerance, worst "
+        f"fp32 {max(e['max_abs_err'] for e in edges if e['dtype'] == 'float32'):.3g}, bf16 "
+        f"{max(e['max_abs_err'] for e in edges if e['dtype'] == 'bfloat16'):.3g}")
+    for dt, r in conv0.items():
+        log(f"phase 12 conv0_gn_gelu (8, 4) {dt} {r['shape']}: max_abs_err {r['max_abs_err']:.3g} "
+            f"(tol {r['tol']}) ok={r['ok']}  kernel_ms {r['ms']:.4f}  plain_ms {r['plain_ms']:.4f}"
+            f"  library_ms {r['library_ms']:.4f}  bound_ms {r['bound_ms']:.4f} ({r['bound_by']})"
+            f"  [{smi}]")
+    bias = conv_bias_segmenter(torch, Segmenter, HubertConfig, counters[:5], smi)
+    regressor = bf16_regressor_runs(torch, counters, smi)
+    attn = regressor_attention_bf16_records(torch, ops)
+    for name, rec in attn.items():
+        for dt, r in rec.items():
+            log(f"phase 12 {name} at the bf16 regressor's shape {r['shape']} with {dt} "
+                f"q, k, v ({'its core' if r['on_path'] else 'not its core'}): max_abs_err "
+                f"{r['max_abs_err']:.3g} (tol {r['tol']}) ok={r['ok']}, gap to the float32 "
+                f"plain version {r['gap_to_float32']:.3g}; kernel_ms {r['ms']:.4f} plain_ms "
+                f"{r['plain_ms']:.4f} SDPA {r['library_ms']:.4f} bound_ms {r['bound_ms']:.4f} "
+                f"({r['bound_by']})  [{smi}]")
+    ema = ema_shadow_runs(torch, smi)
+    bad = [f"conv0 {dt}" for dt, r in conv0.items() if not r["ok"]] + [
+        f"{n} {dt}" for n, rec in attn.items() for dt, r in rec.items() if not r["ok"]] + [
+        f"conv0 {e}" for e in edges if not e["ok"]]
+    if bad:
+        raise AssertionError(f"phase 12: kernels disagree with their plain versions: {bad}")
+    rep = dict(dispatch=dispatch, conv0_k8_s4=conv0, conv0_edges=edges, conv_bias=bias,
+               bf16_regressor=regressor,
+               regressor_attention_bf16=attn, ema_shadow=ema, seconds=time.perf_counter() - t0)
+    log(f"phase 12 took {rep['seconds']:.1f} s  [{smi}]")
+    return rep
+
+
 def reproduce_distill(torch, smi, out_dir="runs/mini_proof_torch"):
     """``mini_ckpt.json``'s recipe trained on the card by the port
     (``python -m sylber_tpu_torch.mini_proof``: stage 1 4,000 steps, stage 2
@@ -4223,6 +4739,10 @@ def main() -> int:
                          "cards (dp=2 over NCCL across cards, the Segmenter's replicas on "
                          "cuda:0 and cuda:1); fails on a machine with one card; prints no "
                          "result line")
+    ap.add_argument("--only-dispatch", action="store_true",
+                    help="build the kernels and run phase 12 alone (steps_per_dispatch as CUDA "
+                         "graph replay, layer 0 at (8, 4) and with a bias, the bf16 "
+                         "regressor, ema_fp32_shadow); prints no result line")
     ap.add_argument("--reproduce-distill", action="store_true",
                     help="build the kernels, then train mini_ckpt.json's recipe with "
                          "python -m sylber_tpu_torch.mini_proof (into runs/mini_proof_torch) "
@@ -4293,6 +4813,13 @@ def main() -> int:
             Path(args.out).parent.mkdir(parents=True, exist_ok=True)
             Path(args.out).write_text(json.dumps(dict(card=smi, nccl=nccl, segmenter=seg2),
                                                  indent=1, default=str))
+        return 0
+    if args.only_dispatch:
+        p12 = dispatch_phase(torch, ops, Segmenter, HubertConfig, counters, smi)
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(dict(card=smi, dispatch=p12), indent=1,
+                                                 default=str))
         return 0
     if args.only_int8:
         p9 = int8_phase(torch, ops, counters, smi)
@@ -4404,6 +4931,8 @@ def main() -> int:
     log(f"phase 11 took {time.perf_counter() - t11:.1f} s  [{smi}]")
     launches = {k: v + mesh["launches"][k] for k, v in launches.items()}
 
+    dispatch = dispatch_phase(torch, ops, Segmenter, HubertConfig, counters, smi)
+
     sources = {"conv0_gn_gelu": ("frontend.cu", "sylber_tpu/ops/pallas/frontend.py:122"),
                "small_attention": ("smallattn.cu", "sylber_tpu/ops/pallas/smallattn.py:78"),
                "flash_attention": ("flash.cu", "sylber_tpu/ops/pallas/flash.py:125"),
@@ -4489,6 +5018,20 @@ def main() -> int:
     line += int8_kernel_entries(int8)
     for entry in line[:-3]:  # the earlier kernels' launches over phase 9's runs
         entry["int8_path_launches"] = int8["launches"].get(entry["name"])
+    # phase 12: the K-step run's launches (the captured step's once) and each
+    # kernel's launches in the captured step, with the count of replays
+    k8 = dispatch["dispatch"]["runs"]["k8"]
+    for entry in line:
+        entry["dispatch_launches"] = dict(
+            counted=k8["launches"].get(entry["name"], 0),
+            per_replay=k8["launches_per_replay"].get(entry["name"], 0),
+            replays=k8["replays"])
+    entries["conv0_gn_gelu"]["other_taps_k8_s4"] = dispatch["conv0_k8_s4"]
+    for name, rec in dispatch["regressor_attention_bf16"].items():
+        entries[name]["bf16_regressor_shape"] = rec
+    gate = next(e for e in line if e["name"] == "gate_loop")
+    gate["bf16_regressor_launches"] = dispatch["bf16_regressor"]["runs"][
+        "bfloat16_gateloop"]["launches"]["gate_loop_operator"]
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         build_log = kernels.BUILD_DIR / "build.log"  # registers, shared memory, spills
@@ -4504,7 +5047,8 @@ def main() -> int:
                                                   training=training,
                                                   resynthesis=resynthesis,
                                                   synthesis_training=synthesis_training,
-                                                  int8=int8, corpus=corpus, mesh=mesh),
+                                                  int8=int8, corpus=corpus, mesh=mesh,
+                                                  dispatch=dispatch),
                                              indent=1, default=str))
     log(json.dumps({"kernels": line}))
     log(smi)

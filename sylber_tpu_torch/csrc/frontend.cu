@@ -1,5 +1,9 @@
-// Fused HuBERT frontend layer 0: Conv1d(k=10, s=5, no bias) over the raw
-// waveform, GroupNorm with one group per channel, affine, erf GELU.
+// Fused HuBERT frontend layer 0: Conv1d(k taps, stride s, no bias) over the
+// raw waveform, GroupNorm with one group per channel, affine, erf GELU.
+// HuBERT's (10, 5) takes the kernels below, written for it; any other
+// (k, s) with k <= 2s (the Pallas kernel's condition) and k <= KMAX takes
+// the runtime-shaped kernels at the end of the file, which compute the same
+// three steps with k and s as arguments (see "Any (k, s)").
 //
 // Replaces sylber_tpu/ops/pallas/frontend.py::fused_conv0_gn_gelu
 // (_stats_kernel + _normalize_kernel); the moments are taken as
@@ -201,21 +205,234 @@ __global__ void __launch_bounds__(NT, 1)
   }
 }
 
-}  // namespace
+// ---- Any (k, s) -----------------------------------------------------------
+// The same three launches with the taps k (<= KMAX) and the stride s as
+// arguments. The moments: 1 <= k sums u_j and k (k + 1) / 2 Gram sums G[j][l]
+// (l >= j, in gram_at's order with k for K). A block stages its chunk of the
+// waveform in shared memory; each thread sums one of those entries over one
+// group of the chunk's frames, in fp64, and the groups are added in a fixed
+// order, so a rerun gives the same bits. The fold is the (10, 5) fold's with
+// k taps. The normalise pass stages its tile of the waveform, keeps its frames'
+// k samples in registers and walks the block's channels, their taps read from
+// shared memory as 128-bit loads (k rounded up to a multiple of 4, a template
+// argument). A chunk or a tile holds at most ANY_SAMPLES samples, so a long
+// stride takes fewer frames a block.
+constexpr int KMAX = 32;
+constexpr int ANY_THREADS = 256;
+constexpr int ANY_SAMPLES = 8192;  // staged waveform floats a block
+constexpr int ANY_FRAMES = 1024;   // frames a block at most
 
-// Elements of the fp64 scratch `part` for an input of T0 frames.
-extern "C" int sylber_conv0_partials_size(int B, int T0) {
-  return B * ceil_div(T0, MOM_CHUNK) * NMOM;
+__host__ __device__ inline int nmom_any(int k) { return k + k * (k + 1) / 2; }
+// the frames a block takes: at most ANY_FRAMES, staged in ANY_SAMPLES floats
+__host__ __device__ inline int frames_any(int k, int s) {
+  return max(1, min(ANY_FRAMES, (ANY_SAMPLES - k) / s + 1));
 }
 
-// x (B, L) fp32; w (D, K) fp32; gamma, beta (D,) fp32;
+__global__ void __launch_bounds__(ANY_THREADS)
+    conv0_moments_any(const float* __restrict__ x, double* __restrict__ part,
+                      int L, int T0, int k, int s, int nchunks) {
+  __shared__ float xs[ANY_SAMPLES];
+  __shared__ double red[ANY_THREADS];
+  const int c = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+  const int chunk = frames_any(k, s), t0 = c * chunk;
+  const int nt = min(chunk, T0 - t0);
+  const float* src = x + (size_t)b * L + (size_t)t0 * s;
+  for (int i = tid; i < (nt - 1) * s + k; i += ANY_THREADS) xs[i] = src[i];
+  __syncthreads();
+  const int nmom = nmom_any(k);
+  // `per` entries a pass, each summed by `groups` threads over every
+  // groups-th frame
+  const int groups = max(1, ANY_THREADS / nmom), per = ANY_THREADS / groups;
+  const int g = tid / per;
+  for (int e0 = 0; e0 < nmom; e0 += per) {
+    const int e = e0 + tid % per;
+    double acc = 0.0;
+    if (g < groups && e < nmom) {
+      int j = e, l = -1;  // entry e: u_j, or G[j][l]
+      if (e >= k) {
+        j = 0;
+        while (e >= k + (j + 1) * k - (j + 1) * j / 2) ++j;
+        l = j + (e - (k + j * k - j * (j - 1) / 2));
+      }
+      for (int t = g; t < nt; t += groups) {
+        const float* f = xs + t * s;
+        acc = l < 0 ? acc + (double)f[j] : fma((double)f[j], (double)f[l], acc);
+      }
+    }
+    red[tid] = acc;
+    __syncthreads();
+    if (tid < per && e < nmom) {
+      double sum = 0.0;
+      for (int gg = 0; gg < groups; ++gg) sum += red[gg * per + tid];
+      part[((size_t)b * nchunks + c) * nmom + e] = sum;
+    }
+    __syncthreads();
+  }
+}
+
+__global__ void __launch_bounds__(ANY_THREADS)
+    conv0_fold_any(const double* __restrict__ part, const float* __restrict__ w,
+                   const float* __restrict__ gamma,
+                   const float* __restrict__ beta, float2* __restrict__ fold,
+                   int T0, int D, int k, int nchunks, float eps) {
+  __shared__ double mom[KMAX + KMAX * (KMAX + 1) / 2];
+  const int b = blockIdx.x, tid = threadIdx.x, nmom = nmom_any(k);
+  for (int e = tid; e < nmom; e += ANY_THREADS) {
+    double sum = 0.0;
+    for (int c = 0; c < nchunks; ++c)
+      sum += part[((size_t)b * nchunks + c) * nmom + e];
+    mom[e] = sum;
+  }
+  __syncthreads();
+  for (int ch = tid; ch < D; ch += ANY_THREADS) {
+    const float* wr = w + (size_t)ch * k;
+    double s1 = 0.0, s2 = 0.0;
+    int e = k;
+    for (int j = 0; j < k; ++j) {
+      const double wj = (double)wr[j];
+      s1 = fma(wj, mom[j], s1);
+      for (int l = j; l < k; ++l, ++e)
+        s2 = fma((l == j ? 1.0 : 2.0) * wj * (double)wr[l], mom[e], s2);
+    }
+    const double mean = s1 / (double)T0;
+    const double var = fmax(s2 / (double)T0 - mean * mean, 0.0);
+    const double scale = (double)gamma[ch] / sqrt(var + (double)eps);
+    fold[(size_t)b * D + ch] =
+        make_float2((float)scale, (float)((double)beta[ch] - mean * scale));
+  }
+}
+
+// KP: the taps rounded up to a multiple of 4 (the pad taps' weights are 0),
+// so that a channel's taps are KP / 4 128-bit shared loads; a thread keeps
+// RP frames (a warp-stride apart) in registers, each channel's loads serving
+// all of them.
+template <int KP>
+__host__ __device__ constexpr int frames_a_thread() {
+  return KP <= 8 ? 4 : (KP <= 16 ? 2 : 1);
+}
+
+template <typename OutT, int KP>
+__global__ void __launch_bounds__(ANY_THREADS)
+    conv0_normalize_any(const float* __restrict__ x,
+                        const float* __restrict__ w,
+                        const float2* __restrict__ fold, OutT* __restrict__ out,
+                        int L, int T0, int D, int k, int s) {
+  constexpr int RP = frames_a_thread<KP>(), WR = KP + 4;  // taps, scale, shift, pad
+  __shared__ float xs[ANY_SAMPLES];
+  __shared__ __align__(16) float ws[CH][WR];
+  const int tid = threadIdx.x;
+  const int d0 = blockIdx.y * CH, b = blockIdx.z;
+  const int nd = min(CH, D - d0);
+  const int tile = frames_any(k, s), t0 = blockIdx.x * tile;
+  const int nt = min(tile, T0 - t0);
+  const float* src = x + (size_t)b * L + (size_t)t0 * s;
+  for (int i = tid; i < (nt - 1) * s + k; i += ANY_THREADS) xs[i] = src[i];
+  for (int i = tid; i < nd * WR; i += ANY_THREADS) {
+    const int c = i / WR, j = i % WR;
+    const float2 f = fold[(size_t)b * D + d0 + c];
+    ws[c][j] = j < k ? w[(size_t)(d0 + c) * k + j] : (j == KP ? f.x : (j == KP + 1 ? f.y : 0.f));
+  }
+  __syncthreads();
+  for (int base = 0; base < nt; base += ANY_THREADS * RP) {
+    float xr[RP][KP];
+#pragma unroll
+    for (int r = 0; r < RP; ++r) {
+      const int tl = base + tid + ANY_THREADS * r;
+#pragma unroll
+      for (int j = 0; j < KP; ++j) xr[r][j] = tl < nt && j < k ? xs[tl * s + j] : 0.f;
+    }
+    OutT* ob = out + ((size_t)b * D + d0) * T0 + t0 + base + tid;
+    for (int c = 0; c < nd; ++c) {
+      float y[RP];
+#pragma unroll
+      for (int r = 0; r < RP; ++r) y[r] = 0.f;
+#pragma unroll
+      for (int j = 0; j < KP; j += 4) {
+        const float4 w4 = *reinterpret_cast<const float4*>(&ws[c][j]);
+#pragma unroll
+        for (int r = 0; r < RP; ++r) {
+          y[r] = fmaf(xr[r][j], w4.x, y[r]);
+          y[r] = fmaf(xr[r][j + 1], w4.y, y[r]);
+          y[r] = fmaf(xr[r][j + 2], w4.z, y[r]);
+          y[r] = fmaf(xr[r][j + 3], w4.w, y[r]);
+        }
+      }
+      const float2 ss = *reinterpret_cast<const float2*>(&ws[c][KP]);
+#pragma unroll
+      for (int r = 0; r < RP; ++r)
+        if (base + tid + ANY_THREADS * r < nt)
+          ob[(size_t)c * T0 + ANY_THREADS * r] =
+              from_float<OutT>(gelu_erf(fmaf(y[r], ss.x, ss.y)));
+    }
+  }
+}
+
+// The normalise pass at the taps rounded up to KP.
+template <typename OutT, int KP>
+void launch_normalize_any(dim3 grid, const float* x, const float* w,
+                          const float2* fold, void* out, int L, int T0, int D,
+                          int k, int s, cudaStream_t stream) {
+  conv0_normalize_any<OutT, KP><<<grid, ANY_THREADS, 0, stream>>>(
+      x, w, fold, (OutT*)out, L, T0, D, k, s);
+}
+
+template <typename OutT>
+void normalize_any(dim3 grid, const float* x, const float* w, const float2* fold,
+                   void* out, int L, int T0, int D, int k, int s,
+                   cudaStream_t stream) {
+  switch ((k + 3) / 4) {
+    case 1: launch_normalize_any<OutT, 4>(grid, x, w, fold, out, L, T0, D, k, s, stream); break;
+    case 2: launch_normalize_any<OutT, 8>(grid, x, w, fold, out, L, T0, D, k, s, stream); break;
+    case 3: launch_normalize_any<OutT, 12>(grid, x, w, fold, out, L, T0, D, k, s, stream); break;
+    case 4: launch_normalize_any<OutT, 16>(grid, x, w, fold, out, L, T0, D, k, s, stream); break;
+    case 5: launch_normalize_any<OutT, 20>(grid, x, w, fold, out, L, T0, D, k, s, stream); break;
+    case 6: launch_normalize_any<OutT, 24>(grid, x, w, fold, out, L, T0, D, k, s, stream); break;
+    case 7: launch_normalize_any<OutT, 28>(grid, x, w, fold, out, L, T0, D, k, s, stream); break;
+    default: launch_normalize_any<OutT, 32>(grid, x, w, fold, out, L, T0, D, k, s, stream);
+  }
+}
+
+}  // namespace
+
+// Elements of the fp64 scratch `part` for an input of T0 frames and taps k,
+// stride s.
+extern "C" int sylber_conv0_partials_size(int B, int T0, int k, int s) {
+  if (k == K && s == S) return B * ceil_div(T0, MOM_CHUNK) * NMOM;
+  return B * ceil_div(T0, frames_any(k, s)) * nmom_any(k);
+}
+
+// x (B, L) fp32; w (D, k) fp32; gamma, beta (D,) fp32;
 // part: sylber_conv0_partials_size doubles of scratch; fold: (B, D, 2) fp32
 // of scratch (scale, shift); out (B, D, T0), fp32 (out_bf16 == 0) or bf16.
+// Taps k and stride s with k <= 2s, 1 <= k <= KMAX.
 extern "C" int sylber_conv0_gn_gelu(const float* x, const float* w,
                                     const float* gamma, const float* beta,
                                     double* part, float* fold, void* out, int B,
-                                    int L, int T0, int D, float eps,
-                                    int out_bf16, cudaStream_t stream) {
+                                    int L, int T0, int D, int k, int s,
+                                    float eps, int out_bf16,
+                                    cudaStream_t stream) {
+  if (k < 1 || k > KMAX || k > 2 * s || T0 < 1) return (int)cudaErrorInvalidValue;
+  if (k != K || s != S) {
+    const int frames = frames_any(k, s), nchunks = ceil_div(T0, frames);
+    conv0_moments_any<<<dim3(nchunks, B), ANY_THREADS, 0, stream>>>(
+        x, part, L, T0, k, s, nchunks);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    conv0_fold_any<<<B, ANY_THREADS, 0, stream>>>(part, w, gamma, beta,
+                                                  (float2*)fold, T0, D, k,
+                                                  nchunks, eps);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid(nchunks, ceil_div(D, CH), B);
+    if (out_bf16) {
+      normalize_any<__nv_bfloat16>(grid, x, w, (const float2*)fold, out, L, T0, D,
+                                   k, s, stream);
+    } else {
+      normalize_any<float>(grid, x, w, (const float2*)fold, out, L, T0, D, k, s,
+                           stream);
+    }
+    return (int)cudaGetLastError();
+  }
   const int nchunks = ceil_div(T0, MOM_CHUNK);
   conv0_moments<<<dim3(nchunks, B), MOM_THREADS, 0, stream>>>(x, part, L, T0,
                                                               nchunks);

@@ -150,7 +150,8 @@ struct Pass1Args {
   int2* mids;             // (B, L + 1)
   int* nmid;              // (B,)
   int L, d;
-  float thr;
+  float thr;              // the merge threshold, unless thr_ptr is set:
+  const float* thr_ptr;   // then read from device memory (a 0-d fp32 tensor)
   int vec;  // rows are 16-byte aligned: d % 4 == 0 and the base pointer is
 };
 
@@ -159,7 +160,7 @@ template <int NC>
 __global__ void __launch_bounds__(P1_THREADS)
     segment_pass1_kernel(const Pass1Args a) {
   const int L = a.L, d = a.d, vec = a.vec;
-  const float thr = a.thr;
+  const float thr = a.thr_ptr ? *a.thr_ptr : a.thr;
   constexpr int T = P1_THREADS;
   extern __shared__ __align__(128) float ring[];  // frame f at (f % RING) * ds
   __shared__ __align__(8) uint64_t full[STAGES];   // a chunk's copy has landed
@@ -436,7 +437,8 @@ struct Pass2Args {
   int2* out;            // (B, L + 1), nout (B,): the compacted segments
   int* nout;
   int L, d;
-  float thr;
+  float thr;             // the merge threshold, unless thr_ptr is set
+  const float* thr_ptr;
 };
 
 // The lane's part of the mean of frames [lo, lo + frames) from the prefix
@@ -613,8 +615,9 @@ __device__ __forceinline__ void walk_chain(const Pass2Args& a, int b, int j, int
       }
     warp_sum_n(s3);
     const float na = sqrtf(s3[1] + 1e-8f), nb = sqrtf(s3[2] + 1e-8f);
+    const float thr = a.thr_ptr ? *a.thr_ptr : a.thr;
     int2 carry;
-    if (s3[0] / na / nb >= a.thr) {  // merge: gi dies, gi + 1 takes its start
+    if (s3[0] / na / nb >= thr) {  // merge: gi dies, gi + 1 takes its start
       carry = make_int2(sa.x, sb.y);
       if (lane == 0) {
         wk[gi] = make_int2(-1, -1);
@@ -800,17 +803,19 @@ inline bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 
 // states (B, L, d) fp32 contiguous; voiced (B, L) uint8; close, boundary
 // (B, L) uint8; seg_start (B, L) int32; final_start, nseg, nmid (B,) int32;
-// segs, mids (B, L + 1, 2) int32.
+// segs, mids (B, L + 1, 2) int32. The merge threshold is thr, or the float at
+// thr_ptr in device memory where thr_ptr is not null (a CUDA graph replays
+// its launch arguments; memory it reads anew).
 extern "C" int sylber_segment_pass1(const float* states, const uint8_t* voiced,
                                     uint8_t* close, uint8_t* boundary,
                                     int* seg_start, int* final_start, int* segs,
                                     int* nseg, int* mids, int* nmid, int B,
                                     int L, int d, float thr,
-                                    cudaStream_t stream) {
+                                    const float* thr_ptr, cudaStream_t stream) {
   if (d > MAX_DIM || d < 1 || B < 1 || L < 1 || L > MAX_COUNT)
     return (int)cudaErrorInvalidValue;
   const Pass1Args a{states, voiced, close, boundary, seg_start, final_start,
-                    (int2*)segs, nseg, (int2*)mids, nmid, L, d, thr,
+                    (int2*)segs, nseg, (int2*)mids, nmid, L, d, thr, thr_ptr,
                     d % 4 == 0 && aligned16(states)};
   return launch_pass1(a, B, stream);
 }
@@ -828,16 +833,16 @@ extern "C" int sylber_shared_divisor(const float* x, const float* c, float* q,
 // segs, mids (B, L + 1, 2) and nseg, nmid (B,) as pass 1 wrote them; work
 // (B, L + 1, 2) int32, chains (B, 2, L + 1) int32 and win (B, 8, 2, L) fp32
 // are scratch; out (B, L + 1, 2) int32 and nout (B,) int32 are the compacted
-// segments and their counts.
+// segments and their counts. The merge threshold as pass 1 takes it.
 extern "C" int sylber_segment_pass2(const float* states, const float* norms,
                                     const float* P, const int* segs,
                                     const int* nseg, const int* mids,
                                     const int* nmid, int* work, int* chains,
                                     float* win, int* out, int* nout, int B,
                                     int L, int d, float thr,
-                                    cudaStream_t stream) {
+                                    const float* thr_ptr, cudaStream_t stream) {
   if (d > MAX_DIM || d < 1 || B < 1 || L < 1) return (int)cudaErrorInvalidValue;
   const Pass2Args a{states, norms, P, (const int2*)segs, nseg, (const int2*)mids,
-                    nmid, (int2*)work, chains, win, (int2*)out, nout, L, d, thr};
+                    nmid, (int2*)work, chains, win, (int2*)out, nout, L, d, thr, thr_ptr};
   return launch_pass2(a, B, d % 4 == 0 && aligned16(states) && aligned16(P), stream);
 }

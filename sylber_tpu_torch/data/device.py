@@ -87,13 +87,16 @@ def device_stream(ds, batch_size: int, device, transfer: str = "float32",
     device = torch.device(device)
     data = precollate(ds, device, transfer=transfer)
     idx_gen = index_stream(len(ds), batch_size, shuffle=shuffle, seed=seed, start=start)
+    return (gather_batch(data, order, device) for order in idx_gen)
 
-    def gen():
-        for order in idx_gen:
-            idx = _pinned(order.astype(np.int64), device).to(device, non_blocking=True)
-            yield {k: (v[idx] if v is not None else None) for k, v in data.items()}
 
-    return gen()
+def gather_batch(data: Dict[str, Optional[torch.Tensor]], order: np.ndarray,
+                 device) -> Dict[str, Optional[torch.Tensor]]:
+    """The rows ``order`` of the uploaded corpus ``data``, gathered on the
+    device (the index vector copied from pinned memory, without a wait)."""
+    device = torch.device(device)
+    idx = _pinned(np.asarray(order, np.int64), device).to(device, non_blocking=True)
+    return {k: (v[idx] if v is not None else None) for k, v in data.items()}
 
 
 def to_device(batch: Dict[str, Optional[np.ndarray]], device,

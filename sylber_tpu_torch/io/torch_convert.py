@@ -53,8 +53,10 @@ def state_dict_from_hf(sd: Mapping[str, torch.Tensor],
 
     i = 0
     while f"feature_extractor.conv_layers.{i}.conv.weight" in sd:
-        take(f"feature_extractor.conv_layers.{i}.conv.weight",
-             f"feature_extractor.convs.{i}.weight")
+        for p in ("weight", "bias"):  # a bias where the checkpoint has conv_bias
+            if f"feature_extractor.conv_layers.{i}.conv.{p}" in sd:
+                take(f"feature_extractor.conv_layers.{i}.conv.{p}",
+                     f"feature_extractor.convs.{i}.{p}")
         i += 1
     if i == 0:
         raise KeyError("no conv frontend weights found")

@@ -3,10 +3,13 @@
 Port of ``sylber_tpu/models/hubert.py`` (itself HF ``modeling_hubert`` with
 ``do_stable_layer_norm=False``):
 
-- waveform frontend: 7 strided Conv1d layers, no bias. Layer 0 (k=10, s=5,
-  GroupNorm with one group per channel, exact GELU) runs through the fused
-  kernel of ``ops/frontend.py``; layers 1-6 are ``F.conv1d`` + GELU in
-  ``frontend_dtype``;
+- waveform frontend: 7 strided Conv1d layers (biases with ``conv_bias``).
+  Layer 0 (k=10, s=5 in HuBERT, GroupNorm with one group per channel, exact
+  GELU) runs through the fused kernel of ``ops/frontend.py`` where JAX's
+  condition for its analytic layer 0 holds (``k <= 2 s``, an input of at
+  least ``k + s`` samples, and the kernel's ``k <= 32``), else through the
+  standard fp32 conv + GroupNorm + exact GELU, as JAX's ``ConvFeatureEncoder``
+  routes it; layers 1-6 are ``F.conv1d`` + GELU in ``frontend_dtype``;
 - feature projection: LayerNorm (fp32) -> Linear;
 - padded frames zeroed, then the grouped positional conv (k=128, 16 groups,
   trailing frame dropped for the even kernel) + GELU, added;
@@ -20,6 +23,12 @@ quantized once per load, ``ops/int8.py::QuantizedWeights``, where JAX
 quantizes them in every forward). ``int8_encoder`` is an inference mode: the
 rounding has no gradient, so the model refuses it in train mode or where
 autograd records.
+
+Layer 0's bias (``conv_bias``; JAX then takes its standard path): a
+GroupNorm with one group per channel subtracts each channel's mean over
+time, so the bias cancels there exactly. Off autograd on the card the fused
+kernel runs and leaves it out; under autograd and on the CPU the standard
+path adds it, as JAX does (``ROADMAP.md`` section 3 records the difference).
 
 Key padding reaches attention as per-item frame counts (``kv_len``). Linear
 layers and convs compute in the configured dtype from fp32 parameters, as
@@ -42,6 +51,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import threading
+import warnings
 from typing import Optional, Sequence, Union
 
 import torch
@@ -51,7 +61,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import Dropout, MultiHeadSelfAttention, linear
-from ..ops.frontend import KERNEL_SIZE, STRIDE, analytic_moments_plain, conv0_gn_gelu
+from ..ops.frontend import analytic_moments_plain, conv0_gn_gelu, fits_kernel
 from ..ops.int8 import QuantizedWeights, int8_linear
 
 DType = Union[torch.dtype, str]
@@ -109,11 +119,12 @@ class HubertConfig:
     def __post_init__(self):
         object.__setattr__(self, "dtype", as_dtype(self.dtype))
         object.__setattr__(self, "frontend_dtype", as_dtype(self.frontend_dtype))
-        if self.conv_bias or (self.conv_kernel[0], self.conv_stride[0]) != (
-                KERNEL_SIZE, STRIDE):
-            raise NotImplementedError(
-                "frontend layer 0 runs the fused kernel, which takes "
-                f"conv_kernel[0]={KERNEL_SIZE}, conv_stride[0]={STRIDE}, no bias")
+
+    def layer0_fused(self, length: int) -> bool:
+        """Whether layer 0 of an input of ``length`` samples meets JAX's
+        condition for its analytic path (bias aside), and the fused kernel's."""
+        k, s = self.conv_kernel[0], self.conv_stride[0]
+        return fits_kernel(k, s) and length >= k + s
 
     def gelu_approx_for(self, dtype: DType) -> bool:
         """tanh-vs-erf GELU choice for an op running at ``dtype``."""
@@ -184,45 +195,63 @@ def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype: torch.dtype) -> torch.
                         ln.eps).to(dtype)
 
 
-def _analytic_l0_stats(x: torch.Tensor, w: torch.Tensor, eps: float):
-    """GroupNorm mean and inverse std of ``conv1d(x, w, stride=5)`` from the
+def _analytic_l0_stats(x: torch.Tensor, w: torch.Tensor, eps: float, stride: int):
+    """GroupNorm mean and inverse std of ``conv1d(x, w, stride)`` from the
     input (JAX ``_analytic_l0_stats``), by the fused kernel's own formula
     ``ops/frontend.py::analytic_moments_plain`` in fp64, returned in fp32.
     The gradient reaches ``w`` through it."""
-    mean, var = analytic_moments_plain(x, w)
+    mean, var = analytic_moments_plain(x, w, stride)
     return mean.float(), torch.rsqrt(var.float() + eps)
 
 
+def conv0_standard(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
+                   gamma: torch.Tensor, beta: torch.Tensor, cfg: HubertConfig) -> torch.Tensor:
+    """Layer 0 as JAX's standard path computes it: the conv in fp32 (with
+    its bias), flax's GroupNorm (``E[y^2] - E[y]^2`` moments over time,
+    clipped at 0; ``(y - mean) * (rsqrt(var + eps) * gamma) + beta``), then
+    exact GELU; (B, D, T0) in ``frontend_dtype``."""
+    y = F.conv1d(x[:, None].float(), w, bias, stride=cfg.conv_stride[0])
+    mean = y.mean(-1, keepdim=True)
+    var = ((y * y).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
+    y = (y - mean) * (torch.rsqrt(var + cfg.layer_norm_eps) * gamma[:, None]) + beta[:, None]
+    return _gelu(y, False).to(cfg.frontend_dtype)
+
+
 def conv0_layer_xla(x: torch.Tensor, w: torch.Tensor, gamma: torch.Tensor,
-                    beta: torch.Tensor, cfg: HubertConfig) -> torch.Tensor:
+                    beta: torch.Tensor, cfg: HubertConfig,
+                    bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Frontend layer 0, differentiable, as the JAX package's XLA training
     path computes it (``sylber_tpu/models/hubert.py::ConvFeatureEncoder``):
 
-    - float32 (``frontend_l0_analytic`` off): the conv in fp32, flax's
-      GroupNorm (``E[y^2] - E[y]^2`` moments over time, clipped at 0;
-      ``(y - mean) * (rsqrt(var + eps) * gamma) + beta``), then exact GELU;
+    - float32 (``frontend_l0_analytic`` off), or an input JAX's analytic
+      path does not take (a bias, ``k > 2 s``, fewer than ``k + s``
+      samples): :func:`conv0_standard`;
     - analytic (the default where ``frontend_dtype`` is bf16): moments from
       the input in fp32, the conv in ``frontend_dtype``, the affine folded
       into a per-channel scale and offset in that dtype, tanh GELU there.
 
-    ``x`` (B, L) float32, ``w`` (D, 1, 10). Returns (B, D, T0) in
-    ``frontend_dtype``. This is not the fused kernel's plain version: that
-    one is ``ops/frontend.py::conv0_gn_gelu_plain``."""
-    eps, dt = cfg.layer_norm_eps, cfg.frontend_dtype
+    ``x`` (B, L) float32, ``w`` (D, 1, k), ``bias`` (D,) or None. Returns
+    (B, D, T0) in ``frontend_dtype``. This is not the fused kernel's plain
+    version: that one is ``ops/frontend.py::conv0_gn_gelu_plain``."""
+    eps, dt, s = cfg.layer_norm_eps, cfg.frontend_dtype, cfg.conv_stride[0]
     analytic = cfg.frontend_l0_analytic
     if analytic is None:
         analytic = dt != torch.float32
-    if analytic and x.shape[1] >= KERNEL_SIZE + STRIDE:
-        mean, inv = _analytic_l0_stats(x, w, eps)
-        y = F.conv1d(x[:, None].to(dt), w.to(dt), stride=STRIDE)
+    k = w.shape[-1]
+    eligible = bias is None and k <= 2 * s and x.shape[1] >= k + s
+    if analytic and not eligible and cfg.frontend_l0_analytic:
+        warnings.warn(
+            "frontend_l0_analytic=True requested but the analytic layer-0 path requires "
+            f"conv_bias=False, kernel<=2*stride and input length >= {k + s} (got conv_bias="
+            f"{bias is not None}, k0={k}, s0={s}, len={x.shape[1]}); falling back to the "
+            "standard conv+GroupNorm path", stacklevel=2)
+    if analytic and eligible:
+        mean, inv = _analytic_l0_stats(x, w, eps, s)
+        y = F.conv1d(x[:, None].to(dt), w.to(dt), stride=s)
         scale = (inv * gamma).to(dt)[..., None]
         off = (beta - mean * inv * gamma).to(dt)[..., None]
         return _gelu(y * scale + off, dt != torch.float32)
-    y = F.conv1d(x[:, None].float(), w, stride=STRIDE)
-    mean = y.mean(-1, keepdim=True)
-    var = ((y * y).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
-    y = (y - mean) * (torch.rsqrt(var + eps) * gamma[:, None]) + beta[:, None]
-    return _gelu(y, False).to(dt)
+    return conv0_standard(x, w, bias, gamma, beta, cfg)
 
 
 class ConvFeatureEncoder(nn.Module):
@@ -233,25 +262,32 @@ class ConvFeatureEncoder(nn.Module):
         self.cfg = cfg
         dims_in = (1,) + tuple(cfg.conv_dim[:-1])
         self.convs = nn.ModuleList(
-            nn.Conv1d(i, o, k, s, bias=False)
+            nn.Conv1d(i, o, k, s, bias=cfg.conv_bias)
             for i, o, k, s in zip(dims_in, cfg.conv_dim, cfg.conv_kernel,
                                   cfg.conv_stride))
         self.group_norm = nn.GroupNorm(cfg.conv_dim[0], cfg.conv_dim[0],
                                        eps=cfg.layer_norm_eps)
 
     def forward(self, wav: torch.Tensor, differentiable: bool = False) -> torch.Tensor:
-        """(B, L) float32 -> (B, T, conv_dim[-1]) float32; layer 0 through
-        the fused kernel unless ``differentiable``."""
+        """(B, L) float32 -> (B, T, conv_dim[-1]) float32. Layer 0: with
+        ``differentiable`` :func:`conv0_layer_xla`; else the fused kernel
+        (its plain version on the CPU) where ``cfg.layer0_fused`` holds,
+        on the card even with a bias (it cancels, see the module docstring),
+        else :func:`conv0_standard`."""
         cfg, dt = self.cfg, self.cfg.frontend_dtype
-        args = (self.convs[0].weight, self.group_norm.weight, self.group_norm.bias)
+        conv0, wav = self.convs[0], wav.float()
+        norm = (self.group_norm.weight, self.group_norm.bias)
         if differentiable:
-            x = conv0_layer_xla(wav.float(), *args, cfg)
-        else:
-            x = conv0_gn_gelu(wav.float().contiguous(), *args,
+            x = conv0_layer_xla(wav, conv0.weight, *norm, cfg, conv0.bias)
+        elif cfg.layer0_fused(wav.shape[1]) and (conv0.bias is None or wav.is_cuda):
+            x = conv0_gn_gelu(wav.contiguous(), conv0.weight, *norm, stride=conv0.stride[0],
                               eps=cfg.layer_norm_eps, out_dtype=dt)
+        else:
+            x = conv0_layer_xla(wav, conv0.weight, *norm, cfg, conv0.bias)
         approx = cfg.gelu_approx_for(dt)
         for conv in self.convs[1:]:
-            x = _gelu(F.conv1d(x, conv.weight.to(dt), stride=conv.stride), approx)
+            bias = None if conv.bias is None else conv.bias.to(dt)
+            x = _gelu(F.conv1d(x, conv.weight.to(dt), bias, stride=conv.stride), approx)
         return x.transpose(1, 2).float()
 
 
@@ -333,16 +369,17 @@ class EncoderLayer(nn.Module):
         # leaves, one all-reduce at the end of each sublayer
         self.tp = None
 
-    def forward(self, x: torch.Tensor, kv_len: torch.Tensor, seed: Optional[int] = None,
+    def forward(self, x: torch.Tensor, kv_len: torch.Tensor, seed=None,
                 differentiable: bool = False) -> torch.Tensor:
         """``seed`` set: train mode, the dropout masks drawn from a generator
-        seeded with it (so a recomputation draws them again);
+        seeded with it, or from a ``DropoutStream`` (so a recomputation draws
+        them again);
         ``differentiable``: the attention core in torch ops, not the kernel.
         Under tensor parallelism the split tensors (attention probabilities,
         the feed-forward's hidden units) draw from a generator of the rank's
         own (``Dropout.shard``)."""
         cfg, dt, tp = self.cfg, self.cfg.dtype, self.tp
-        drop = Dropout(seed, x.device) if seed is not None else Dropout.OFF
+        drop = Dropout.of(seed, x.device)
         drop_split = drop if tp is None else drop.shard(tp.rank)
         attn = self.attention(x, kv_len, dt, differentiable=differentiable,
                               dropout=drop_split, dropout_rate=cfg.attention_dropout)
@@ -388,7 +425,10 @@ class HubertModel(nn.Module):
         In train mode the dropout masks come from device generators seeded
         with one seed per encoder layer and one for the rest, drawn from
         ``generator`` (a CPU generator, so drawing reads nothing from the
-        device; the default CPU generator when None)."""
+        device; the default CPU generator when None). ``generator`` may
+        instead be a list of ``num_hidden_layers + 1`` already reseeded
+        ``ops/attention.py::DropoutStream``s, the rest's first (a training
+        step's persistent generators, ``train/distill.py::StepRandom``)."""
         with matmul_precision(self.cfg.precision):
             return self._forward(input_values, attention_mask, mask_time_indices,
                                  generator)
@@ -401,9 +441,11 @@ class HubertModel(nn.Module):
                                "no gradient): run it under torch.no_grad() or "
                                "torch.inference_mode() in eval mode, and train in bf16")
         seeds = [None] * (cfg.num_hidden_layers + 1)
-        if self.training:
+        if self.training and isinstance(generator, (list, tuple)):
+            seeds = list(generator)
+        elif self.training:
             seeds = torch.randint(0, 2 ** 62, (len(seeds),), generator=generator).tolist()
-        drop = Dropout(seeds[0], input_values.device) if self.training else Dropout.OFF
+        drop = Dropout.of(seeds[0], input_values.device)
         feats = self.feature_extractor(input_values, differentiable)
         B, T, _ = feats.shape
         x = drop(self.feature_projection(feats.to(cfg.dtype)), cfg.feat_proj_dropout)

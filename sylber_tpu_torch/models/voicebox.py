@@ -38,7 +38,23 @@ bias-free ``to_qkva`` product, a sigmoid gate, the GateLoop recurrence of
 before each attention block: on the card the recurrence is the kernel of
 ``csrc/gateloop.cu``, under autograd JAX's associative scan in torch ops.
 
-Only float32 is ported (JAX's ``dtype`` field has no counterpart).
+``dtype`` (JAX's field; float32 or bfloat16): every ``Dense`` of JAX's
+that takes it computes in it from float32 parameters (``proj_in``,
+``to_embed``, the depthwise conv, ``to_qkv``, ``to_out``, the GEGLU pair,
+``skip_combiner_*``, ``to_qkva``, ``to_pred``); the norms, the time
+embedding and its MLP, the adaptive norms' products and the rotary angles
+stay float32, and JAX's type promotion is kept: an RMS norm's float32 gamma
+and the float32 rotary angles make q and k float32, so the attention core
+runs in float32 on a bf16-rounded v, as JAX's ``dot_product_attention``
+promotes it (on the card the float32 kernels; a bf16 core would round the
+qk-normed q and k, whose products the scale of 10 magnifies); the
+GateLoop recurrence runs in float32 between casts (``ops/gateloop.py``).
+In bf16 the depthwise conv is an fp32 conv of the bf16-rounded input,
+weight and bias, rounded to bf16 (a bf16 conv with float32 sums), on both
+devices: one form everywhere, and none of oneDNN's bf16 grouped convs, whose
+grouped form ``ROADMAP.md`` section 3 records as faulty (its depthwise form
+is not: ``tests/test_torch_voicebox_bf16.py``); the conv is a small part of
+a call. The regressor's output is in ``dtype``, as JAX's.
 """
 
 from __future__ import annotations
@@ -52,6 +68,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..models.hubert import DType, as_dtype
 from ..ops.attention import Dropout, attention, attention_xla
 from ..ops.gateloop import gate_loop_operator
 
@@ -81,6 +98,10 @@ class RegressorConfig:
     ff_dropout: float = 0.0
     # "default": TF32 matmuls and convs on the card; "highest": full fp32
     precision: str = "default"
+    dtype: DType = torch.float32   # the Dense layers' compute dtype (JAX's field)
+
+    def __post_init__(self):
+        object.__setattr__(self, "dtype", as_dtype(self.dtype))
 
     @property
     def time_hidden(self) -> int:
@@ -118,6 +139,13 @@ def _l2norm(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="none")
+
+
+def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+    """``layer(x)`` computed in ``dtype`` from its float32 parameters (flax
+    ``Dense(dtype=...)``)."""
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
 
 def _same_pad(k: int):
@@ -164,31 +192,34 @@ class Attention(nn.Module):
         c = self.cfg
         B, L, _ = x.shape
         q, k, v = (t.reshape(B, L, c.heads, c.dim_head).transpose(1, 2)
-                   for t in self.to_qkv(x).chunk(3, dim=-1))
+                   for t in dense(x, self.to_qkv, c.dtype).chunk(3, dim=-1))
         scale = None
         if c.attn_qk_norm:
             q = _l2norm(q) * (c.dim_head ** 0.5) * self.q_norm_gamma
             k = _l2norm(k) * (c.dim_head ** 0.5) * self.k_norm_gamma
             scale = c.qk_norm_scale
         q, k = apply_rope(rope, q), apply_rope(rope, k)
+        v = v.to(q.dtype)  # float32 angles make q and k float32 (JAX's promotion)
         if differentiable:
             out = attention_xla(q, k, v, kv_len, scale=scale)
         else:
             out = attention(q, k, v, kv_len, scale)
-        return self.to_out(out.transpose(1, 2).reshape(B, L, c.heads * c.dim_head))
+        return dense(out.transpose(1, 2).reshape(B, L, c.heads * c.dim_head), self.to_out,
+                     c.dtype)
 
 
 class GEGLUFeedForward(nn.Module):
     def __init__(self, cfg: RegressorConfig):
         super().__init__()
         inner = int(cfg.dim * cfg.ff_mult * 2 / 3)
-        self.ff_dropout = cfg.ff_dropout
+        self.ff_dropout, self.dtype = cfg.ff_dropout, cfg.dtype
         self.proj_in = nn.Linear(cfg.dim, inner * 2)
         self.proj_out = nn.Linear(inner, cfg.dim)
 
     def forward(self, x, dropout: Dropout = Dropout.OFF):
-        val, gate = self.proj_in(x).chunk(2, dim=-1)  # torch chunk order: (x, gate)
-        return self.proj_out(dropout(_gelu(gate) * val, self.ff_dropout))
+        # torch chunk order: (x, gate)
+        val, gate = dense(x, self.proj_in, self.dtype).chunk(2, dim=-1)
+        return dense(dropout(_gelu(gate) * val, self.ff_dropout), self.proj_out, self.dtype)
 
 
 class SimpleGateLoop(nn.Module):
@@ -199,15 +230,19 @@ class SimpleGateLoop(nn.Module):
     kernel reads them in place. Where autograd records, the operator takes
     JAX's associative scan in torch ops (``ops/gateloop.py``)."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.norm = RMSNorm(dim)
         self.to_qkva = nn.Linear(dim, 3 * dim, bias=False)
         self.post_ln = nn.LayerNorm(dim, eps=1e-6)
 
     def forward(self, x):
-        q, kv, a = self.to_qkva(self.norm(x)).chunk(3, dim=-1)
-        return self.post_ln(gate_loop_operator(q, kv, torch.sigmoid(a)))
+        q, kv, a = dense(self.norm(x), self.to_qkva, self.dtype).chunk(3, dim=-1)
+        out = gate_loop_operator(q, kv, torch.sigmoid(a))
+        # flax's LayerNorm with float32 parameters: float32 statistics and output
+        return F.layer_norm(out.float(), self.post_ln.normalized_shape, self.post_ln.weight,
+                            self.post_ln.bias, self.post_ln.eps)
 
 
 class VoiceboxTransformer(nn.Module):
@@ -225,7 +260,7 @@ class VoiceboxTransformer(nn.Module):
             if self._has_skip(ind):
                 self.add_module(f"skip_combiner_{ind}", nn.Linear(2 * cfg.dim, cfg.dim))
             if cfg.use_gateloop_layers:
-                self.add_module(f"gateloop_{ind}", SimpleGateLoop(cfg.dim))
+                self.add_module(f"gateloop_{ind}", SimpleGateLoop(cfg.dim, cfg.dtype))
             self.add_module(f"attn_norm_{ind}", AdaptiveRMSNorm(cfg.dim, cfg.time_hidden))
             self.add_module(f"attn_{ind}", Attention(cfg))
             self.add_module(f"ff_norm_{ind}", AdaptiveRMSNorm(cfg.dim, cfg.time_hidden))
@@ -254,7 +289,8 @@ class VoiceboxTransformer(nn.Module):
                 skips.append(x)
             else:
                 skip = skips.pop() * skip_scale
-                x = getattr(self, f"skip_combiner_{ind}")(torch.cat([x, skip], dim=-1))
+                x = dense(torch.cat([x, skip], dim=-1), getattr(self, f"skip_combiner_{ind}"),
+                          c.dtype)
             if c.use_gateloop_layers:
                 x = getattr(self, f"gateloop_{ind}")(x) + x
             attn_in = getattr(self, f"attn_norm_{ind}")(x, time_cond)
@@ -305,8 +341,9 @@ class Regressor(nn.Module):
         (B, L) prefix mask or None (every frame valid); ``dropout``: the
         masks' source in train mode (``Dropout.OFF``: none)."""
         B, L, _ = x.shape
-        x = self.proj_in(x)
-        cond = torch.zeros_like(x) if cond is None else self.proj_in(cond)  # shared weights
+        dt = self.cfg.dtype
+        x = dense(x, self.proj_in, dt)
+        cond = torch.zeros_like(x) if cond is None else dense(cond, self.proj_in, dt)  # shared
         if cond_mask is not None:
             cond = cond * (~cond_mask)[..., None].to(cond.dtype)
         if not torch.is_tensor(times):  # a fill, not a copy from the host
@@ -316,16 +353,18 @@ class Regressor(nn.Module):
         temb = self.time_embedding(times)
 
         parts = [x] + ([cond_emb.to(x.dtype)] if cond_emb is not None else []) + [cond]
-        h = self.to_embed(torch.cat(parts, dim=-1))
+        h = dense(torch.cat(parts, dim=-1), self.to_embed, dt)
 
         if self_attn_mask is None:
             kv_len = torch.full((B,), L, dtype=torch.int32, device=x.device)
         else:
             kv_len = prefix_lengths(self_attn_mask)
             h = h * self_attn_mask[..., None].to(h.dtype)
-        pos = F.conv1d(F.pad(h.transpose(1, 2), _same_pad(self.conv_pos_embed.kernel_size[0])),
-                       self.conv_pos_embed.weight, self.conv_pos_embed.bias,
-                       groups=self.cfg.dim)
+        conv = self.conv_pos_embed
+        # in bf16: an fp32 conv of the rounded tensors, rounded (the module docstring)
+        rounded = lambda t: t.to(dt).float()  # noqa: E731
+        pos = F.conv1d(F.pad(rounded(h.transpose(1, 2)), _same_pad(conv.kernel_size[0])),
+                       rounded(conv.weight), rounded(conv.bias), groups=self.cfg.dim).to(dt)
         pos = _gelu(pos).transpose(1, 2)
         if self_attn_mask is not None:
             pos = pos * self_attn_mask[..., None].to(pos.dtype)
@@ -335,7 +374,7 @@ class Regressor(nn.Module):
             dropout = Dropout.OFF
         differentiable = self.training or torch.is_grad_enabled()
         h = self.transformer(h, kv_len, temb, dropout, differentiable)
-        return self.to_pred(h)
+        return dense(h, self.to_pred, dt)
 
 
 @torch.no_grad()

@@ -58,14 +58,27 @@ class Dropout:
     ``seed``, drawn in call order as ``rand(shape) < 1 - rate`` and scaled by
     ``1 / (1 - rate)`` (flax ``nn.Dropout``'s formula; ``F.dropout`` takes no
     generator). Seeded anew, it draws the same masks again, which a
-    recomputation in the backward pass needs. ``Dropout.OFF`` drops nothing."""
+    recomputation in the backward pass needs. ``Dropout.OFF`` drops nothing.
+    ``generator``: one already seeded with ``seed`` (a :class:`DropoutStream`'s)
+    in place of a new one."""
 
-    def __init__(self, seed: Optional[int], device):
+    def __init__(self, seed: Optional[int], device,
+                 generator: Optional[torch.Generator] = None):
         self.seed, self.device = seed, device
-        self.generator = None
-        if seed is not None:
+        self.generator = generator
+        if generator is None and seed is not None:
             self.generator = torch.Generator(device=device)
             self.generator.manual_seed(int(seed))
+
+    @staticmethod
+    def of(site, device) -> "Dropout":
+        """The dropout of a site given as a seed (a generator made anew), a
+        :class:`DropoutStream` or None (``Dropout.OFF``)."""
+        if site is None:
+            return Dropout.OFF
+        if isinstance(site, DropoutStream):
+            return site.dropout()
+        return Dropout(site, device)
 
     def __call__(self, x: torch.Tensor, rate: float) -> torch.Tensor:
         if self.generator is None or rate <= 0.0:
@@ -85,6 +98,32 @@ class Dropout:
 
 
 Dropout.OFF = Dropout(None, "cpu")
+
+
+class DropoutStream:
+    """The masks of one dropout site (an encoder layer, or the rest of a
+    model) from device generators made once and reseeded before each step,
+    where :class:`Dropout` makes a generator per call: the same seed gives
+    the same masks. A CUDA graph of a training step draws from these
+    generators, registered with it, so each replay reads the seed set by the
+    last :meth:`reseed` (a graph replays its launch arguments). ``copies``
+    generators take a step's calls in turn: two where the site's layer is
+    recomputed in the backward pass (``remat``), so that the recomputation
+    draws the forward's masks again."""
+
+    def __init__(self, device, copies: int = 1):
+        self.generators = [torch.Generator(device=device) for _ in range(copies)]
+        self.seed, self._calls = None, 0
+
+    def reseed(self, seed: int) -> None:
+        self.seed, self._calls = int(seed), 0
+        for g in self.generators:
+            g.manual_seed(self.seed)
+
+    def dropout(self) -> Dropout:
+        g = self.generators[self._calls % len(self.generators)]
+        self._calls += 1
+        return Dropout(self.seed, g.device, generator=g)
 
 
 def attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -102,9 +102,13 @@ def gate_loop_scan(q: torch.Tensor, kv: torch.Tensor, a: torch.Tensor) -> torch.
 
 
 def gate_loop_operator(q: torch.Tensor, kv: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
-    """(B, L, D) float32 output of the recurrence over (B, L, D) ``q``,
-    ``kv``, ``a`` (float32; any (batch, time) strides with a dense last
-    dimension, such as thirds of one (B, L, 3D) product)."""
+    """(B, L, D) output of the recurrence over (B, L, D) ``q``, ``kv``, ``a``
+    (any (batch, time) strides with a dense last dimension, such as thirds of
+    one (B, L, 3D) product), in ``q``'s dtype: in another dtype than float32
+    (a bf16 regressor) the three are cast to float32, the recurrence runs in
+    float32 and its output is cast back, as JAX computes it."""
+    if q.dtype != torch.float32:
+        return gate_loop_operator(q.float(), kv.float(), a.float()).to(q.dtype)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, kv, a)):
         return gate_loop_scan(q, kv, a)
     if q.device.type == "cpu":
@@ -112,7 +116,7 @@ def gate_loop_operator(q: torch.Tensor, kv: torch.Tensor, a: torch.Tensor) -> to
     B, L, D = q.shape
     if any(t.dtype != torch.float32 for t in (q, kv, a)) or kv.shape != q.shape \
             or a.shape != q.shape:
-        raise ValueError("gate_loop_operator: q, kv, a must be float32 of one (B, L, D) shape")
+        raise ValueError("gate_loop_operator: q, kv, a must be of one (B, L, D) shape")
     require_cuda("gate_loop_operator", q, kv, a, contiguous=False)
     q, kv, a = (t if t.stride(2) == 1 else t.contiguous() for t in (q, kv, a))
     return _launch(q, kv, a)

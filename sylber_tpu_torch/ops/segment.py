@@ -28,10 +28,13 @@ instead of resetting (``segment_np.segment_oracle``). Shapes follow the JAX
 code: ``MAX_SEGS = L + 1``; all arithmetic is fp32 with 1e-8 inside each norm.
 
 The norm threshold may be a 0-d tensor on the states' device (the trainer's
-thresholder): it is only compared on the device. The merge threshold reaches
-the kernels as a launch argument, so on a CUDA tensor it must be a host
-number (a float or a CPU tensor); a device tensor raises instead of being
-read back, which would wait for the device.
+thresholder): it is only compared on the device. The merge threshold is a
+host number (a float or a CPU tensor), which reaches the kernels as a launch
+argument, or a 0-d float32 tensor on the states' device, which the kernels
+read from device memory (the trainer's, so that a CUDA graph of its step
+reads each step's draw: a graph replays its launch arguments). Either way
+the kernels compare in float32, so a number and the float32 tensor of it
+give the same bits; nothing is read back.
 """
 
 from __future__ import annotations
@@ -70,13 +73,20 @@ def frame_norms(states: torch.Tensor) -> torch.Tensor:
     return torch.sqrt((states.float() ** 2).sum(-1) + 1e-8)
 
 
-def host_threshold(name: str, value) -> float:
-    """``value`` as a float, refusing a tensor on a device: reading it would
-    wait for the device, and the kernels take the threshold as an argument."""
+def kernel_threshold(name: str, value, states: torch.Tensor):
+    """The merge threshold as the kernels take it: ``(0.0, pointer)`` for a
+    tensor on ``states``' device, which must hold one float32 (the kernels
+    read it from memory, never the host), else ``(float, 0)`` for a host
+    number (a float, or a tensor in host memory when ``states`` are not)."""
+    if isinstance(value, torch.Tensor) and value.device == states.device:
+        if value.dtype != torch.float32 or value.numel() != 1:
+            raise ValueError(f"{name}: a merge threshold on the states' device must be one "
+                             f"float32, got {value.dtype} {tuple(value.shape)}")
+        return 0.0, value.data_ptr()
     if isinstance(value, torch.Tensor) and value.device.type != "cpu":
-        raise ValueError(f"{name}: the merge threshold must be a host number, got a "
-                         f"tensor on {value.device} (reading it would sync the device)")
-    return float(value)
+        raise ValueError(f"{name}: the merge threshold is on {value.device}, the states "
+                         f"on {states.device}")
+    return float(value), 0
 
 
 def _vec_norm(x: torch.Tensor) -> torch.Tensor:
@@ -84,8 +94,9 @@ def _vec_norm(x: torch.Tensor) -> torch.Tensor:
 
 
 def segment_pass1_plain(states: torch.Tensor, voiced: torch.Tensor,
-                        merge_threshold: float) -> Pass1Events:
-    """Reference scan: one step per frame, vectorised over the batch."""
+                        merge_threshold) -> Pass1Events:
+    """Reference scan: one step per frame, vectorised over the batch. The
+    threshold is a number or a 0-d float32 tensor, compared in float32."""
     B, L, d = states.shape
     dev = states.device
     curr = torch.zeros(B, d, dtype=torch.float32, device=dev)
@@ -126,9 +137,10 @@ def _check_states(name: str, states: torch.Tensor) -> None:
 
 
 def segment_pass1(states: torch.Tensor, voiced: torch.Tensor,
-                  merge_threshold: float) -> Pass1Events:
+                  merge_threshold) -> Pass1Events:
     """Pass-1 events and buffers of ``states`` (B, L, d) float32 given
-    ``voiced`` (B, L) bool."""
+    ``voiced`` (B, L) bool; ``merge_threshold`` a number or a 0-d float32
+    tensor on the states' device."""
     if states.device.type == "cpu":
         return segment_pass1_plain(states, voiced, merge_threshold)
     B, L, d = states.shape
@@ -137,11 +149,12 @@ def segment_pass1(states: torch.Tensor, voiced: torch.Tensor,
         raise ValueError(f"segment_pass1: voiced must be bool {(B, L)}, got "
                          f"{voiced.dtype} {tuple(voiced.shape)}")
     require_cuda("segment_pass1", states, voiced)
-    return _launch_pass1(states, voiced, host_threshold("segment_pass1", merge_threshold))
+    return _launch_pass1(states, voiced, merge_threshold)
 
 
 def _launch_pass1(states, voiced, merge_threshold) -> Pass1Events:
     B, L, d = states.shape
+    thr, thr_ptr = kernel_threshold("segment_pass1", merge_threshold, states)
     dev = states.device
     close = torch.empty(B, L, dtype=torch.bool, device=dev)  # the kernel writes 0 or 1
     boundary = torch.empty(B, L, dtype=torch.bool, device=dev)
@@ -155,7 +168,7 @@ def _launch_pass1(states, voiced, merge_threshold) -> Pass1Events:
             states.data_ptr(), voiced.data_ptr(), close.data_ptr(),
             boundary.data_ptr(), seg_start.data_ptr(), final_start.data_ptr(),
             segs.data_ptr(), nseg.data_ptr(), mids.data_ptr(), nmid.data_ptr(),
-            B, L, d, merge_threshold, stream_of(states)),
+            B, L, d, thr, thr_ptr, stream_of(states)),
             "segment_pass1")
     segment_pass1.launches += 1
     return Pass1Events(close, boundary, seg_start, final_start, segs, nseg, mids, nmid)
@@ -266,7 +279,7 @@ def segment_pass2_plain(states, norms, P, segs, nseg, mids, nmid, merge_threshol
 
 def segment_pass2(states: torch.Tensor, norms: torch.Tensor, P: torch.Tensor,
                   segs: torch.Tensor, nseg: torch.Tensor, mids: torch.Tensor,
-                  nmid: torch.Tensor, merge_threshold: float):
+                  nmid: torch.Tensor, merge_threshold):
     """Refine the pass-1 segments at their mid boundaries and compact them.
 
     ``states`` (B, L, d) and ``norms`` (B, L) float32, ``P`` (B, L + 1, d) the
@@ -288,12 +301,12 @@ def segment_pass2(states: torch.Tensor, norms: torch.Tensor, P: torch.Tensor,
             raise ValueError(f"segment_pass2: {name} must be {dtype} {shape}, got "
                              f"{t.dtype} {tuple(t.shape)}")
     require_cuda("segment_pass2", states, norms, P, segs, nseg, mids, nmid)
-    return _launch_pass2(states, norms, P, segs, nseg, mids, nmid,
-                         host_threshold("segment_pass2", merge_threshold))
+    return _launch_pass2(states, norms, P, segs, nseg, mids, nmid, merge_threshold)
 
 
 def _launch_pass2(states, norms, P, segs, nseg, mids, nmid, merge_threshold):
     B, L, d = states.shape
+    thr, thr_ptr = kernel_threshold("segment_pass2", merge_threshold, states)
     dev = states.device
     work = torch.empty_like(segs)  # the row's segments while they are refined
     chains = torch.empty(B, 2, L + 1, dtype=torch.int32, device=dev)  # starts, queue
@@ -306,7 +319,7 @@ def _launch_pass2(states, norms, P, segs, nseg, mids, nmid, merge_threshold):
             states.data_ptr(), norms.data_ptr(), P.data_ptr(), segs.data_ptr(),
             nseg.data_ptr(), mids.data_ptr(), nmid.data_ptr(), work.data_ptr(),
             chains.data_ptr(), win.data_ptr(), out.data_ptr(), nout.data_ptr(), B, L, d,
-            merge_threshold, stream_of(states)), "segment_pass2")
+            thr, thr_ptr, stream_of(states)), "segment_pass2")
     segment_pass2.launches += 1
     return out, nout
 
@@ -328,7 +341,8 @@ def segment_batch(states: torch.Tensor, norm_threshold, merge_threshold,
     """Segment a batch of frame features ``states`` (B, L, d).
 
     ``norm_threshold``: a number or a 0-d tensor on the states' device;
-    ``merge_threshold``: a number (or, on the CPU, any scalar tensor).
+    ``merge_threshold``: a number or a 0-d float32 tensor on the states'
+    device (the same bits either way).
     ``frame_valid`` (B, L) bool marks padded frames False; they count as
     silence, so batched results equal single-utterance results. Returns the
     compacted, order-preserved segments and their mean-pooled features.

@@ -121,7 +121,10 @@ class SynthesisConfig:
     @staticmethod
     def from_yaml_dict(cfg: Dict[str, Any]) -> "SynthesisConfig":
         """Reference-style ``sylber_resynthesis.yaml`` keys (and the port's
-        ``regressor_configs.precision``, "default" unless given)."""
+        ``regressor_configs.precision``, "default" unless given, and
+        ``regressor_configs.dtype``, JAX's ``RegressorConfig.dtype``, float32
+        unless given: the sampler, the trainers and ``POST /resynthesize``
+        run the regressor in it)."""
         r = dict(cfg.get("regressor_configs", {}))
         reg = RegressorConfig(
             dim=r.get("dim", 512), depth=r.get("depth", 8),
@@ -130,7 +133,7 @@ class SynthesisConfig:
             dim_cond_emb=r.get("dim_cond_emb", 256), sigma=r.get("sigma", 0.0),
             use_gateloop_layers=r.get("use_gateloop_layers", False),
             use_unet_skip_connection=r.get("use_unet_skip_connection", False),
-            precision=r.get("precision", "default"))
+            precision=r.get("precision", "default"), dtype=r.get("dtype", "float32"))
         i = dict(cfg.get("input_configs", {}))
         enc = cfg.get("encoding_layer", 9)
         return SynthesisConfig(

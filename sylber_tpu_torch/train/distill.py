@@ -10,9 +10,9 @@ Port of ``sylber_tpu/train/distill.py``. One step:
    threshold from the thresholder as a 0-d device tensor, the segmentation
    kernels on the teacher's states, and the thresholder's stats updated on
    the device. The merge threshold is drawn on the host from the step's CPU
-   generator and reaches the kernels as a launch argument, where JAX draws
-   it on the device: no kernel reads it from memory and nothing is read
-   back;
+   generator (JAX draws it on the device) and copied into device memory
+   with the step's learning rate before the step; the kernels read it from
+   there, and nothing is read back;
 4. optional segment-span masking and noise mixing of the student's input;
 5. the student forward in train mode (dropouts, differentiable layer 0 and
    attention core, see ``models/hubert.py``) and torch autograd: the loss
@@ -26,9 +26,17 @@ Port of ``sylber_tpu/train/distill.py``. One step:
 
 Nothing in a step reads the device from the host: it returns its metrics
 as device tensors. The step's randomness comes from generators seeded from
-``(seed, step)`` (:func:`step_generators`), so a resumed run repeats an
-uninterrupted one. The state is updated in place (the JAX step returns a
-new one).
+``(seed, step)`` (:func:`step_generators`; in the trainer the generators
+of :class:`StepRandom`, made once per training state and reseeded before
+each step), so a resumed run repeats an uninterrupted one. The state is
+updated in place (the JAX step returns a new one), its thresholder, moments
+and accumulators in the same tensors, so that a CUDA graph of the step
+(``train/loop.py``'s ``steps_per_dispatch``) replays on them. Host values
+that change from step to step reach the step as device memory: the merge
+threshold and the learning rate in a (2,) float32 row (on CUDA AdamW is
+``capturable`` and its rate a device tensor), the dropout seeds through the
+reseeded generators; the host's branches on ``state.step`` (the EMA, the
+accumulation window) are fixed for each position in the window.
 
 Under a mesh (``parallel/mesh.py``; ``make_train_step(cfg, mesh)``) each
 rank takes its rows of the global batch and the step is the global batch's:
@@ -56,7 +64,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..data.device import pcm_normalize
+from ..data.device import _pinned, pcm_normalize
 from ..data.noise import NoiseMixerConfig, mix_noise, mix_noise_apply, noise_draws
 from ..models.hubert import (HubertConfig, HubertModel, feature_vector_attention_mask,
                              init_weights, matmul_precision)
@@ -64,6 +72,7 @@ from ..ops.segment import averaged_target_fill, segment_batch
 from ..parallel.mesh import (FSDP_MIN_SIZE, Mesh, all_gather_cat, all_reduce_mean_, gather_full,
                              is_dtensor, local, reduce_mean, shard_batch, shard_like,
                              shard_params, tp_dim)
+from ..ops.attention import DropoutStream
 from .ema import ema_init, ema_update
 from .lr import cosine_warmup_schedule
 from .thresholder import ThresholderState, get_threshold, thresholder_init, update_stats
@@ -73,6 +82,7 @@ from .thresholder import ThresholderState, get_threshold, thresholder_init, upda
 class DistillConfig:
     model: HubertConfig = HubertConfig()
     ema_decay: float = 1.0                     # frozen teacher, as both recipes
+    ema_fp32_shadow: bool = True               # a float32 EMA whatever the student's dtype
     segment_online: bool = False
     merge_threshold_range: Tuple[float, float] = (0.5, 0.7)
     use_train_thrupdate: bool = False
@@ -102,6 +112,7 @@ class TrainState:
     thresholder: ThresholderState
     acc_grads: Optional[List[torch.Tensor]] = None  # MultiSteps mean gradient
     mesh: Optional[Mesh] = None       # the student, teacher and moments sharded over it
+    rng: Optional["StepRandom"] = None  # the step's generators, reseeded each step
 
     @property
     def ema(self) -> Dict[str, torch.Tensor]:
@@ -112,14 +123,15 @@ class TrainState:
         call this together), so a checkpoint has one layout whatever the mesh."""
         if self.mesh is None:
             return dict(step=self.step, params=self.student.state_dict(),
-                        ema=self.teacher.state_dict(), optimizer=self.optimizer.state_dict(),
+                        ema=self.teacher.state_dict(),
+                        optimizer=host_optimizer_state(self.optimizer),
                         thresholder=tuple(self.thresholder), acc_grads=self.acc_grads)
         names = [n for n, _ in self.student.named_parameters()]
         full = lambda sd: {k: gather_full(v, k, self.mesh).cpu() for k, v in sd.items()}  # noqa: E731
         # the moments keyed by the student's parameter order in one group
         # (the layout without a mesh), whatever groups the optimizer has
         order, pos = self._optimizer_names(), {n: i for i, n in enumerate(names)}
-        opt = self.optimizer.state_dict()
+        opt = host_optimizer_state(self.optimizer)
         opt = dict(opt, param_groups=[dict(opt["param_groups"][0], params=list(range(len(names))))],
                    state={pos[order[i]]: {k: (gather_full(v, order[i], self.mesh).cpu()
                                               if k != "step" else v) for k, v in st.items()}
@@ -158,9 +170,9 @@ class TrainState:
                 i: {k: (shard_like(v, name, mesh, named[name]) if k != "step" else v)
                     for k, v in saved[pos[name]].items()}
                 for i, name in enumerate(order) if pos[name] in saved})
-        self.optimizer.load_state_dict(opt)
-        dev = self.thresholder.signal_mean.device
-        self.thresholder = ThresholderState(*(t.to(dev) for t in d["thresholder"]))
+        load_optimizer_state(self.optimizer, opt)
+        for t, v in zip(self.thresholder, d["thresholder"]):  # the same tensors
+            t.copy_(v)
         if d["acc_grads"] is not None:
             for a, b, n in zip(self.acc_grads, d["acc_grads"], names):
                 local(a).copy_(local(shard_like(b, n, mesh, a)) if mesh is not None else b)
@@ -172,21 +184,30 @@ class TrainState:
 
 
 class StepGenerators(NamedTuple):
-    seg: torch.Generator    # CPU: the merge threshold
+    seg: Any                # CPU generator: the merge threshold (or the drawn
+                            # threshold itself, a 0-d float32 tensor on the device)
     mask: torch.Generator   # device: span-mask draws
     noise: torch.Generator  # device: noise-mixing draws
-    drop: torch.Generator   # CPU: the dropout seeds of the student's layers
+    drop: Any               # CPU generator: the dropout seeds of the student's layers
+                            # (or the reseeded DropoutStreams of StepRandom)
+
+
+def step_seeds(seed: int, step: int, rank: int = 0) -> List[int]:
+    """The four seeds of step ``step`` of a run seeded ``seed``: the merge
+    threshold's, the span mask's, the noise mixer's and the dropout's; the
+    last is seeded from ``(seed, step, rank)`` on dp ``rank`` > 0."""
+    s = np.random.SeedSequence([int(seed), int(step)]).generate_state(4, np.uint64)
+    if rank:
+        s[3] = np.random.SeedSequence([int(seed), int(step), int(rank)]).generate_state(
+            1, np.uint64)[0]
+    return [int(v) & (2 ** 63 - 1) for v in s]
 
 
 def step_generators(seed: int, step: int, device, rank: int = 0) -> StepGenerators:
     """Four independent generators for step ``step`` of a run seeded
     ``seed``; the dropout generator of dp ``rank`` > 0 is seeded from
     ``(seed, step, rank)`` (the others are the same on every rank)."""
-    s = np.random.SeedSequence([int(seed), int(step)]).generate_state(4, np.uint64)
-    if rank:
-        s[3] = np.random.SeedSequence([int(seed), int(step), int(rank)]).generate_state(
-            1, np.uint64)[0]
-    s = [int(v) & (2 ** 63 - 1) for v in s]
+    s = step_seeds(seed, step, rank)
     dev = torch.device(device)
     return StepGenerators(torch.Generator().manual_seed(s[0]),
                           torch.Generator(device=dev).manual_seed(s[1]),
@@ -194,14 +215,99 @@ def step_generators(seed: int, step: int, device, rank: int = 0) -> StepGenerato
                           torch.Generator().manual_seed(s[3]))
 
 
-def make_optimizer(cfg: DistillConfig, params) -> torch.optim.AdamW:
+class StepRandom:
+    """The training step's generators, made once per training state and
+    reseeded before each step from :func:`step_seeds`: the span mask's and
+    the noise mixer's device generators, and one ``DropoutStream`` a dropout
+    site of the student (the rest of the model, then each encoder layer).
+    They draw what :func:`step_generators`' would draw, bit for bit; being
+    the same objects every step, they can be registered with a CUDA graph of
+    the step, which then reads the seeds each reseeding sets."""
+
+    def __init__(self, cfg: DistillConfig, device, rank: int = 0):
+        dev = torch.device(device)
+        self.rank = rank
+        self.mask = torch.Generator(device=dev)
+        self.noise = torch.Generator(device=dev)
+        copies = 2 if cfg.model.remat else 1  # a remat layer draws its masks twice
+        self.drop = [DropoutStream(dev, copies) for _ in range(cfg.model.num_hidden_layers + 1)]
+
+    def reseed(self, seed: int, step: int) -> None:
+        """Reseed every generator for step ``step``."""
+        s = step_seeds(seed, step, self.rank)
+        self.mask.manual_seed(s[1])
+        self.noise.manual_seed(s[2])
+        drop = torch.Generator().manual_seed(s[3])
+        for site, v in zip(self.drop, torch.randint(0, 2 ** 62, (len(self.drop),),
+                                                    generator=drop).tolist()):
+            site.reseed(v)
+
+    def generators(self) -> List[torch.Generator]:
+        """Every device generator (for ``CUDAGraph.register_generator_state``)."""
+        return [self.mask, self.noise] + [g for site in self.drop for g in site.generators]
+
+    def step_generators(self, merge_threshold: torch.Tensor) -> StepGenerators:
+        return StepGenerators(merge_threshold, self.mask, self.noise, self.drop)
+
+
+def make_optimizer(cfg: DistillConfig, params, capturable: bool = False) -> torch.optim.AdamW:
     """AdamW at lr 0; the step sets the schedule's rate before each update.
     The leaves FSDP shards (DTensors) and the others form two groups: a
-    foreach kernel takes no mix of the two."""
+    foreach kernel takes no mix of the two. ``capturable`` (CUDA): both keep
+    their step counts on the device and compute the bias corrections there
+    (torch's capturable AdamW, so that every run on the card rounds alike),
+    and the group of plain tensors takes its rate from a 0-d float32 device
+    tensor, so that a CUDA graph of the step replays it."""
     params = list(params)
     groups = [[p for p in params if is_dtensor(p)], [p for p in params if not is_dtensor(p)]]
-    return torch.optim.AdamW([{"params": g} for g in groups if g], lr=0.0, betas=(0.9, 0.95),
-                             eps=1e-4, weight_decay=cfg.weight_decay)
+    spec = [{"params": groups[0]}, {"params": groups[1]}]
+    if capturable and groups[1]:  # the sharded leaves run eagerly: a rate as a number
+        spec[1]["lr"] = torch.zeros((), dtype=torch.float32, device=groups[1][0].device)
+    return torch.optim.AdamW([g for g in spec if g["params"]], lr=0.0, betas=(0.9, 0.95),
+                             eps=1e-4, weight_decay=cfg.weight_decay, capturable=capturable)
+
+
+def set_learning_rate(optimizer: torch.optim.Optimizer, value: float,
+                      on_device: Optional[torch.Tensor] = None) -> None:
+    """Every group's rate to ``value``. A group whose rate is a device tensor
+    keeps that tensor and takes ``on_device`` (the same rate as a 0-d device
+    tensor: a graph of the step reads it anew) into it, or ``value``."""
+    for group in optimizer.param_groups:
+        if not isinstance(group["lr"], torch.Tensor):
+            group["lr"] = float(value)
+        elif on_device is not None:
+            group["lr"].copy_(on_device)
+        else:
+            group["lr"].fill_(value)
+
+
+def host_optimizer_state(optimizer: torch.optim.Optimizer) -> Dict[str, Any]:
+    """``optimizer.state_dict()`` in the layout of a non-capturable AdamW on
+    the host (rates as numbers, step counts as CPU tensors), whatever the
+    optimizer's groups: a checkpoint resumes on the CPU or the card alike."""
+    sd = optimizer.state_dict()
+    groups = [dict(g, lr=float(g["lr"]), capturable=False) for g in sd["param_groups"]]
+    state = {i: {k: (v.detach().cpu() if k == "step" else v) for k, v in st.items()}
+             for i, st in sd["state"].items()}
+    return dict(sd, param_groups=groups, state=state)
+
+
+def load_optimizer_state(optimizer: torch.optim.Optimizer, sd: Dict[str, Any]) -> None:
+    """Load :func:`host_optimizer_state`'s layout, keeping each group's own
+    ``capturable`` flag and device rate tensor (and its step counts on the
+    parameters' device)."""
+    kept = [(g["capturable"], g["lr"]) for g in optimizer.param_groups]
+    optimizer.load_state_dict(sd)
+    for group, (capturable, lr) in zip(optimizer.param_groups, kept):
+        if isinstance(lr, torch.Tensor):
+            lr.fill_(float(group["lr"]))
+            group["lr"] = lr
+        group["capturable"] = capturable
+        if capturable:
+            for p in group["params"]:
+                st = optimizer.state.get(p)
+                if st and "step" in st:
+                    st["step"] = st["step"].to(device=p.device, dtype=torch.float32)
 
 
 def init_train_state(cfg: DistillConfig, device, params: Optional[Dict[str, torch.Tensor]] = None,
@@ -210,8 +316,11 @@ def init_train_state(cfg: DistillConfig, device, params: Optional[Dict[str, torc
                      fsdp_min_size: int = FSDP_MIN_SIZE) -> TrainState:
     """Student from ``params`` (a HubertModel state dict; layers past the
     config's are ignored, a missing weight raises) or seeded random weights;
-    the teacher a copy of it (an fp32 shadow where ``ema_decay < 1``; the
-    port keeps float32 parameters, so the copy is float32 either way).
+    the teacher a copy of it: a float32 shadow where ``ema_decay < 1`` and
+    ``ema_fp32_shadow``, else in the student's dtypes (JAX's rule; the port
+    keeps float32 parameters, as flax does, so the copy is float32 either
+    way unless the student's leaves are not). On CUDA the optimizer is
+    capturable (:func:`make_optimizer`).
     Under ``mesh`` both are split over its mp axis and, with ``fsdp``, the
     leaves of JAX's FSDP plan (``fsdp_min_size``) sharded over its dp axis
     (``shard_params``); the AdamW moments and accumulators follow the
@@ -225,17 +334,21 @@ def init_train_state(cfg: DistillConfig, device, params: Optional[Dict[str, torc
             raise KeyError(f"initial parameters lack {missing}")
     student.to(device)
     teacher = HubertModel(cfg.model).to(device).eval().requires_grad_(False)
-    teacher.load_state_dict(ema_init(student.state_dict(), fp32_shadow=cfg.ema_decay < 1.0))
+    shadow = cfg.ema_fp32_shadow and cfg.ema_decay < 1.0
+    # assign: the teacher's leaves are ema_init's, in their dtypes
+    teacher.load_state_dict(ema_init(student.state_dict(), fp32_shadow=shadow), assign=True)
     if mesh is not None:
         for m in (student, teacher):
             shard_params(m, mesh, fsdp=fsdp, fsdp_min_size=fsdp_min_size)
     acc = None
     if cfg.accumulate_grad_batches > 1:
         acc = [torch.zeros_like(p) for p in student.parameters()]
+    capturable = torch.device(device).type == "cuda"
     return TrainState(step=0, student=student, teacher=teacher,
-                      optimizer=make_optimizer(cfg, student.parameters()),
+                      optimizer=make_optimizer(cfg, student.parameters(), capturable),
                       thresholder=thresholder_init(**(thresholder_kwargs or {}), device=device),
-                      acc_grads=acc, mesh=mesh)
+                      acc_grads=acc, mesh=mesh,
+                      rng=StepRandom(cfg, device, rank=mesh.dp_rank if mesh else 0))
 
 
 # ---- span mask: draws, then a pure function of them ------------------------
@@ -312,6 +425,12 @@ def merge_threshold_draw(generator: torch.Generator, cfg: DistillConfig) -> floa
     return float(torch.rand((), generator=generator) * (hi - lo) + lo)
 
 
+def merge_threshold(seg, cfg: DistillConfig):
+    """The step's merge threshold: ``seg`` itself where it is the drawn value
+    (a tensor), else drawn on the host from the generator ``seg``."""
+    return seg if isinstance(seg, torch.Tensor) else merge_threshold_draw(seg, cfg)
+
+
 def teacher_targets(teacher: HubertModel, batch: Dict[str, Optional[torch.Tensor]]):
     """The step's inputs and the teacher's frame states: ``(wav, attention_mask,
     target)``, the wav normalised on the device when it is int16 PCM, the
@@ -351,7 +470,7 @@ def online_segments(target: torch.Tensor, attention_mask: Optional[torch.Tensor]
     if attention_mask is not None:
         frame_valid = feature_vector_attention_mask(cfg.model, attention_mask,
                                                     target.shape[1]).bool()
-    res = segment_batch(target, norm_threshold, merge_threshold_draw(gens.seg, cfg),
+    res = segment_batch(target, norm_threshold, merge_threshold(gens.seg, cfg),
                         frame_valid=frame_valid, norms=norms)
     return res.segments, res.num_segments, new_thr, norm_mask
 
@@ -454,8 +573,9 @@ def apply_gradients(params: List[torch.Tensor], grads: List[torch.Tensor],
     """``optax.MultiSteps(chain(clip_by_global_norm, adamw))`` on ``grads``
     (one per parameter) at micro-batch ``step``: accumulate the running
     mean in ``acc_grads``, and at the k-th micro-batch clip it and take one
-    AdamW step at the schedule's rate for the update count. ``norm``: the
-    global norm of a list of gradients (a mesh's, :func:`global_norm`)."""
+    AdamW step at the schedule's rate for the update count (``schedule``
+    None: at the rate the caller set). ``norm``: the global norm of a list
+    of gradients (a mesh's, :func:`global_norm`)."""
     k = cfg.accumulate_grad_batches
     if k > 1:
         n = step % k
@@ -470,8 +590,8 @@ def apply_gradients(params: List[torch.Tensor], grads: List[torch.Tensor],
     torch._foreach_mul_([local(g) for g in grads], factor)
     for p, g in zip(params, grads):
         p.grad = g
-    for group in optimizer.param_groups:
-        group["lr"] = schedule(step // k)
+    if schedule is not None:
+        set_learning_rate(optimizer, schedule(step // k))
     optimizer.step()
 
 
@@ -496,15 +616,32 @@ def make_train_step(cfg: DistillConfig, mesh: Optional[Mesh] = None):
     schedule = cosine_warmup_schedule(cfg.lr, cfg.warmup_steps, cfg.total_steps,
                                       cfg.min_factor, cfg.hold_steps)
 
-    def train_step(state: TrainState, batch: Dict, seed: int) -> Dict[str, Any]:
+    def values(seed: int, step: int) -> List[float]:
+        """Step ``step``'s device row on the host: ``[merge threshold,
+        learning rate]``."""
+        seg = torch.Generator().manual_seed(step_seeds(seed, step)[0])
+        return [merge_threshold_draw(seg, cfg), schedule(step // cfg.accumulate_grad_batches)]
+
+    def reseed(state: TrainState, seed: int, step: int) -> None:
+        """The state's step generators (made at the first step) reseeded for
+        step ``step``."""
+        if state.rng is None:
+            device = local(next(state.student.parameters())).device
+            state.rng = StepRandom(cfg, device, rank=mesh.dp_rank if mesh else 0)
+        state.rng.reseed(seed, step)
+
+    def run(state: TrainState, batch: Dict, row: torch.Tensor, lr: float) -> Dict[str, Any]:
+        """One step on device inputs: ``row`` (2,) float32 on the device, the
+        merge threshold and the learning rate (``lr`` the same rate as a
+        number, taken by a group whose rate is not a device tensor). Reads
+        nothing from the device; branches on ``state.step`` only."""
         if cfg.ema_decay < 1.0 and state.step % cfg.accumulate_grad_batches == 0:
             ema_update(state.ema, state.student.state_dict(), cfg.ema_decay)
         named = list(state.student.named_parameters())
         names, params = [n for n, _ in named], [p for _, p in named]
         for p in params:
             p.grad = None
-        device = local(params[0]).device
-        gens = step_generators(seed, state.step, device, rank=mesh.dp_rank if mesh else 0)
+        gens = state.rng.step_generators(row[0])
         norm = (lambda g: global_norm(g, mesh, names)) if mesh is not None else global_norm  # noqa: E731
         # the TF32 flags hold for the backward pass too (cuDNN's default is on)
         with matmul_precision(cfg.model.precision):
@@ -519,13 +656,25 @@ def make_train_step(cfg: DistillConfig, mesh: Optional[Mesh] = None):
             if mesh is not None and whole:
                 all_reduce_mean_(whole, mesh.group("dp"), mesh.dp)
             grad_norm = norm(grads)
+            set_learning_rate(state.optimizer, lr, row[1])
             apply_gradients(params, grads, state.optimizer, state.acc_grads, state.step, cfg,
-                            schedule, norm)
-        state.thresholder = aux.pop("thresholder")
+                            None, norm)
+        for t, v in zip(state.thresholder, aux.pop("thresholder")):  # in place
+            t.copy_(v)
         state.step += 1
         loss, aux = _reduce_metrics(loss, aux, mesh)
         return {"loss": loss.detach(), "grad_norm": grad_norm, **aux}
 
+    def train_step(state: TrainState, batch: Dict, seed: int) -> Dict[str, Any]:
+        reseed(state, seed, state.step)
+        vals = values(seed, state.step)
+        device = local(next(state.student.parameters())).device
+        # from pinned memory without a wait: the caching host allocator keeps
+        # the block until the copy has run
+        row = _pinned(np.asarray(vals, np.float32), device).to(device, non_blocking=True)
+        return run(state, batch, row, vals[1])
+
+    train_step.values, train_step.reseed, train_step.run = values, reseed, run
     return train_step
 
 

@@ -29,12 +29,21 @@ def ema_init(params: Params, fp32_shadow: bool = False) -> Params:
 @torch.no_grad()
 def ema_update(ema: Params, params: Params, decay: float) -> None:
     """``ema = ema * decay + param * (1 - decay)``, in place, in each EMA
-    leaf's dtype."""
+    leaf's dtype: a float32 leaf by ``_foreach`` ops; a narrower one (no
+    shadow) with ``decay`` and ``1 - decay`` rounded to its dtype and each
+    operation rounded to it, as JAX computes with its weakly typed numbers."""
     keys = [k for k, e in ema.items() if e.is_floating_point()]
-    e = [local(ema[k]) for k in keys]
-    torch._foreach_mul_(e, decay)
-    torch._foreach_add_(e, [local(params[k]).detach().to(ei.dtype) * (1.0 - decay)
-                            for k, ei in zip(keys, e)])
+    wide = [k for k in keys if ema[k].dtype == torch.float32]
+    e = [local(ema[k]) for k in wide]
+    if e:
+        torch._foreach_mul_(e, decay)
+        torch._foreach_add_(e, [local(params[k]).detach().to(ei.dtype) * (1.0 - decay)
+                                for k, ei in zip(wide, e)])
+    for k in keys:
+        if k not in wide:
+            ei = local(ema[k])
+            keep, take = (torch.tensor(v, dtype=ei.dtype) for v in (decay, 1.0 - decay))
+            ei.mul_(keep).add_(local(params[k]).detach().to(ei.dtype) * take)
 
 
 def ema_restore(ema: Params, params_like: Params) -> Params:

@@ -26,9 +26,19 @@ checkpoints and ``params_final.npz``, whose leaves are gathered whole first
 (a checkpoint resumes under any mesh); the val loss is the global batch's;
 MFU is over the ``dp`` cards, as in JAX.
 
-Differences from the JAX loop: ``steps_per_dispatch`` and ``rng_impl`` are
-not ported (both are read: the loop says it runs one step a dispatch, and
-that ``rng_impl`` selects a JAX generator); a resumed run is not reseeded:
+``steps_per_dispatch: K`` runs K steps a dispatch on the device-resident
+corpus (``train/dispatch.py``: on CUDA a graph of the step, captured once
+and replayed K times; on the CPU the same steps eagerly), with the one-step
+loop's math: the same index stream, the same per-step draws, the same
+metric rows (the host fetches a dispatch's metrics once, where a step of
+it is logged, and gives its rows the dispatch's rate). Steps that K does not
+divide run one at a time. Checkpoints and validation fire on interval
+crossings, as in JAX. As in JAX, K falls back to 1, with JAX's message,
+without device-resident data or with ``profile_steps``; under a process
+group too (JAX turns device-resident data off in a multi-process run).
+
+Differences from the JAX loop: ``rng_impl`` is not ported (it is read: the
+loop says that it selects a JAX generator); a resumed run is not reseeded:
 the batches of step ``s`` depend on ``(seed, s)`` alone, so it sees what an
 uninterrupted run sees (the JAX loop reseeds the data with
 ``seed + 1_000_003 * start``).
@@ -37,6 +47,7 @@ uninterrupted run sees (the JAX loop reseeds the data with
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import os
 import time
@@ -48,14 +59,19 @@ import torch.distributed as dist
 from ..api import resolve_device
 from ..data.dataset import (SpeechDataset, SyntheticSpeechDataset, load_manifest, prefetch,
                             step_batches)
-from ..data.device import device_stream, precollate, to_device, wait_ready
+from ..data.device import device_stream, gather_batch, index_stream, precollate, to_device, \
+    wait_ready
 from ..data.noise import NoiseMixerConfig
 from ..io.checkpoint import TrainCheckpointManager, save_params_npz
 from ..models.hubert import HubertConfig
 from ..parallel.mesh import (FSDP_MIN_SIZE, fetch_global, is_main, maybe_distributed_init,
                              mesh_from_config, shard_batch)
 from ..utils.profiling import hubert_train_flops, mfu, trace
+from .dispatch import StepDispatch
 from .distill import DistillConfig, TrainState, init_train_state, make_eval_step, make_train_step
+
+SPD_FALLBACK = ("steps_per_dispatch > 1 needs device-resident data and no profile hooks; "
+                "falling back to 1")
 
 
 def distill_config_from_dict(model_cfg: Dict[str, Any]) -> DistillConfig:
@@ -190,9 +206,12 @@ def train(cfg: Dict[str, Any], out_dir: str = "runs/sylber", max_steps: Optional
         raise ValueError(f"mesh dp={dp} does not divide the batch of {batch_size}")
     if main and cfg.get("rng_impl", "threefry") not in ("threefry", "threefry2x32"):
         print(f"rng_impl {cfg['rng_impl']!r} selects a JAX generator; ignored here")
-    if main and int(cfg.get("steps_per_dispatch", 1)) > 1:
-        print(f"steps_per_dispatch={cfg['steps_per_dispatch']}: not ported; running one "
-              "step per dispatch")
+    spd = int(cfg.get("steps_per_dispatch", 1))
+    resident = data_cfg.get("device_resident", bool(data_cfg.get("synthetic")))
+    if spd > 1 and (not resident or profile_steps or mesh is not None):
+        if main:
+            print(SPD_FALLBACK)
+        spd = 1
     if main and mesh is not None:
         print(f"mesh: dp={mesh.dp} mp={mesh.mp}{' fsdp' if mesh_cfg.get('fsdp') else ''} over "
               f"{dist.get_world_size()} ranks ({dist.get_backend()})")
@@ -209,17 +228,31 @@ def train(cfg: Dict[str, Any], out_dir: str = "runs/sylber", max_steps: Optional
             print(f"resumed from step {state.step}")
     start = state.step
     logger = MetricLogger(out_dir) if main else None
-    stream = (shard_batch(b, mesh)
-              for b in train_batches(data_cfg, batch_size, seed, start, device))
     step_fn = make_train_step(dcfg, mesh)
     eval_fn = make_eval_step(dcfg, mesh)
+    dispatcher = idx_gen = data = None
+    if spd > 1:  # the corpus on the device, gathered by the dispatches' index vectors
+        ds = build_dataset(data_cfg, "train", seed=seed)
+        if len(ds) < batch_size:
+            raise ValueError(f"dataset has {len(ds)} items < batch_size {batch_size}; the "
+                             "drop-last epoch loop would yield none")
+        data = precollate(ds, device, transfer=data_cfg.get("transfer", "float32"))
+        idx_gen = index_stream(len(ds), batch_size, shuffle=True, seed=seed, start=start)
+        dispatcher = StepDispatch(step_fn, dcfg, data, batch_size, spd, device)
+        stream = (gather_batch(data, next(idx_gen), device) for _ in itertools.count())
+    else:
+        stream = (shard_batch(b, mesh)
+                  for b in train_batches(data_cfg, batch_size, seed, start, device))
 
-    def log_row(step, metrics, crop_len):
+    def log_row(step, m, crop_len, steps_per_sec=None):
+        """A row of host metrics; the rate since the last row unless given
+        (a dispatch's rows share its rate)."""
         nonlocal t_last, s_last
-        m = _fetch(metrics)  # waits for the device: only every log_every steps
-        now = time.perf_counter()
-        m["steps_per_sec"] = (step - s_last) / max(now - t_last, 1e-9)
-        t_last, s_last = now, step
+        if steps_per_sec is None:
+            now = time.perf_counter()
+            steps_per_sec = (step - s_last) / max(now - t_last, 1e-9)
+            t_last, s_last = now, step
+        m["steps_per_sec"] = steps_per_sec
         m["mfu"] = mfu(hubert_train_flops(dcfg.model, batch_size, crop_len),
                        1.0 / max(m["steps_per_sec"], 1e-9),
                        str(dcfg.model.dtype).replace("torch.", ""), dcfg.model.precision, dp)
@@ -231,17 +264,32 @@ def train(cfg: Dict[str, Any], out_dir: str = "runs/sylber", max_steps: Optional
 
     t_last, s_last = time.perf_counter(), start
     val_batches = None
+    step_i = start
     with contextlib.ExitStack() as tracer:  # closed after step b, or on an error
-        for step_i in range(start, max_steps):
-            if profile_steps and step_i == profile_steps[0] and main:
-                tracer.enter_context(trace(os.path.join(out_dir, "profile")))
-            batch = next(stream)
-            metrics = step_fn(state, batch, seed)
-            if profile_steps and step_i == profile_steps[1]:
-                tracer.close()
-            s_end = step_i + 1
-            if s_end % log_every == 0:
-                log_row(s_end, metrics, batch["input_values"].shape[-1])
+        while step_i < max_steps:
+            if dispatcher is not None and step_i + spd <= max_steps:
+                ms = dispatcher.dispatch(state, seed, [next(idx_gen) for _ in range(spd)])
+                s_end = step_i + spd
+                logged = [s for s in range(step_i + 1, s_end + 1) if s % log_every == 0]
+                if logged:
+                    rows = ms.cpu().tolist()  # the dispatch's one wait for its metrics
+                    now = time.perf_counter()
+                    sps = (s_end - s_last) / max(now - t_last, 1e-9)
+                    t_last, s_last = now, s_end
+                    crop = data["input_values"].shape[-1]
+                    for s in logged:
+                        log_row(s, dict(zip(dispatcher.keys, rows[s - step_i - 1])), crop, sps)
+            else:
+                if profile_steps and step_i == profile_steps[0] and main:
+                    tracer.enter_context(trace(os.path.join(out_dir, "profile")))
+                batch = next(stream)
+                metrics = step_fn(state, batch, seed)
+                if profile_steps and step_i == profile_steps[1]:
+                    tracer.close()
+                s_end = step_i + 1
+                if s_end % log_every == 0:
+                    # waits for the device: only every log_every steps
+                    log_row(s_end, _fetch(metrics), batch["input_values"].shape[-1])
             if ckpt_every and step_i // ckpt_every != s_end // ckpt_every:
                 full = state.state_dict()  # every rank gathers its pieces
                 if main:
@@ -256,6 +304,7 @@ def train(cfg: Dict[str, Any], out_dir: str = "runs/sylber", max_steps: Optional
                     loss = float(torch.stack(losses).mean())
                     logger.log(s_end, {"loss": loss}, prefix="val")
                     print(f"  val loss: {loss:.4f}")
+            step_i = s_end
 
     final = fetch_global(state.student.state_dict(), mesh) if mesh is not None \
         else state.student.state_dict()

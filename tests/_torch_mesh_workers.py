@@ -168,7 +168,9 @@ def _train_quiet(cfg, out_dir, max_steps, ckpt_every=2):
 def loop_world(rank: int, world: int, root: str):
     """The loop on 2 ranks whose process group the first run's
     ``distributed:`` block forms (a ``file://`` rendezvous): dp=2 for 4
-    steps, then resumed to 6; the same with FSDP; then the refusals."""
+    steps, then resumed to 6; the same with FSDP; dp=2 with
+    ``steps_per_dispatch: 2`` for 2 steps (one step a dispatch under a
+    process group); then the refusals."""
     import os
 
     import torch.distributed as dist
@@ -183,6 +185,8 @@ def loop_world(rank: int, world: int, root: str):
         run_dir = os.path.join(root, name)
         out[name] = [_train_quiet(cfg, run_dir, 4), _train_quiet(cfg, run_dir, 6)]
         out["group_formed_by_block"] = dist.is_initialized() and dist.get_world_size() == world
+    cfg = dict(LOOP_CFG, mesh={"dp": 2}, distributed=block, steps_per_dispatch=2)
+    out["spd"] = _train_quiet(cfg, os.path.join(root, "spd"), 2, ckpt_every=0)
     errors = []
     for bad in (dict(LOOP_CFG, mesh={"dp": 4}),
                 dict(LOOP_CFG, mesh={"dp": 2}, data=dict(LOOP_CFG["data"], batch_size=3))):

@@ -399,6 +399,46 @@ def test_emulated_pass1_decides_a_cosine_at_the_threshold_exactly(segment_launch
     assert bool(got.boundary[0, 1]) == above
 
 
+THRESHOLD_CASES = [c for c in SEGMENT_CASES if c[0] in ("d768-L50", "one-frame")]
+
+
+@pytest.mark.parametrize("name,seed,L,d,lens", THRESHOLD_CASES, ids=[c[0] for c in THRESHOLD_CASES])
+def test_emulated_segmentation_reads_the_threshold_from_memory(segment_launch, name, seed, L,
+                                                               d, lens):
+    """Both kernels given the merge threshold as a pointer to one float32 (a
+    0-d tensor on the states' device, as the trainer passes it) against the
+    same kernels given the number, the plain versions and JAX's
+    ``segment_batch``: the same events, buffers and segments, bit for bit,
+    for a threshold that float32 does not hold exactly."""
+    launch_pass1, launch_pass2 = segment_launch
+    rng = np.random.RandomState(seed)
+    states = np.stack([_plateaus(rng, L, d) for _ in lens])
+    nt, mt = float(rng.uniform(1.5, 3.5)), float(rng.uniform(0.6, 0.95)) + 1e-12
+    valid = np.arange(L)[None, :] < np.asarray(lens)[:, None]
+    x = torch.from_numpy(states)
+    norms = port_segment.frame_norms(x)
+    voiced = ((norms >= nt) & torch.from_numpy(valid)).contiguous()
+    P = port_segment._prefix_sums(x)
+    thr = torch.tensor(mt, dtype=torch.float32)
+    assert port_segment.kernel_threshold("t", thr, x) == (0.0, thr.data_ptr())
+    got1, num1 = launch_pass1(x, voiced, thr), launch_pass1(x, voiced, mt)
+    want1 = port_segment.segment_pass1_plain(x, voiced, thr)
+    for field, g, n, w in zip(got1._fields, got1, num1, want1):
+        np.testing.assert_array_equal(g.int().numpy(), n.int().numpy(), err_msg=field)
+        np.testing.assert_array_equal(g.int().numpy(), w.int().numpy(), err_msg=field)
+    segs, n = launch_pass2(x, norms, P, got1.segs, got1.nseg, got1.mids, got1.nmid, thr)
+    segs_num, n_num = launch_pass2(x, norms, P, got1.segs, got1.nseg, got1.mids, got1.nmid, mt)
+    want_segs, want_n = port_segment.segment_pass2_plain(
+        x, norms, P, want1.segs, want1.nseg, want1.mids, want1.nmid, thr)
+    for a in (segs_num, want_segs):
+        np.testing.assert_array_equal(segs.numpy(), a.numpy())
+    for a in (n_num, want_n):
+        np.testing.assert_array_equal(n.numpy(), a.numpy())
+    ref = jax_segment.segment_batch(jnp.asarray(states), nt, mt, frame_valid=jnp.asarray(valid))
+    np.testing.assert_array_equal(segs.numpy(), np.asarray(ref.segments))
+    np.testing.assert_array_equal(n.numpy(), np.asarray(ref.num_segments))
+
+
 # ---------------------------------------------------------------- conv0
 
 @pytest.fixture
@@ -446,6 +486,46 @@ def test_emulated_conv0_matches_pallas(conv0_launch, name, L, D, pad_from, dc, d
         interpret=True))
     np.testing.assert_allclose(got.float().numpy().transpose(0, 2, 1), want,
                                rtol=tol, atol=tol)
+
+
+OTHER_TAPS = [
+    # name, taps, stride, samples, channels, first zero-padded sample of item 1, dtype
+    ("k8-s4", 8, 4, 9000, 72, None, F32),        # 3 tiles of 1,024 frames, 64 + 8 channels
+    ("k6-s3-padded-bf16", 6, 3, 4000, 32, 1500, BF16),
+    ("k8-s4-one-frame", 8, 4, 12, 8, None, F32),  # 12 samples: k + s, two frames
+    ("k13-s7", 13, 7, 5000, 40, None, F32),       # taps padded to 16, 2 frames a thread
+    ("k20-s10-bf16", 20, 10, 5000, 24, 2600, BF16),  # past the Pallas kernel's 2s <= 16
+]
+
+
+@pytest.mark.parametrize("name,k,s,L,D,pad_from,dtype", OTHER_TAPS, ids=[c[0] for c in OTHER_TAPS])
+def test_emulated_conv0_other_taps_matches_plain(conv0_launch, name, k, s, L, D, pad_from,
+                                                 dtype):
+    """The runtime-shaped conv0 kernels (any k <= 2s; here (8, 4), (6, 3),
+    (13, 7) and (20, 10)) against the plain version at that stride and,
+    within its domain (k <= 2s <= 16), the JAX kernel in interpret mode, at
+    conv0's tolerances (2e-4 fp32, 2e-2 bf16)."""
+    rng = np.random.RandomState(L + D + k)
+    x = rng.randn(2, L).astype(np.float32)
+    if pad_from is not None:
+        x[1, pad_from:] = 0.0
+    w = (rng.randn(k, 1, D) / np.sqrt(k)).astype(np.float32)  # flax layout
+    gamma = rng.uniform(0.5, 1.5, D).astype(np.float32)
+    beta = (0.1 * rng.randn(D)).astype(np.float32)
+    tw = torch.from_numpy(np.ascontiguousarray(np.transpose(w, (2, 1, 0))))
+    T0 = (L - k) // s + 1
+    args = (torch.from_numpy(x), tw, torch.from_numpy(gamma), torch.from_numpy(beta))
+    got = conv0_launch(*args, T0, 1e-5, dtype, s)
+    assert got.shape == (2, D, T0) and got.dtype == dtype
+    tol = 2e-4 if dtype == F32 else 2e-2
+    plain = port_frontend.conv0_gn_gelu_plain(*args, stride=s, out_dtype=dtype)
+    torch.testing.assert_close(got.float(), plain.float(), rtol=tol, atol=tol)
+    if 2 * s > 16:  # the Pallas kernel pads a patch of 2s samples to 16 lanes
+        return
+    want = np.asarray(fused_conv0_gn_gelu(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(gamma), jnp.asarray(beta),
+        stride=s, kernel_size=k, interpret=True))
+    np.testing.assert_allclose(got.float().numpy().transpose(0, 2, 1), want, rtol=tol, atol=tol)
 
 
 # ---------------------------------------------------------------- k-means++ seeding

@@ -20,7 +20,9 @@ the same. In each:
   loads it and segments.
 
 A mesh larger than the world, and a ``dp`` that does not divide the batch,
-raise. A recipe's ``steps_per_dispatch`` above 1 is named as not ported.
+raise. Under a process group a recipe's ``steps_per_dispatch`` above 1
+falls back to one step a dispatch with JAX's message (JAX turns
+device-resident data off in a multi-process run, which does the same).
 """
 
 import json
@@ -98,6 +100,14 @@ def test_the_block_forms_the_group_and_bad_meshes_raise(runs):
         assert "does not divide the batch of 3" in ragged
 
 
-def test_steps_per_dispatch_is_named_as_not_ported(tmp_path):
-    out = W._train_quiet(dict(W.LOOP_CFG, steps_per_dispatch=8), str(tmp_path), 1)
-    assert "steps_per_dispatch=8: not ported; running one step per dispatch" in out
+def test_steps_per_dispatch_is_named_as_not_ported(runs):
+    """Named as not run under a process group: on 2 gloo ranks K = 2 falls
+    back to 1 with JAX's message (rank 0 prints it), and the steps are the
+    dp run's, bit for bit."""
+    from sylber_tpu_torch.train.loop import SPD_FALLBACK
+
+    root, outs = runs
+    assert SPD_FALLBACK in outs[0]["spd"]
+    assert all(o["spd"].strip() == "" for o in outs[1:])
+    steps, losses = _losses(root / "spd")
+    assert steps == [1, 2] and losses == _losses(root / "dp")[1][:2]

@@ -126,3 +126,21 @@ def test_rows_with_uneven_mid_boundaries_equal_per_row_results(name):
                                    rtol=1e-5, atol=1e-5)
         oracle = segment_oracle(states[b], nt, mt)
         assert got.segments[b, :int(got.num_segments[b])].numpy().tolist() == oracle.tolist()
+
+
+@pytest.mark.parametrize("mt", [0.7, 0.812345678901234, 2.0 / 3.0])
+def test_segment_batch_takes_the_merge_threshold_from_device_memory(mt):
+    """A 0-d float32 tensor as the merge threshold (the trainer's, read by
+    the kernels from memory) gives the bits of the host number: both are
+    compared in float32, including thresholds that float32 does not hold
+    exactly. Held to JAX's ``segment_batch`` at the number too."""
+    rng = np.random.RandomState(7)
+    B, L, d = 3, 160, 48
+    states = torch.from_numpy(np.stack([synthetic_states(rng, L, d) for _ in range(B)]))
+    host = port.segment_batch(states, 2.0, mt)
+    dev = port.segment_batch(states, 2.0, torch.tensor(mt, dtype=torch.float32))
+    for field in ("segments", "num_segments", "features", "norms"):
+        assert torch.equal(getattr(host, field), getattr(dev, field)), field
+    want = jax_segment.segment_batch(jnp.asarray(states.numpy()), 2.0, mt)
+    np.testing.assert_array_equal(dev.segments.numpy(), np.asarray(want.segments))
+    np.testing.assert_array_equal(dev.num_segments.numpy(), np.asarray(want.num_segments))
