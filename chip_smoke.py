@@ -200,6 +200,34 @@ Phases, each of which fails the script when it fails:
    plain versions and SDPA. Five stage-1 bf16 steps at ``ema_decay`` 0.999
    with and without ``ema_fp32_shadow``: step ms and peak memory.
    ``--only-dispatch`` runs phases 1 and 12 and prints no result.
+13. the evaluation entry points, every launch counter from 0 (the
+   ``eval_launches`` of the kernels line): the token chain
+   (``python -m sylber_tpu_torch.token_chain_proof``'s ``eval_chain``) on the
+   recorded v1 codebooks (64, 256, 1,024), 8 held-out utterances of 5 s at 8
+   ODE steps, on the card and on the CPU (the same tokens, a token differing
+   only at a near-tie; the card's and the CPU's art each within 5e-4 of the
+   largest of a float64 reference; conv0, small
+   attention and both segmentation passes must launch), its metrics and
+   vocoder leg beside the recorded table; ``fit_quantizer`` at full width
+   (seeded random weights, bf16) over phase 10's corpus, 5,000 centres and
+   a residual codebook (pooled features equal to ``Segmenter.process``'s,
+   the seeding kernel launched once a fit; segments a second, fit seconds);
+   the vocoder proof for 20 steps against 10 + 10 resumed through its train
+   state, cuDNN deterministic (bit-equal parameters; step ms); the demo on
+   the mini fixtures (a finite waveform); the seeding kernel at the
+   production pool's shape (n 110,109, d 144) against its plain version at
+   k 5,000 and timed at k 5,000, 10,000 and 20,000 beside its byte bound;
+   the bf16 regressor's GateLoop call (casts and the float32 kernel) against
+   its plain version, timed beside its bound.
+   ``--only-evals`` runs phases 1 and 13 and prints no result;
+   ``--reproduce-tokens`` phase 1, then the token chains (v1 and rich, on the
+   recorded codebooks and refit), the pitch chain and the production
+   codebooks, each table beside the recorded one with the JAX package's
+   gates; ``--reproduce-vocoder`` the vocoder proofs' recipes (8,000 steps,
+   v1 and rich); ``--reproduce-vq`` ``train_synthesis --tokens`` on
+   ``configs/sylber_resynthesis_tokens_mini.yaml`` (12,000 steps); 50 steps
+   of each training run timed first, the projected wall printed; none
+   prints a result.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit
 (``nvidia-smi``), and as its last line
@@ -2078,9 +2106,9 @@ def rel_err(a, b):
 
 def segment_tokens(torch, synth, wav, nt):
     """The tokens and features of a wav batch's valid segments, (n, codes)
-    and (n, d) on the host, as the wav path computes them (the quantizer
-    takes the whole (B, MS, d) batch: the distance matmul's shape sets its
-    rounding)."""
+    and (n, d) on the host, and each utterance's count of segments (B,), as
+    the wav path computes them (the quantizer takes the whole (B, MS, d)
+    batch: the distance matmul's shape sets its rounding)."""
     from sylber_tpu_torch.models.hubert import feature_vector_attention_mask, matmul_precision
     from sylber_tpu_torch.ops.segment import segment_batch
 
@@ -2095,7 +2123,7 @@ def segment_tokens(torch, synth, wav, nt):
     n = res.num_segments.cpu().numpy()
     feats = res.features.cpu().numpy()
     return (np.concatenate([idx[b, :n[b]] for b in range(len(n))]),
-            np.concatenate([feats[b, :n[b]] for b in range(len(n))]))
+            np.concatenate([feats[b, :n[b]] for b in range(len(n))]), n)
 
 
 def vq_gaps(torch, tok, feats, got, want):
@@ -2198,7 +2226,7 @@ def resynthesis_mini_agreement(torch, device="cuda"):
     # the tokens of the utterances' segments, from each side's features; a
     # token may differ only where its two codes are within 1e-4 of each
     # other in distance (then the art differs too, and is not compared)
-    (tg, _), (tc, fc) = (segment_tokens(torch, s, wav, nt) for s in (gpu, cpu))
+    (tg, _, _), (tc, fc, _) = (segment_tokens(torch, s, wav, nt) for s in (gpu, cpu))
     gaps = vq_gaps(torch, tok["cpu"], fc, tg, tc)
     add("mini_vq_synth token path", same and all(g <= 1e-4 for g in gaps)
         and (bool(gaps) or rel_err(ag, ac) <= 1e-4), segments_equal=same,
@@ -4676,6 +4704,595 @@ def dispatch_phase(torch, ops, Segmenter, HubertConfig, counters, smi):
     return rep
 
 
+# ---------------------------------------------------------------- phase 13
+
+EVAL_CODEBOOKS = (64, 256, 1024)  # the recorded v1 codebooks (mini_codebook_{K}.npy)
+EVAL_UTTS, EVAL_STEPS = 8, 8      # held-out utterances of 5 s (seed 90001), ODE steps
+# the card's and the CPU's art each within this of a float64 reference (of the
+# largest value): the trained field amplifies float32 rounding, so that the
+# CPU's own float32 art sits 3.5e-4 from float64 at km64 (one ulp of the
+# conditioning moves it 1.8e-4), past phase 7's 1e-4 card-vs-CPU tolerance
+EVAL_F64_RTOL = 5e-4
+KM_TIE_RTOL = 1e-4                # a token may differ only at a near-tie of its two codes
+CHAIN_KERNELS = ("conv0_gn_gelu", "small_attention", "segment_pass1", "segment_pass2")
+VOCODER_PROOF_STEPS = 20          # resumed at half
+PRODUCTION_SEEDING = (110109, 144, (5000, 10000, 20000))  # the continuum pool's n, d; the k
+PRODUCTION_CLUSTERS = 8500        # the continuum pool's non-empty codes at k 10,000-20,000
+# the recorded-codebook reproductions' prediction (PERF.md, written before the first run)
+PREDICTED_CORR_GAP, PREDICTED_L1_REL_GAP = 0.02, 0.10
+
+
+def counted_call(counters, fn):
+    """``fn()`` with every counter set to 0 just before it: ``(its result,
+    the launches it made)``, read just after it, before any check runs."""
+    for c in counters:
+        c.launches = 0
+    out = fn()
+    return out, {c.__name__: c.launches for c in counters}
+
+
+def add_launches(total, got):
+    for k, v in got.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def km_tie_gaps(feats, got, want, centroids):
+    """For each segment whose token differs: the gap between the squared
+    distances of its two codes, relative to the scale the search computes
+    them at (|x|^2 + |c|^2: the expanded form |c|^2 - 2 x.c)."""
+    gaps = []
+    for i in np.nonzero(got != want)[0]:
+        x, c = feats[i].astype(np.float64), centroids[[got[i], want[i]]].astype(np.float64)
+        d = ((x[None] - c) ** 2).sum(-1)
+        gaps.append(float(abs(d[0] - d[1]) / ((x ** 2).sum() + (c ** 2).sum(-1).max())))
+    return gaps
+
+
+def float64_reference_art(torch, synth, wav, nt, mt, steps):
+    """The chain's art on the CPU with the sampler's regressor in float64
+    (the conditioning as the float32 chain computes it): the exact answer
+    the float32 runs round away from."""
+    with torch.inference_mode():
+        w = torch.from_numpy(np.ascontiguousarray(wav, np.float32))
+        cond, _ = synth.cond_from_wav(w, torch.ones(w.shape, dtype=torch.int32), nt, mt)
+        synth.regressor.double()
+        try:
+            return synth.sample(cond.double(), steps=steps).numpy()
+        finally:
+            synth.regressor.float()
+
+
+def token_chain_agreement(torch, counters, smi):
+    """The token chain (``token_chain_proof``: wav -> segment -> recorded
+    codebook's tokens -> CFM) on ``EVAL_UTTS`` held-out utterances at
+    ``EVAL_STEPS`` ODE steps, on the card and on the CPU, the regressor at
+    "highest" on both: per codebook the card's ``eval_chain`` with the
+    counters from 0 (conv0, small attention and both segmentation passes
+    must launch in it), the same tokens (a token may differ only at a
+    near-tie, ``KM_TIE_RTOL``) and the card's and the CPU's art each within
+    ``EVAL_F64_RTOL`` of the float64 reference (``float64_reference_art``)
+    on every utterance whose tokens all agree (at least one), their own gap
+    printed; the card's metrics and vocoder leg beside the recorded 50-step
+    table (not gated at 8 utterances and 8 steps)."""
+    import dataclasses
+
+    from sylber_tpu_torch import token_chain_proof as tcp
+    from sylber_tpu_torch.quantizer import KMQuantizer
+    from sylber_tpu_torch.train.synthesis_loop import build_synthesis_corpus, eval_chain
+
+    heldout = build_synthesis_corpus(EVAL_UTTS, 5.0, seed=tcp.HELDOUT_SEED)
+    recorded = json.loads((FIXTURES / "token_chain.json").read_text())["table"]
+    synths = {}
+    for dev in ("cuda", "cpu"):
+        s, nt, mt = tcp.build_synth(device=dev)
+        s.config = dataclasses.replace(s.config, regressor=dataclasses.replace(
+            s.config.regressor, precision="highest"))
+        synths[dev] = s
+    vocoder = tcp.load_vocoder("mini_vocoder", "cuda")
+    rows = []
+    for K in EVAL_CODEBOOKS:
+        cents = np.load(FIXTURES / f"mini_codebook_{K}.npy").astype(np.float32)
+        out = {}
+        for dev, s in synths.items():
+            s.quantizer = KMQuantizer(cents, device=dev)
+            t0 = time.perf_counter()
+            (art, m), got = counted_call(counters, lambda: eval_chain(
+                s, nt, mt, heldout, steps=EVAL_STEPS, batch=EVAL_UTTS))
+            out[dev] = dict(art=art, metrics=m, s=time.perf_counter() - t0, launches=got,
+                            tokens=segment_tokens(torch, s, heldout["wav"], nt))
+        exact = float64_reference_art(torch, synths["cpu"], heldout["wav"], nt, mt, EVAL_STEPS)
+        (tg, _, ng), (tc, fc, nc) = out["cuda"]["tokens"], out["cpu"]["tokens"]
+        same_count = np.array_equal(ng, nc)
+        gaps = km_tie_gaps(fc, tg, tc, cents) if same_count else []
+        utt_of = np.repeat(np.arange(len(nc)), nc)
+        differ = sorted(set(utt_of[np.nonzero(tg != tc)[0]].tolist())) if same_count else []
+        agree = [b for b in range(len(nc)) if b not in differ]
+        err = rel_err(out["cuda"]["art"], out["cpu"]["art"])
+        card_f64, cpu_f64 = (rel_err(out[d]["art"][agree], exact[agree]) if agree else None
+                             for d in ("cuda", "cpu"))
+        launches = out["cuda"]["launches"]
+        idle = [k for k in CHAIN_KERNELS if launches.get(k, 0) == 0]
+        ok = (same_count and all(g <= KM_TIE_RTOL for g in gaps) and bool(agree)
+              and max(card_f64, cpu_f64) <= EVAL_F64_RTOL and not idle)
+        m = out["cuda"]["metrics"]
+        m["vocoder"] = tcp.vocoder_leg(out["cuda"]["art"], heldout, vocoder=vocoder)
+        rec = dict(codebook=K, tokens=int(len(tc)), token_differences=len(gaps),
+                   relative_distance_gaps=gaps, utterances_compared=len(agree),
+                   art_err_of_largest=err, card_err_to_float64=card_f64,
+                   cpu_err_to_float64=cpu_f64, launches=launches, idle_kernels=idle,
+                   card_s=out["cuda"]["s"], cpu_s=out["cpu"]["s"], metrics=m,
+                   recorded=recorded[f"km{K}"], ok=bool(ok))
+        rows.append(rec)
+        log(f"phase 13 token chain km{K} (recorded codebook, {EVAL_UTTS} x 5 s, {EVAL_STEPS} "
+            f"steps) card vs CPU: {rec['tokens']} tokens, {len(gaps)} differ (gaps {gaps}, "
+            f"utterances {differ}); art card vs CPU {err:.3g} of the largest, to the float64 "
+            f"reference over the {len(agree)} utterances whose tokens agree card {card_f64}"
+            f" / CPU {cpu_f64} (tol {EVAL_F64_RTOL} each); the card's eval_chain launched "
+            f"{launches} ok={rec['ok']}; card {rec['card_s']:.2f} s, CPU {rec['cpu_s']:.2f} s; "
+            f"card pitch_corr {m['pitch_corr']:.4f} loud_corr {m['loud_corr']:.4f} vocoder "
+            f"f0_corr {m['vocoder']['f0_corr']:.4f} (recorded at 24 utts, 50 steps: "
+            f"{recorded[f'km{K}']['pitch_corr']:.4f} / {recorded[f'km{K}']['loud_corr']:.4f} / "
+            f"{recorded[f'km{K}']['vocoder']['f0_corr']:.4f})  [{smi}]")
+    return rows
+
+
+def fit_quantizer_run(torch, counters, smi, tmp):
+    """``python -m sylber_tpu_torch.fit_quantizer`` at full width (seeded
+    random weights, bf16, batch 32) over phase 10's seeded corpus, 5,000
+    centres and a residual codebook: its pooled features equal
+    ``Segmenter.process``'s on the same arrays in the same batches, the
+    seeding kernel's launches in the call counted from 0 (one a fit), the
+    residual the features less their nearest centre."""
+    from sylber_tpu_torch import Segmenter, fit_quantizer
+    from sylber_tpu_torch.quantizer import KMQuantizer
+    from sylber_tpu_torch.segment_corpus import segmenter_config
+    from sylber_tpu_torch.utils.audio import load_for_inference
+
+    corpus = tmp / "fit_quantizer"
+    corpus.mkdir()
+    write_corpus(corpus, CORPUS_UTTS, CORPUS_SECONDS)
+    names = sorted(p.stem for p in corpus.glob("w*.wav"))
+    (tmp / "manifest.txt").write_text("\n".join(names) + "\n")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        out, launches = counted_call(counters, lambda: fit_quantizer.main(
+            ["--manifest", str(tmp / "manifest.txt"), "--wav-dir", str(corpus),
+             "--n-clusters", "5000", "--out", str(tmp / "km5000.npy"), "--residual-out",
+             str(tmp / "km5000_res.npy"), "--dtype", "bfloat16", "--precision", "default",
+             "--batch-size", "32", "--device", "cuda"]))
+    wall = time.perf_counter() - t0
+    seeding = launches["kmeanspp"]
+    seg = Segmenter(hubert_config=segmenter_config("bfloat16", "default"), device="cuda")
+    wavs = [load_for_inference(corpus / f"{n}.wav") for n in names]
+    direct = np.concatenate([o["segment_features"] for i in range(0, len(wavs), 32)
+                             for o in seg.process(wavs[i: i + 32], in_second=False,
+                                                  return_hidden=False)])
+    equal = direct.shape == out["features"].shape and np.array_equal(direct, out["features"])
+    c1, c2 = np.load(tmp / "km5000.npy"), np.load(tmp / "km5000_res.npy")
+    nearest = KMQuantizer(c1, device="cuda").get_indices(out["features"]).cpu().numpy()
+    res_err = float(np.abs(out["features"] - c1[nearest] - out["residual"]).max())
+    ok = (equal and seeding == 2 and c1.shape == (5000, 768) and c2.shape == (5000, 768)
+          and np.isfinite(c1).all() and np.isfinite(c2).all() and res_err <= 1e-4)
+    rec = dict(utts=len(names), segments=out["segments"], pool_s=out["pool_seconds"],
+               segments_per_s=out["segments_per_s"], fit_s=out["fit_seconds"],
+               residual_fit_s=out["residual_fit_seconds"], wall_s=wall,
+               features_equal_process=bool(equal), kmeanspp_launches=seeding,
+               launches=launches, residual_err=res_err, ok=bool(ok))
+    log(f"phase 13 fit_quantizer full width bf16, {len(names)} utterances: {rec['segments']} "
+        f"segments at {rec['segments_per_s']:.0f} a second (pooling {rec['pool_s']:.2f} s), fit "
+        f"5,000 centres {rec['fit_s']:.2f} s, residual fit {rec['residual_fit_s']:.2f} s; "
+        f"features equal to process(): {equal}; launches in the call {launches}; residual err "
+        f"{res_err:.3g} ok={rec['ok']}  [{smi}]")
+    return rec
+
+
+def production_seeding(torch, km, smi):
+    """The seeding kernel at the production pool's shape (n 110,109, d 144)
+    on seeded features of ``PRODUCTION_CLUSTERS`` clusters: against its plain
+    version at k 5,000 (``kmeanspp_record``), then timed at each k beside
+    the byte bound (x read once a step)."""
+    n, d, ks = PRODUCTION_SEEDING
+    x = mixture(torch, n, d, seed=13, clusters=PRODUCTION_CLUSTERS)
+    rec = kmeanspp_record(torch, km, "production", x, ks[0], seed=ks[0])
+    rec["timed"] = []
+    for k in ks:
+        u = km.seeding_uniforms(k, k).cuda()
+        ms = time_ms(torch, lambda: km.kmeanspp(x, u), reps=2, warmup=1)
+        bound, by = bound_ms((k - 1) * n * d * 4.0 + k * d * 4.0, 3.0 * n * d * (k - 1),
+                             "float32")
+        rec["timed"].append(dict(k=k, ms=ms, bound_ms=bound, bound_by=by))
+        log(f"phase 13 kmeanspp n {n} d {d} k {k}: {ms:.2f} ms, bound {bound:.2f} ms ({by}), "
+            f"{ms / bound:.2f}x" + (f"; plain {rec['plain_ms']:.1f} ms, {rec['ties']} tie(s), "
+                                    f"ok={rec['ok']}" if k == ks[0] else "") + f"  [{smi}]")
+    del x
+    return rec
+
+
+def gateloop_bf16_record(torch, gl, smi, shape=(8, 265, 512)):
+    """The bf16 regressor's GateLoop call (bf16 thirds of one product cast
+    to float32, the float32 kernel, the output cast back) against its plain
+    version on the same bf16 inputs (bit for bit), timed beside its bound:
+    the function's own bytes (three bf16 inputs read once, the bf16 output
+    written once), and beside ``cast_bound_ms``, the float32 kernel's bytes
+    plus its casts' (each bf16 input read and written as float32, the
+    float32 output read and written as bf16)."""
+    B, L, D = shape
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    q, kv, g = torch.randn(B, L, 3 * D, device="cuda", generator=gen).bfloat16().chunk(3, -1)
+    a = torch.sigmoid(g)
+    run = lambda: gl.gate_loop_operator(q, kv, a)  # noqa: E731
+    plain = lambda: gl.gate_loop_operator_plain(q, kv, a).to(q.dtype)  # noqa: E731
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    bad = int((got != want).sum())
+    n = B * L * D
+    b_ms, b_by = bound_ms(8.0 * n, 3.0 * n, "float32")
+    rec = dict(shape=[B, L, D], dtype="bfloat16", mismatches=bad, tol=0.0,
+               max_abs_err=float((got.float() - want.float()).abs().max()),
+               ok=bad == 0 and bool(torch.isfinite(got.float()).all()),
+               ms=graph_time_ms(torch, run, 20), plain_ms=graph_time_ms(torch, plain, 2),
+               library_ms=None, bound_ms=b_ms, bound_by=b_by,
+               cast_bound_ms=bound_ms((16.0 + 3 * 6.0 + 6.0) * n, 3.0 * n, "float32")[0])
+    log(f"phase 13 gate_loop_operator bf16 {rec['shape']} (casts + the float32 kernel): "
+        f"{bad} mismatches ok={rec['ok']}; {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}; {rec['ms'] / b_ms:.1f}x; with the casts' bytes: "
+        f"{rec['cast_bound_ms']:.4f})  [{smi}]")
+    return rec
+
+
+def vocoder_proof_resume(torch, counters, smi, tmp):
+    """``python -m sylber_tpu_torch.vocoder_proof`` (the recipe's B16, over 64
+    utterances rather than 256: the corpus is built on the host three times)
+    for ``VOCODER_PROOF_STEPS`` steps, and again as two halves through
+    ``--state-out`` / ``--resume-from``, cuDNN deterministic: the generator
+    and the discriminators bit-equal; the step ms; the three calls'
+    launches, each counted from 0."""
+    from sylber_tpu_torch import vocoder_proof
+
+    common = ["--batch-size", "16", "--n-utts", "64", "--save-every", "0", "--log-every",
+              str(VOCODER_PROOF_STEPS), "--skip-gates", "--device", "cuda"]
+    half = str(VOCODER_PROOF_STEPS // 2)
+    launches = {}
+    with deterministic_cudnn(torch), contextlib.redirect_stdout(io.StringIO()):
+        whole, got = counted_call(counters, lambda: vocoder_proof.main(
+            ["--steps", str(VOCODER_PROOF_STEPS), "--out-dir", str(tmp / "whole"), *common]))
+        add_launches(launches, got)
+        _, got = counted_call(counters, lambda: vocoder_proof.main(
+            ["--steps", half, "--out-dir", str(tmp / "first"), "--state-out",
+             str(tmp / "state.pt"), *common]))
+        add_launches(launches, got)
+        resumed, got = counted_call(counters, lambda: vocoder_proof.main(
+            ["--steps", half, "--out-dir", str(tmp / "second"), "--resume-from",
+             str(tmp / "state.pt"), *common]))
+        add_launches(launches, got)
+    a, b = whole["state"], resumed["state"]
+    differ = [f"{name}.{k}" for name in ("generator", "mpd", "msd")
+              for k, v in getattr(a, name).state_dict().items()
+              if not torch.equal(v, getattr(b, name).state_dict()[k])]
+    rec = dict(steps=VOCODER_PROOF_STEPS, resumed_at=int(half), bit_equal=not differ,
+               differing=differ[:5], step_ms=resumed["timing"]["train_s"] / int(half) * 1e3,
+               step_ms_whole=whole["timing"]["train_s"] / VOCODER_PROOF_STEPS * 1e3,
+               state_bytes=(tmp / "state.pt").stat().st_size, eval=resumed["eval"],
+               launches=launches, ok=not differ)
+    log(f"phase 13 vocoder_proof B16, {VOCODER_PROOF_STEPS} steps against {half} + {half} "
+        f"resumed (cuDNN deterministic): parameters bit-equal {rec['bit_equal']} "
+        f"{rec['differing']}; step {rec['step_ms']:.2f} ms (the resumed half), "
+        f"{rec['step_ms_whole']:.2f} ms over the whole run with its first steps; train state "
+        f"{rec['state_bytes'] / 1e6:.0f} MB  [{smi}]")
+    return rec
+
+
+def demo_run(torch, counters, smi, tmp):
+    """``python -m sylber_tpu_torch.demo --mini-fixtures`` at 4 ODE steps with
+    ``--audio-out``: a finite waveform of the input's frames x 320; its
+    launches counted from 0."""
+    from sylber_tpu_torch import demo
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        out, launches = counted_call(counters, lambda: demo.main(
+            ["--wav", str(FIXTURES / "speechlike.wav"), "--mini-fixtures", "--steps", "4",
+             "--audio-out", "demo.wav", "--out-dir", str(tmp / "demo"), "--device", "cuda"]))
+    w = out["waveform"]
+    ok = (w is not None and len(w) == out["art"].shape[1] * 320 and bool(np.isfinite(w).all())
+          and (tmp / "demo" / "demo.wav").exists())
+    rec = dict(segments=len(out["segments"]), samples=0 if w is None else len(w),
+               peak=float(np.abs(w).max()) if ok else None, wall_s=time.perf_counter() - t0,
+               launches=launches, ok=bool(ok))
+    log(f"phase 13 demo --mini-fixtures: {rec['segments']} segments, {rec['samples']} samples, "
+        f"peak {rec['peak']}, {rec['wall_s']:.2f} s, launches {launches} ok={rec['ok']}  "
+        f"[{smi}]")
+    return rec
+
+
+def eval_phase(torch, counters, smi):
+    """Phase 13: the evaluation entry points (the token chain's
+    ``eval_chain``, fit_quantizer, the vocoder proof, the demo), each call
+    on the card with every counter set to 0 just before it and read just
+    after, before its checks run (``launches``, their sum: the
+    ``eval_launches`` of the kernels line; conv0, small attention and both
+    segmentation passes must launch in each codebook's chain, the seeding
+    kernel in fit_quantizer), then the seeding kernel at the production
+    shape and the bf16 regressor's GateLoop call against its plain
+    version."""
+    import sylber_tpu_torch.ops.gateloop as gl
+    from sylber_tpu_torch.flow import kmeans as km
+
+    t0 = time.perf_counter()
+    counters = counters + [km.kmeanspp]
+    chain = token_chain_agreement(torch, counters, smi)
+    chain_launches = {}
+    for r in chain:
+        add_launches(chain_launches, r["launches"])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_evals_") as tmp:
+        tmp = Path(tmp)
+        fitq = fit_quantizer_run(torch, counters, smi, tmp)
+        vocoder = vocoder_proof_resume(torch, counters, smi, tmp)
+        demo = demo_run(torch, counters, smi, tmp)
+    launches = dict(chain_launches)
+    for r in (fitq, vocoder, demo):
+        add_launches(launches, r["launches"])
+    seeding = production_seeding(torch, km, smi)
+    gateloop = gateloop_bf16_record(torch, gl, smi)
+    rep = dict(token_chain=chain, chain_launches=chain_launches, fit_quantizer=fitq,
+               vocoder_proof=vocoder, demo=demo, production_seeding=seeding,
+               gateloop_bf16=gateloop, launches=launches, seconds=time.perf_counter() - t0)
+    log(f"phase 13: launches in the token chain's eval_chain calls {chain_launches}; over the "
+        f"phase's entry-point calls {launches}; took {rep['seconds']:.1f} s  [{smi}]")
+    bad = ([f"km{r['codebook']}" + (f" (never launched {r['idle_kernels']})"
+                                    if r["idle_kernels"] else "") for r in chain if not r["ok"]]
+           + [name for name, r in (("fit_quantizer", fitq), ("vocoder resume", vocoder),
+                                   ("demo", demo), ("kmeanspp production", seeding),
+                                   ("gate_loop bf16", gateloop))
+              if not r["ok"]])
+    if bad:
+        raise AssertionError(f"phase 13 failed: {bad}")
+    return rep
+
+
+# ---------------------------------------------------------------- the reproductions
+
+def table_gaps(got, want):
+    """Each row's numbers both tables hold (a vocoder leg's as
+    ``vocoder.<key>``): ``{row: {metric: (got, recorded)}}``."""
+    rows = {}
+    for row, m in want.items():
+        g = got.get(row)
+        if g is None:
+            continue
+        flat = {}
+        for k, v in m.items():
+            if isinstance(v, dict):
+                flat.update({f"{k}.{kk}": (g.get(k, {}).get(kk), vv) for kk, vv in v.items()})
+            else:
+                flat[k] = (g.get(k), v)
+        rows[row] = {k: (a, b) for k, (a, b) in flat.items()
+                     if isinstance(a, (int, float)) and isinstance(b, (int, float))}
+    return rows
+
+
+def prediction_misses(gaps):
+    """The recorded-codebook prediction (correlations within
+    ``PREDICTED_CORR_GAP``, L1s within ``PREDICTED_L1_REL_GAP`` of the
+    recorded) against a table's gaps: the metrics that miss it."""
+    miss = []
+    for row, m in gaps.items():
+        for k, (a, b) in m.items():
+            if "corr" in k or k.endswith("mod_r"):
+                if abs(a - b) > PREDICTED_CORR_GAP:
+                    miss.append(f"{row} {k} {a:.4f} vs {b:.4f}")
+            elif "l1" in k and abs(a - b) > PREDICTED_L1_REL_GAP * abs(b):
+                miss.append(f"{row} {k} {a:.4f} vs {b:.4f}")
+    return miss
+
+
+def reproduce_tokens(torch, smi, out_dir="runs/reproduce_tokens"):
+    """The token-chain tables on the card beside the recorded ones: v1 and
+    rich on the recorded codebooks and refit, the pitch chain, the
+    production codebooks; each with the JAX package's gates (the script
+    fails after all ran when one missed)."""
+    from sylber_tpu_torch import pitch_chain_proof, production_codebooks, token_chain_proof
+
+    runs = [("token_chain_v1_recorded", token_chain_proof, ["--codebooks", "recorded"],
+             "token_chain.json"),
+            ("token_chain_v1_refit", token_chain_proof, [], "token_chain.json"),
+            ("token_chain_rich_recorded", token_chain_proof,
+             ["--style", "rich", "--codebooks", "recorded"], "token_chain_rich.json"),
+            ("token_chain_rich_refit", token_chain_proof, ["--style", "rich"],
+             "token_chain_rich.json"),
+            ("pitch_chain", pitch_chain_proof, [], "token_chain_rich_pitch.json"),
+            ("production_codebooks", production_codebooks, [], "token_chain_prod.json")]
+    results, missed = [], {}
+    for label, module, argv, recorded in runs:
+        t0 = time.perf_counter()
+        out = module.main([*argv, "--out-dir", f"{out_dir}/{label}", "--skip-gates",
+                           "--device", "cuda"])
+        wall = time.perf_counter() - t0
+        gaps = table_gaps(out["table"], json.loads((FIXTURES / recorded).read_text())["table"])
+        for row, m in gaps.items():
+            log(f"reproduce-tokens {label} {row}: " + ", ".join(
+                f"{k} {a:.4g} (recorded {b:.4g}, {a - b:+.4g})" for k, (a, b) in m.items()))
+        rec = dict(label=label, wall_s=wall, gates_missed=out["gates_missed"],
+                   seconds=out.get("seconds"), table=out["table"],
+                   gaps={r: {k: a - b for k, (a, b) in m.items()} for r, m in gaps.items()})
+        if label.endswith("_recorded"):
+            rec["prediction_misses"] = prediction_misses(gaps)
+            log(f"reproduce-tokens {label}: the prediction (correlations within "
+                f"{PREDICTED_CORR_GAP}, L1s within {PREDICTED_L1_REL_GAP:.0%}) missed by "
+                f"{len(rec['prediction_misses'])}: {rec['prediction_misses']}")
+        log(f"reproduce-tokens {label}: {wall:.1f} s on the card, gates missed "
+            f"{out['gates_missed']}  [{smi}]")
+        if out["gates_missed"]:
+            missed[label] = out["gates_missed"]
+        results.append(rec)
+    log(json.dumps(dict(reproduce_tokens=results, card=smi), default=str))
+    if missed:
+        raise AssertionError(f"the reproduced tables miss the JAX package's gates: {missed}")
+    return results
+
+
+VOCODER_TRACE_ROWS = (  # (recorded table, style, codebook size, held-out utterances)
+    ("token_chain.json", "v1", 64, 24), ("token_chain_rich.json", "rich", 1024, 48),
+    ("token_chain_rich.json", "rich", 4096, 48), ("token_chain_rich_pitch.json", "pitch", 1024, 24))
+VOCODER_TRACE_DRAWS = 4  # the noise channel's draws: seeds 0 (the port's own) to 3
+
+
+def trace_vocoder_leg(torch, smi):
+    """The recorded-codebook rows whose vocoder f0_corr sits 0.020-0.026
+    from the recorded table (``VOCODER_TRACE_ROWS``), on the card at the
+    recipe (the held-out set, 50 ODE steps). The chain's art twice: with the
+    regressor as configured (TF32 on the card: the reproduction's) and at
+    "highest". Its vocoder leg: the reproduction's (noise draw of seed 0,
+    the generator's convs in TF32), the same at "highest", the draws of
+    seeds 1 to ``VOCODER_TRACE_DRAWS`` - 1, and the "highest" art's. Which
+    of the noise channel, the vocoder's TF32 and the art's own rounding
+    moves f0_corr by the gap."""
+    import dataclasses
+
+    from sylber_tpu_torch import pitch_chain_proof as pcp
+    from sylber_tpu_torch import token_chain_proof as tcp
+    from sylber_tpu_torch.quantizer import KMQuantizer
+    from sylber_tpu_torch.train.synthesis_loop import build_synthesis_corpus, eval_chain
+
+    rows = []
+    for table, style, K, n_eval in VOCODER_TRACE_ROWS:
+        t0 = time.perf_counter()
+        rich = style != "v1"
+        heldout = build_synthesis_corpus(n_eval, 5.0, seed=tcp.HELDOUT_SEED,
+                                         style="rich" if rich else "v1")
+        cents = np.load(FIXTURES / f"mini_codebook{'_rich' if rich else ''}_{K}.npy")
+        if style == "pitch":
+            synth, nt, mt = pcp.build_pitch_synth(device="cuda")
+        else:
+            synth, nt, mt = tcp.build_synth(style=style, device="cuda")
+        synth.quantizer = KMQuantizer(cents.astype(np.float32), device="cuda")
+        art, m = eval_chain(synth, nt, mt, heldout, steps=50)
+        synth.config = dataclasses.replace(synth.config, regressor=dataclasses.replace(
+            synth.config.regressor, precision="highest"))
+        art_h, m_h = eval_chain(synth, nt, mt, heldout, steps=50)
+        dec, meta = vocoder = tcp.load_vocoder("mini_vocoder_rich" if rich else "mini_vocoder",
+                                               "cuda")
+        shape = (len(art), art.shape[1] * 320)
+
+        def leg(a, seed=0, precision="default"):
+            noise = None if seed == 0 else torch.randn(
+                shape, generator=torch.Generator(device="cuda").manual_seed(seed), device="cuda")
+            dec.precision = precision
+            try:
+                return tcp.vocoder_leg(a, heldout, vocoder=vocoder, noise=noise)["f0_corr"]
+            finally:
+                dec.precision = "default"
+
+        draws = [leg(art, seed) for seed in range(VOCODER_TRACE_DRAWS)]
+        recorded = json.loads((FIXTURES / table).read_text())["table"][f"km{K}"]
+        rec = dict(table=table, style=style, codebook=K, n_eval=n_eval,
+                   recorded=recorded["vocoder"]["f0_corr"], reproduced=draws[0],
+                   vocoder_highest=leg(art, 0, "highest"), draws=draws,
+                   art_highest=leg(art_h), art_rel_diff=rel_err(art, art_h),
+                   pitch_corr=dict(recorded=recorded["pitch_corr"], reproduced=m["pitch_corr"],
+                                   art_highest=m_h["pitch_corr"]),
+                   seconds=time.perf_counter() - t0)
+        rows.append(rec)
+        r = rec["recorded"]
+        log(f"trace-vocoder-leg {style} km{K} ({n_eval} utts, 50 steps): f0_corr recorded "
+            f"{r:.4f}, reproduced {rec['reproduced']:.4f} ({rec['reproduced'] - r:+.4f}); "
+            f"the vocoder at highest {rec['vocoder_highest']:.4f} "
+            f"({rec['vocoder_highest'] - rec['reproduced']:+.4f}); noise draws "
+            f"{[round(d, 4) for d in draws]}; the art at highest {rec['art_highest']:.4f} "
+            f"({rec['art_highest'] - rec['reproduced']:+.4f}; the art moved "
+            f"{rec['art_rel_diff']:.3g} of its largest, pitch_corr {m['pitch_corr']:.4f} -> "
+            f"{m_h['pitch_corr']:.4f}, recorded {recorded['pitch_corr']:.4f}); "
+            f"{rec['seconds']:.1f} s  [{smi}]")
+    log(json.dumps(dict(trace_vocoder_leg=rows, card=smi)))
+    return rows
+
+
+def reproduce_vocoder(torch, smi, out_dir="runs/reproduce_vocoder", styles=("v1", "rich")):
+    """``mini_vocoder.json``'s recipe (8,000 steps, B16, 256 utterances) and
+    the rich one on the card: 50 steps timed first and the projected wall
+    printed, then the run, its eval beside the recorded one with the gates
+    (the script fails after both ran when one missed)."""
+    from sylber_tpu_torch import vocoder_proof
+
+    results, missed = [], {}
+    for style in styles:
+        prefix = "mini_vocoder" + ("_rich" if style == "rich" else "")
+        meta = json.loads((FIXTURES / f"{prefix}.json").read_text())
+        rec_train = meta["train"]
+        common = ["--batch-size", str(rec_train["batch_size"]), "--n-utts",
+                  str(rec_train["n_utts"]), "--style", style, "--fixture-prefix", prefix]
+        probe = vocoder_proof.main(["--steps", "50", "--save-every", "0", "--log-every", "50",
+                                    "--skip-gates", "--out-dir", f"{out_dir}/probe_{style}",
+                                    "--device", "cuda", *common])
+        step_ms = probe["timing"]["train_s"] / 50 * 1e3
+        log(f"reproduce-vocoder {style}: 50 steps at {step_ms:.2f} ms a step; {rec_train['steps']} "
+            f"steps projected at {rec_train['steps'] * step_ms / 1e3:.0f} s  [{smi}]")
+        t0 = time.perf_counter()
+        out = vocoder_proof.main(["--steps", str(rec_train["steps"]), "--save-every", "2000",
+                                  "--log-every", "500", "--skip-gates", "--out-dir",
+                                  f"{out_dir}/{style}", "--state-out",
+                                  f"{out_dir}/{style}/state.pt", "--device", "cuda", *common])
+        wall = time.perf_counter() - t0
+        ev, want = out["eval"], meta["eval"]
+        log(f"reproduce-vocoder {style}: {rec_train['steps']} steps in {wall:.1f} s ("
+            f"{out['timing']['train_s'] / rec_train['steps'] * 1e3:.2f} ms a step); eval "
+            + ", ".join(f"{k} {ev[k]:.4f} (recorded {want[k]:.4f})" for k in want)
+            + f"; random init mel_l1 {out['eval_random_init']['mel_l1']:.4f} (recorded "
+            f"{meta['eval_random_init']['mel_l1']:.4f}); gates missed {out['gates_missed']}"
+            f"  [{smi}]")
+        if out["gates_missed"]:
+            missed[style] = out["gates_missed"]
+        results.append(dict(style=style, probe_step_ms=step_ms, wall_s=wall,
+                            step_ms=out["timing"]["train_s"] / rec_train["steps"] * 1e3,
+                            eval=ev, eval_random_init=out["eval_random_init"], recorded=want,
+                            gates_missed=out["gates_missed"]))
+    log(json.dumps(dict(reproduce_vocoder=results, card=smi)))
+    if missed:
+        raise AssertionError(f"the reproduced vocoders miss the JAX package's gates: {missed}")
+    return results
+
+
+def reproduce_vq(torch, smi, out_dir="runs/reproduce_vq"):
+    """``train_synthesis --tokens`` on ``configs/sylber_resynthesis_tokens_mini.yaml``
+    (12,000 steps, B32) on the card, 50 steps timed first and the projected
+    wall printed; its 50-step eval beside ``mini_vq_synth.json``'s with the
+    JAX package's gates (``tests/parity/test_token_resynthesis.py:264-266``:
+    loud_corr > 0.6, and pitch_corr > 0.5 with the pitch head)."""
+    import yaml
+
+    from sylber_tpu_torch.train.vq_synthesis import eval_gate_failures, train_vq_synthesis
+
+    cfg = yaml.safe_load((ROOT / "configs" / "sylber_resynthesis_tokens_mini.yaml").read_text())
+    cfg["speech_model_ckpt"] = str(FIXTURES / "mini_ckpt.npz")
+    recorded = json.loads((FIXTURES / "mini_vq_synth.json").read_text())["eval"]
+    steps = int(cfg["train"]["max_steps"])
+    with contextlib.redirect_stdout(io.StringIO()):
+        t0 = time.perf_counter()
+        train_vq_synthesis(cfg, out_dir=f"{out_dir}/probe", max_steps=50, log_every=50,
+                           eval_steps=2, device="cuda")
+        probe_s = time.perf_counter() - t0
+    rows = [json.loads(ln) for ln in open(Path(out_dir) / "probe" / "metrics.jsonl")]
+    sps = [r["steps_per_sec"] for r in rows if r.get("prefix") == "train"][-1]
+    log(f"reproduce-vq: 50 steps at {1e3 / sps:.2f} ms a step (the probe's call {probe_s:.1f} "
+        f"s); {steps} steps projected at {steps / sps:.0f} s  [{smi}]")
+    t0 = time.perf_counter()
+    _, _, ev = train_vq_synthesis(cfg, out_dir=f"{out_dir}/run", log_every=500, eval_steps=50,
+                                  device="cuda")
+    wall = time.perf_counter() - t0
+    missed = eval_gate_failures(ev, float(cfg["train"].get("pitch_loss_weight", 0.0)) > 0)
+    ok = not missed
+    log(f"reproduce-vq: {steps} steps and the eval in {wall:.1f} s; "
+        + ", ".join(f"{k} {ev[k]:.4f} (recorded {recorded[k]:.4f})" for k in recorded
+                    if isinstance(recorded[k], float))
+        + f"; gates loud_corr > 0.6, pitch_corr > 0.5 ok={ok}  [{smi}]")
+    log(json.dumps(dict(reproduce_vq=ev, recorded=recorded, wall_s=wall,
+                        probe_step_ms=1e3 / sps, card=smi)))
+    if not ok:
+        raise AssertionError(f"the reproduced VQ eval misses the JAX package's gates: {ev}")
+    return ev
+
+
 def reproduce_distill(torch, smi, out_dir="runs/mini_proof_torch"):
     """``mini_ckpt.json``'s recipe trained on the card by the port
     (``python -m sylber_tpu_torch.mini_proof``: stage 1 4,000 steps, stage 2
@@ -4751,6 +5368,27 @@ def main() -> int:
                     help="build the kernels, then train configs/sylber_resynthesis_mini.yaml "
                          "(6,000 steps) on the card and evaluate it with 50 ODE steps against "
                          "mini_synth.json's recorded eval; prints no result line")
+    ap.add_argument("--only-evals", action="store_true",
+                    help="build the kernels and run phase 13 alone (the evaluation entry "
+                         "points); prints no result line")
+    ap.add_argument("--reproduce-tokens", action="store_true",
+                    help="build the kernels, then the token chains (v1 and rich, recorded "
+                         "codebooks and refit), the pitch chain and the production codebooks "
+                         "beside the recorded tables, with the gates; prints no result line")
+    ap.add_argument("--reproduce-vocoder", nargs="?", const="both",
+                    choices=["both", "v1", "rich"],
+                    help="build the kernels, then mini_vocoder.json's recipe and the rich one "
+                         "(8,000 steps each; or the one named) beside the recorded evals, with "
+                         "the gates; prints no result line")
+    ap.add_argument("--reproduce-vq", action="store_true",
+                    help="build the kernels, then train_synthesis --tokens on "
+                         "configs/sylber_resynthesis_tokens_mini.yaml (12,000 steps) beside "
+                         "mini_vq_synth.json's eval, with the gates; prints no result line")
+    ap.add_argument("--trace-vocoder-leg", action="store_true",
+                    help="build the kernels, then the recorded-codebook rows whose vocoder "
+                         "f0_corr misses the recorded table: the vocoder leg under several "
+                         "noise draws, in TF32 and fp32, on the art of a TF32 and an fp32 "
+                         "regressor; prints no result line")
     args = ap.parse_args()
 
     import torch
@@ -4819,6 +5457,31 @@ def main() -> int:
         if args.out:
             Path(args.out).parent.mkdir(parents=True, exist_ok=True)
             Path(args.out).write_text(json.dumps(dict(card=smi, dispatch=p12), indent=1,
+                                                 default=str))
+        return 0
+    if args.only_evals:
+        p13 = eval_phase(torch, counters, smi)
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(dict(card=smi, evals=p13), indent=1,
+                                                 default=str))
+        return 0
+    if (args.reproduce_tokens or args.reproduce_vocoder or args.reproduce_vq
+            or args.trace_vocoder_leg):
+        reports = {}
+        if args.trace_vocoder_leg:
+            reports["trace_vocoder_leg"] = trace_vocoder_leg(torch, smi)
+        if args.reproduce_tokens:
+            reports["tokens"] = reproduce_tokens(torch, smi)
+        if args.reproduce_vocoder:
+            reports["vocoder"] = reproduce_vocoder(
+                torch, smi, styles=("v1", "rich") if args.reproduce_vocoder == "both"
+                else (args.reproduce_vocoder,))
+        if args.reproduce_vq:
+            reports["vq"] = reproduce_vq(torch, smi)
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(dict(card=smi, **reports), indent=1,
                                                  default=str))
         return 0
     if args.only_int8:
@@ -4933,6 +5596,8 @@ def main() -> int:
 
     dispatch = dispatch_phase(torch, ops, Segmenter, HubertConfig, counters, smi)
 
+    evals = eval_phase(torch, counters, smi)
+
     sources = {"conv0_gn_gelu": ("frontend.cu", "sylber_tpu/ops/pallas/frontend.py:122"),
                "small_attention": ("smallattn.cu", "sylber_tpu/ops/pallas/smallattn.py:78"),
                "flash_attention": ("flash.cu", "sylber_tpu/ops/pallas/flash.py:125"),
@@ -5029,9 +5694,19 @@ def main() -> int:
     entries["conv0_gn_gelu"]["other_taps_k8_s4"] = dispatch["conv0_k8_s4"]
     for name, rec in dispatch["regressor_attention_bf16"].items():
         entries[name]["bf16_regressor_shape"] = rec
+    # phase 13: every kernel's launches over the evaluation entry points
+    # (the seeding kernel's in fit_quantizer), the seeding at the production shape
+    for entry in line:
+        entry["eval_launches"] = evals["launches"].get(entry["name"], 0)
+    entries["kmeanspp"] = next(e for e in line if e["name"] == "kmeanspp")
+    entries["kmeanspp"]["production_shape"] = {
+        k: evals["production_seeding"][k] for k in ("shape", "ties", "worst_tie_gap", "ms",
+                                                    "plain_ms", "bound_ms", "bound_by",
+                                                    "timed", "ok")}
     gate = next(e for e in line if e["name"] == "gate_loop")
     gate["bf16_regressor_launches"] = dispatch["bf16_regressor"]["runs"][
         "bfloat16_gateloop"]["launches"]["gate_loop_operator"]
+    gate["bf16_regressor_call"] = evals["gateloop_bf16"]
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         build_log = kernels.BUILD_DIR / "build.log"  # registers, shared memory, spills
@@ -5048,7 +5723,7 @@ def main() -> int:
                                                   resynthesis=resynthesis,
                                                   synthesis_training=synthesis_training,
                                                   int8=int8, corpus=corpus, mesh=mesh,
-                                                  dispatch=dispatch),
+                                                  dispatch=dispatch, evals=evals),
                                              indent=1, default=str))
     log(json.dumps({"kernels": line}))
     log(smi)

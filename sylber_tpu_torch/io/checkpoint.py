@@ -170,9 +170,9 @@ def jax_tree_from_discriminators(sds: Mapping[str, Mapping[str, torch.Tensor]]) 
     return {name: tree_from_state_dict(sds[name]) for name in ("mpd", "msd")}
 
 
-def save_tree_npz(path: str, tree: Mapping[str, Any]) -> None:
-    """A flax-layout tree as a float32 ``.npz`` (keys '/'-joined tree paths),
-    which ``sylber_tpu.io.checkpoint.load_params_npz`` and
+def save_tree_npz(path: str, tree: Mapping[str, Any], dtype=np.float32) -> None:
+    """A flax-layout tree as a ``.npz`` of ``dtype`` arrays (keys '/'-joined
+    tree paths), which ``sylber_tpu.io.checkpoint.load_params_npz`` and
     :func:`load_params_npz` read."""
     flat: Dict[str, np.ndarray] = {}
 
@@ -182,7 +182,7 @@ def save_tree_npz(path: str, tree: Mapping[str, Any]) -> None:
             if isinstance(v, Mapping):
                 walk(v, key)
             else:
-                flat[key] = np.asarray(v, np.float32)
+                flat[key] = np.asarray(v, dtype)
 
     walk(tree, "")
     np.savez(path, **flat)  # float weights hardly compress; zlib would take seconds

@@ -95,6 +95,13 @@ class ResidualKMQuantizer:
         return self.km.decode(indices[..., 0]) + self.km2.decode(indices[..., 1])
 
 
+def tokens_in_blocks(quantizer, feats, rows: int = 16384) -> np.ndarray:
+    """``quantizer.get_indices`` of every row of ``feats`` (N, d), ``rows``
+    at a time (the distance block is (rows, K)), on the host."""
+    return np.concatenate([quantizer.get_indices(feats[i: i + rows]).cpu().numpy()
+                           for i in range(0, len(feats), rows)])
+
+
 def load_km_quantizer(centroids, residual_centroids=None, normalize: bool = False,
                       device: Union[None, str, torch.device] = None):
     """The reference's loader surface."""

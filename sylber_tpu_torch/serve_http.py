@@ -250,9 +250,8 @@ def build_synthesis_stack(synthesis_ckpt: str, synthesis_config: str, device,
     directory raises). ``vocoder_config`` holds ``{"generator": {...}}``
     (HiFiGANConfig fields; default ``SparcDecoderConfig()``)."""
     from .synthesis import SegmentSynthesis, synthesis_config_from_dict
-    from .vocoder import SparcDecoder
     from .vocoder.hifigan import HiFiGANConfig
-    from .vocoder.sparc import SparcDecoderConfig
+    from .vocoder.sparc import SparcDecoderConfig, load_decoder
 
     model = _read_config(synthesis_config)
     synth = SegmentSynthesis(model_ckpt=synthesis_ckpt, config=synthesis_config_from_dict(model),
@@ -264,23 +263,7 @@ def build_synthesis_stack(synthesis_ckpt: str, synthesis_config: str, device,
         if vocoder_config:
             with open(vocoder_config) as f:
                 dcfg = SparcDecoderConfig(generator=HiFiGANConfig(**json.load(f)["generator"]))
-        if vocoder_ckpt.endswith(".npz"):
-            from .io.checkpoint import load_params_npz
-
-            vocoder = SparcDecoder(dcfg, params=load_params_npz(vocoder_ckpt), device=device)
-        else:
-            from pathlib import Path
-
-            from .io.torch_convert import hifigan_params_from_torch, torch_load
-
-            if Path(vocoder_ckpt).is_dir():
-                raise NotImplementedError(f"{vocoder_ckpt}: Orbax directories need JAX; "
-                                          "pass a .npz or a torch generator checkpoint")
-            sd = torch_load(vocoder_ckpt)
-            if isinstance(sd, dict) and "generator" in sd:
-                sd = sd["generator"]
-            vocoder = SparcDecoder(dcfg, state_dict=hifigan_params_from_torch(sd, dcfg.generator),
-                                   device=device)
+        vocoder = load_decoder(vocoder_ckpt, dcfg, device=device)
     return synth, vocoder
 
 

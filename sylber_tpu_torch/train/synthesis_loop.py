@@ -82,6 +82,17 @@ def build_synthesis_corpus(n_utts: int, seconds: float = 5.0, seed: int = 0,
     return {"wav": np.stack(wavs), "art": np.stack(arts)}
 
 
+def padded_batches(wavs: np.ndarray, batch: int):
+    """``(chunk, n_real)`` over ``wavs``, the last chunk padded with silence
+    (one shape a run, as JAX keeps one compiled program)."""
+    for i in range(0, len(wavs), batch):
+        chunk = wavs[i: i + batch]
+        pad = batch - len(chunk)
+        if pad:
+            chunk = np.concatenate([chunk, np.zeros((pad,) + chunk.shape[1:], chunk.dtype)])
+        yield chunk, batch - pad
+
+
 @torch.no_grad()  # not inference mode: the training step's autograd takes these tensors
 def precompute_features(hubert: HubertModel, wav: np.ndarray, norm_threshold: float,
                         merge_threshold: float, batch: int = 32, explicit_pitch: bool = False,
@@ -95,41 +106,63 @@ def precompute_features(hubert: HubertModel, wav: np.ndarray, norm_threshold: fl
     device = next(hubert.parameters()).device
     hubert.eval()
     outs, pcs = [], []
-    for i in range(0, wav.shape[0], batch):
-        chunk = wav[i: i + batch]
-        pad = batch - chunk.shape[0]
-        if pad:
-            chunk = np.concatenate([chunk, np.zeros((pad,) + chunk.shape[1:], chunk.dtype)])
+    for chunk, n in padded_batches(wav, batch):
         w = torch.from_numpy(np.ascontiguousarray(chunk, np.float32)).to(device)
         hidden = hubert(w, None).float()
         with matmul_precision("highest"):
             res = segment_batch(hidden, norm_threshold, merge_threshold)
-        outs.append(averaged_target_fill(hidden, res.segments, res.num_segments)[: batch - pad])
+        outs.append(averaged_target_fill(hidden, res.segments, res.num_segments)[:n])
         if explicit_pitch:
             pcs.append(segment_pitch_cond(w, res.segments, res.num_segments, hidden.shape[1],
-                                          pitch_mean=pitch_mean)[: batch - pad])
+                                          pitch_mean=pitch_mean)[:n])
     feats = torch.cat(outs)
     return (feats, torch.cat(pcs)) if explicit_pitch else feats
+
+
+def score_art(art: np.ndarray, truth: np.ndarray) -> Dict[str, float]:
+    """Sampled trajectories against the analytic ground truth, both cut to
+    their common length: the per-utterance mean-removed pitch correlation,
+    Pearson correlation of the log-pitch channel over voiced frames (truth
+    loudness above 0.02) and of loudness over all frames, and the masked L1
+    of the articulatory, pitch and loudness channels."""
+    truth = np.asarray(truth, np.float32)
+    L = min(art.shape[1], truth.shape[1])
+    art, truth = art[:, :L], truth[:, :L]
+    voiced = truth[..., 13] > 0.02
+    return {"pitch_mod_r": per_utterance_pitch_modulation(art, truth),
+            "pitch_corr": pearson(art[..., 12][voiced], truth[..., 12][voiced]),
+            "loud_corr": pearson(art[..., 13].ravel(), truth[..., 13].ravel()),
+            "art_l1_voiced": float(np.abs(art[..., :12][voiced] - truth[..., :12][voiced]).mean()),
+            "pitch_l1_voiced": float(np.abs(art[..., 12][voiced] - truth[..., 12][voiced]).mean()),
+            "loud_l1": float(np.abs(art[..., 13] - truth[..., 13]).mean())}
 
 
 def evaluate_synthesis(synth: SegmentSynthesis, features, art_truth: np.ndarray,
                        steps: int = 50, seed: int = 0, method: str = "midpoint",
                        pitch_cond=None) -> Dict[str, float]:
     """Sample trajectories from the features and score them against the
-    analytic ground truth: Pearson correlation of the log-pitch channel over
-    voiced frames and of loudness over all frames, the per-utterance
-    mean-removed pitch correlation, and the masked L1 of the channels."""
+    analytic ground truth (:func:`score_art`)."""
     art, _ = synth.resynthesize(features=features, steps=steps, seed=seed, method=method,
                                 pitch_cond=pitch_cond)
-    truth = np.asarray(art_truth, np.float32)
-    voiced = truth[..., 13] > 0.02
-    return {"pitch_corr": pearson(art[..., 12][voiced], truth[..., 12][voiced]),
-            "loud_corr": pearson(art[..., 13].ravel(), truth[..., 13].ravel()),
-            "pitch_mod_r": per_utterance_pitch_modulation(art, truth),
-            "art_l1_voiced": float(np.abs(art[..., :12][voiced] - truth[..., :12][voiced]).mean()),
-            "pitch_l1_voiced": float(np.abs(art[..., 12][voiced] - truth[..., 12][voiced]).mean()),
-            "loud_l1": float(np.abs(art[..., 13] - truth[..., 13]).mean()),
-            "n_eval_utts": int(truth.shape[0]), "ode_steps": steps}
+    return {**score_art(art, art_truth), "n_eval_utts": int(art_truth.shape[0]),
+            "ode_steps": steps}
+
+
+def eval_chain(synth: SegmentSynthesis, norm_thr: float, merge_thr: float,
+               heldout: Dict[str, np.ndarray], steps: int = 50, seed: int = 0,
+               batch: int = 8) -> Tuple[np.ndarray, Dict[str, float]]:
+    """The chain from the wav: ``synth.resynthesize(input_values=...)`` over
+    :func:`padded_batches` of ``batch`` held-out utterances, so the
+    segmentation, the quantizer (if ``synth`` has one) and the fill run on
+    the device: ``(art, the :func:`score_art` metrics)``
+    (``scripts/token_chain_proof.py``'s ``eval_chain``)."""
+    arts = []
+    for chunk, n in padded_batches(heldout["wav"], batch):
+        art, _ = synth.resynthesize(input_values=chunk, steps=steps, seed=seed,
+                                    normthreshold=norm_thr, merge_threshold=merge_thr)
+        arts.append(art[:n])
+    art = np.concatenate(arts, axis=0)
+    return art, score_art(art, heldout["art"])
 
 
 def check_mesh(cfg: Dict[str, Any]) -> None:

@@ -20,6 +20,18 @@ from ..models.hubert import matmul_precision
 from .hifigan import Generator, HiFiGANConfig, init_generator
 
 
+def features_from_art(art: torch.Tensor, pitch_mean: float = 120.0,
+                      n_ema: int = 12) -> torch.Tensor:
+    """The generator's input from articulatory tracks: EMA dims pass through;
+    the log-pitch channel becomes log(max(exp(pitch) * pitch_mean, 1) / 100);
+    loudness passes through."""
+    art = art.float()
+    pitch_hz = torch.exp(art[..., n_ema]) * pitch_mean
+    pitch_feat = torch.log(pitch_hz.clamp_min(1.0) / 100.0)
+    return torch.cat([art[..., :n_ema], pitch_feat[..., None], art[..., n_ema + 1:n_ema + 2]],
+                     dim=-1)
+
+
 @dataclasses.dataclass(frozen=True)
 class SparcDecoderConfig:
     n_ema: int = 12
@@ -62,13 +74,7 @@ class SparcDecoder:
         self.generator.to(self.device).eval()
 
     def features_from_art(self, art: torch.Tensor, pitch_mean: float = 120.0) -> torch.Tensor:
-        """EMA dims pass through; the log-pitch channel becomes
-        log(max(exp(pitch) * pitch_mean, 1) / 100); loudness passes through."""
-        n = self.config.n_ema
-        art = art.float()
-        pitch_hz = torch.exp(art[..., n]) * pitch_mean
-        pitch_feat = torch.log(pitch_hz.clamp_min(1.0) / 100.0)
-        return torch.cat([art[..., :n], pitch_feat[..., None], art[..., n + 1:n + 2]], dim=-1)
+        return features_from_art(art, pitch_mean, self.config.n_ema)
 
     @torch.inference_mode()
     def waveform(self, art, spk_emb, pitch_mean: float = 120.0,
@@ -85,3 +91,28 @@ class SparcDecoder:
 
     def __call__(self, art, spk_emb, pitch_mean: float = 120.0) -> np.ndarray:
         return self.waveform(art, spk_emb, pitch_mean).cpu().numpy()
+
+
+def load_decoder(ckpt: str, config: Optional[SparcDecoderConfig] = None,
+                 device: Union[None, str, torch.device] = None) -> SparcDecoder:
+    """A trained ``SparcDecoder`` from ``ckpt``: a JAX-layout generator
+    ``.npz`` or a torch HiFi-GAN generator checkpoint (a state dict, or a
+    dict holding one under ``"generator"``), at ``config``'s widths
+    (``SparcDecoderConfig()`` by default). An Orbax directory raises."""
+    from pathlib import Path
+
+    config = config or SparcDecoderConfig()
+    if ckpt.endswith(".npz"):
+        from ..io.checkpoint import load_params_npz
+
+        return SparcDecoder(config, params=load_params_npz(ckpt), device=device)
+    if Path(ckpt).is_dir():
+        raise NotImplementedError(f"{ckpt}: Orbax directories need JAX; pass a .npz or a "
+                                  "torch generator checkpoint")
+    from ..io.torch_convert import hifigan_params_from_torch, torch_load
+
+    sd = torch_load(ckpt)
+    if isinstance(sd, dict) and "generator" in sd:
+        sd = sd["generator"]
+    return SparcDecoder(config, state_dict=hifigan_params_from_torch(sd, config.generator),
+                        device=device)

@@ -4,7 +4,9 @@ A fresh interpreter imports every module of ``sylber_tpu_torch`` (walked
 with ``pkgutil``, ``parallel.mesh`` and ``parallel.launch`` among them) and
 checks ``sys.modules``; then, with no GPU, the entry
 points (the resynthesis chain's and its trainers', ``fit_kmeans`` and
-``Sylber`` included, and the corpus path's runners and ``mini_proof``)
+``Sylber`` included, the corpus path's runners and ``mini_proof``, and the
+evaluation entry points: ``vocoder_proof``, ``token_chain_proof``,
+``pitch_chain_proof``, ``production_codebooks``, ``fit_quantizer``, ``demo``)
 refuse to run unless the caller asks for the CPU.
 """
 
@@ -47,6 +49,8 @@ from sylber_tpu_torch.train.vq_synthesis import train_vq_synthesis
 from sylber_tpu_torch.train_synthesis import main as train_synthesis_cli
 from sylber_tpu_torch.vocoder import VocoderTrainConfig, make_vocoder_train_step
 from sylber_tpu_torch import mini_proof, precompute_segments, segment_corpus
+from sylber_tpu_torch import (demo, fit_quantizer, pitch_chain_proof, production_codebooks,
+                              token_chain_proof, vocoder_proof)
 for make in (lambda: LongFormSegmenter(Segmenter()), lambda: KMQuantizer([[0.0, 1.0]]),
              lambda: train({"data": {"synthetic": True}}, out_dir="/nonexistent"),
              lambda: train_cli(["--config", "/nonexistent.yaml"]),
@@ -62,7 +66,14 @@ for make in (lambda: LongFormSegmenter(Segmenter()), lambda: KMQuantizer([[0.0, 
                                                "--out-dir", "/nonexistent"]),
              lambda: mini_proof.main(["--out-dir", "/nonexistent"]),
              lambda: mini_proof.evaluate({}, mini_proof.hubert_config({}), 1.0),
-             lambda: mini_proof.measure_norm_stats({}, mini_proof.hubert_config({}))):
+             lambda: mini_proof.measure_norm_stats({}, mini_proof.hubert_config({})),
+             lambda: vocoder_proof.main(["--out-dir", "/nonexistent"]),
+             lambda: token_chain_proof.main(["--out-dir", "/nonexistent"]),
+             lambda: pitch_chain_proof.main(["--out-dir", "/nonexistent"]),
+             lambda: production_codebooks.main(["--out-dir", "/nonexistent"]),
+             lambda: fit_quantizer.main(["--manifest", "/nonexistent", "--wav-dir", "/x",
+                                         "--out", "/nonexistent/c.npy"]),
+             lambda: demo.main(["--wav", "/nonexistent.wav", "--out-dir", "/nonexistent"])):
     try:
         make()
     except RuntimeError as e:
@@ -85,6 +96,6 @@ def test_port_imports_no_jax_and_needs_a_gpu_or_cpu_choice():
     # chain's flow/, vocoder/, models/voicebox, ops/pitch, synthesis and
     # vq_tokenizer, and its trainers, flow/kmeans and models/sylber included,
     # and the corpus path's utils/native, utils/sndfile, ops/segment_np,
-    # segment_corpus, precompute_segments and mini_proof, and the mesh's
-    # parallel/)
-    assert int(count.split()[0]) >= 64, count
+    # segment_corpus, precompute_segments and mini_proof, the mesh's
+    # parallel/, and the six evaluation entry points)
+    assert int(count.split()[0]) >= 70, count
