@@ -91,8 +91,15 @@ Phases, each of which fails the script when it fails:
    differing only at a float64/float32 tie) at the mini shapes (n 4,096,
    d 144, k 64 / 256 / 1,024), the VQ widths (d 24, 8), an awkward n
    (5,003), a pool of 256 distinct points each repeated 16 times (each
-   taken once) and full width (n 65,536, d 768, k 2,000), timed beside its
-   plain version and its byte bound; ``fit_kmeans`` at 5,000 centers on
+   taken once), full width (n 65,536, d 768, k 2,000) and the fit pool at
+   the codebooks' width (n 65,536, d 144, k 5,000 / 10,000 / 20,000): two
+   calls' rows identical, one kernel launch a call (the wrapper's count; the
+   profiler, where it keeps a call's events, sees no other launch of it),
+   timed beside its plain version, the grid and resident share of its
+   plan, the round trip of its exchange of every block's sum to every
+   block, its grid barrier (a launch of k exchange-only steps),
+   and its bounds (x each step, the on-chip bytes, the chain);
+   ``fit_kmeans`` at 5,000 centers on
    65,536 x 768 seeded features (its seeding launch counted from 0);
    ``train_synthesis`` at full width (``configs/sylber_resynthesis.yaml``,
    seeded random encoder, 128 synthetic utterances, B64 x 5 s) under
@@ -215,11 +222,13 @@ Phases, each of which fails the script when it fails:
    the vocoder proof for 20 steps against 10 + 10 resumed through its train
    state, cuDNN deterministic (bit-equal parameters; step ms); the demo on
    the mini fixtures (a finite waveform); the seeding kernel at the
-   production pool's shape (n 110,109, d 144) against its plain version at
-   k 5,000 and timed at k 5,000, 10,000 and 20,000 beside its byte bound;
+   production pool's shape (n 110,109, d 144) at k 5,000, 10,000 and
+   20,000, each checked as in phase 8 (the plain version timed at 5,000);
    the bf16 regressor's GateLoop call (casts and the float32 kernel) against
    its plain version, timed beside its bound.
    ``--only-evals`` runs phases 1 and 13 and prints no result;
+   ``--only-seeding`` phase 1 and the seeding kernel's records of phases 8
+   and 13, and prints no result;
    ``--reproduce-tokens`` phase 1, then the token chains (v1 and rich, on the
    recorded codebooks and refit), the pitch chain and the production
    codebooks, each table beside the recorded one with the JAX package's
@@ -2297,6 +2306,7 @@ KMEANSPP_SHAPES = [  # name, rows, width, centers, distinct points (each repeate
     ("awkward_rows", 5003, 144, (128,), None),
     ("duplicates", 4096, 144, (256,), 256),
     ("full_width", 65536, 768, (2000,), None),
+    ("fit_pool", 65536, 144, (5000, 10000, 20000), None),  # fit_kmeans's pool at the codebooks' d
 ]
 # the mini card-vs-CPU checks (as the CPU tests hold the port to JAX):
 # losses within 1e-4, gradients within 1e-4 of the largest, updated
@@ -2335,47 +2345,147 @@ def mixture(torch, n, d, seed, clusters=64):
     return means[pick] + torch.randn(n, d, generator=g, device="cuda")
 
 
-def kmeanspp_record(torch, km, name, x, k, seed, distinct=None):
-    """The seeding kernel against its plain version at one shape: the plain
-    steps replayed on the kernel's rows, a differing row allowed only at a
-    tie (KMEANSPP_TIE_RTOL), the centers against the rows they copy; kernel,
-    plain and bound times."""
-    n, d = x.shape
-    u = km.seeding_uniforms(seed, k).cuda()
-    centers, rows = km.kmeanspp(x, u)
-    torch.cuda.synchronize()
-    rows_h = rows.cpu().numpy()
-    copy_err = float((centers - x.index_select(0, rows)).abs().max())
-    first = int(min(int(np.floor(float(u[0]) * n)), n - 1))
-    ties, bad, d2 = [], int(first != rows_h[0]), None
+def kmeanspp_replay(torch, km, x, u, rows):
+    """The plain steps replayed on the kernel's rows, on the card without a
+    host read: for each step whose row differs from the plain draw, the gap
+    between the target and the nearest prefix between the two rows, as a
+    share of the total (float64 on the host; inf where the rows agree)."""
+    n, k = x.shape[0], u.shape[0]
+    gaps = torch.full((k,), float("inf"), dtype=torch.float64, device=x.device)
+    first = min(int(np.floor(float(u[0]) * n)), n - 1)
+    if first != int(rows[0]):
+        gaps[0] = 1.0
+    ar = torch.arange(n, device=x.device)
+    d2 = None
     for j in range(1, k):
-        c = x.index_select(0, rows[j - 1:j])
-        dist = ((x - c) ** 2).sum(-1)
+        dist = ((x - x.index_select(0, rows[j - 1:j])) ** 2).sum(-1)
         d2 = dist if d2 is None else torch.minimum(d2, dist)
         cum = torch.cumsum(d2.clamp_min(km.MIN_WEIGHT).double(), 0)
         target = u[j] * cum[-1]
-        p = int(torch.searchsorted(cum, target[None], right=True).clamp_max(n - 1))
-        if p != rows_h[j]:
-            lo, hi = sorted((p, int(rows_h[j])))
-            gap = float((cum[lo:hi] - target).abs().min() / cum[-1])
-            ties.append(gap)
-            bad += gap > KMEANSPP_TIE_RTOL
+        p = torch.searchsorted(cum, target[None], right=True).clamp_max(n - 1)
+        lo, hi = torch.minimum(p, rows[j:j + 1]), torch.maximum(p, rows[j:j + 1])
+        between = (ar >= lo) & (ar < hi)
+        gaps[j] = torch.where(between, (cum - target).abs(), np.inf).min() / cum[-1]
+    gaps = gaps.cpu().numpy()
+    return gaps[np.isfinite(gaps)]
+
+
+def seeding_launches(torch, km, x, u, tries=6):
+    """The launches of one ``kmeanspp`` call: the wrapper's count (it counts
+    where it launches the kernel), and from the profiler the seeding
+    kernel's launches and every device event (the scratch's zeroing too),
+    the most that any profiled call saw (the profiler can lose a call's
+    device events, late in the whole script all of them, and never adds one;
+    up to ``tries`` calls, until one shows the kernel)."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    seeding, events, calls = 0, 0, 0
+    before = km.kmeanspp.launches
+    while calls < tries and not seeding:
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            km.kmeanspp(x, u)
+            torch.cuda.synchronize()
+        calls += 1
+        cuda = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        seeding = max(seeding, sum("kmeanspp_seed" in e.name for e in cuda))
+        events = max(events, len(cuda))
+    return dict(kernel_launches=seeding, device_events=events, profiled_calls=calls,
+                wrapper_launches=(km.kmeanspp.launches - before) / calls)
+
+
+def exchange_round_trip_ms(torch, km, n, d, steps):
+    """The round trip of the seeding kernel's exchange of every block's sum
+    to every block (its grid barrier) on its grid for (n, d): a launch of
+    ``steps`` exchange-only steps, timed, over ``steps``."""
+    return time_ms(torch, lambda: km.kmeanspp_barrier_probe(n, d, steps), reps=3,
+                   warmup=1) / steps
+
+
+def resident_rows(n, plan):
+    """The rows of x that the grid's shared memory holds for a plan."""
+    g, r, res = plan["grid"], plan["rows_per_block"], plan["resident_rows_per_block"]
+    return sum(min(res, n - b * r) for b in range(g))
+
+
+def kmeanspp_bounds(n, d, k, plan, round_trip_ms):
+    """The seeding's bounds for a plan: x from device memory each step (the
+    two-launch design's), the on-chip bytes (x read once, then the rows that
+    do not fit the grid's shared memory once a step, the centers and rows
+    written) against the operations (3 n d a step), the chain ((k - 1) steps
+    of two grid-wide exchanges, each at least the exchange's round trip), and
+    the function's own (every input read once, every output written once)."""
+    ops = 3.0 * n * d * (k - 1)
+    out_bytes = k * d * 4.0 + k * 4.0
+    spill = (n - resident_rows(n, plan)) * d * 4.0
+    onchip, onchip_by = bound_ms(n * d * 4.0 + (k - 1) * spill + out_bytes + k * 8.0, ops,
+                                 "float32")
+    chain = (k - 1) * 2 * round_trip_ms
+    once, once_by = bound_ms(n * d * 4.0 + k * 8.0 + out_bytes, ops, "float32")
+    each_step, _ = bound_ms((k - 1) * n * d * 4.0 + out_bytes, ops, "float32")
+    governing, by = (onchip, onchip_by) if onchip >= chain else (chain, "chain")
+    return dict(bound_ms=governing, bound_by=by, onchip_bound_ms=onchip, onchip_bound_by=onchip_by,
+                chain_bound_ms=chain, exchange_round_trip_us=round_trip_ms * 1e3,
+                inputs_once_bound_ms=once, inputs_once_bound_by=once_by,
+                x_each_step_bound_ms=each_step, resident_share=resident_rows(n, plan) / n)
+
+
+def kmeanspp_record(torch, km, name, x, k, seed, distinct=None, time_plain=True):
+    """The seeding kernel against its plain version at one shape: the plain
+    steps replayed on the kernel's rows, a differing row allowed only at a
+    tie (KMEANSPP_TIE_RTOL), the centers against the rows they copy, a
+    second call's rows identical, the launches of one call (the seeding
+    kernel once); kernel, plain and exchange times, the plan and the bounds."""
+    n, d = x.shape
+    u = km.seeding_uniforms(seed, k).cuda()
+    centers, rows = km.kmeanspp(x, u)
+    again, again_rows = km.kmeanspp(x, u)
+    torch.cuda.synchronize()
+    copy_err = float((centers - x.index_select(0, rows)).abs().max())
+    identical = bool(torch.equal(rows, again_rows) and torch.equal(centers, again))
+    gaps = kmeanspp_replay(torch, km, x, u, rows)
+    bad = int((gaps > KMEANSPP_TIE_RTOL).sum())
     distinct_ok = None
     if distinct:
         distinct_ok = len({tuple(r) for r in centers.cpu().numpy().tolist()}) == distinct
+    launches = seeding_launches(torch, km, x, u)
     ms = time_ms(torch, lambda: km.kmeanspp(x, u), reps=3, warmup=1)
-    plain_ms = time_ms(torch, lambda: km.kmeanspp_plain(x, u), reps=1, warmup=1)
-    nbytes = (k - 1) * n * d * 4.0 + k * d * 4.0  # x once a step (above the L2), the centers
-    bound, by = bound_ms(nbytes, 3.0 * n * d * (k - 1), "float32")
-    ok = bad == 0 and copy_err == 0.0 and distinct_ok is not False
-    return dict(name=name, shape=[n, d, k], ties=len(ties), worst_tie_gap=max(ties, default=0.0),
-                non_tie_differences=bad, max_abs_err=copy_err, distinct_ok=distinct_ok, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                bound_once_ms=bound_ms(n * d * 4.0 + k * d * 4.0, 0, "float32")[0],
-                cuda_launches_per_call=2 * k - 1, ok=bool(ok))
+    plain_ms = (time_ms(torch, lambda: km.kmeanspp_plain(x, u), reps=1, warmup=1)
+                if time_plain else None)
+    plan = km.seeding_plan(n, d)
+    bounds = kmeanspp_bounds(n, d, k, plan, exchange_round_trip_ms(torch, km, n, d, k))
+    ok = (bad == 0 and copy_err == 0.0 and distinct_ok is not False and identical
+          and launches["wrapper_launches"] == 1 and launches["kernel_launches"] <= 1)
+    return dict(name=name, shape=[n, d, k], ties=len(gaps),
+                worst_tie_gap=float(gaps.max(initial=0.0)), non_tie_differences=bad,
+                max_abs_err=copy_err, distinct_ok=distinct_ok, identical_rows=identical, ms=ms,
+                us_a_step=ms * 1e3 / max(k - 1, 1), plain_ms=plain_ms, plan=plan, **bounds,
+                cuda_launches_per_call=launches["wrapper_launches"],
+                profiler_kernel_launches=launches["kernel_launches"],
+                device_events_per_call=launches["device_events"], ok=bool(ok))
 
 
-def kmeanspp_records(torch, km):
+def log_seeding(phase, r, smi):
+    plain = f"{r['plain_ms']:.3f}" if r["plain_ms"] is not None else "not timed"
+    log(f"{phase}: kmeanspp {r['name']} {r['shape']} (n, d, k): {r['ties']} tie(s) (worst gap "
+        f"{r['worst_tie_gap']:.2g} of the total, tol {KMEANSPP_TIE_RTOL}), "
+        f"{r['non_tie_differences']} other differences, copy err {r['max_abs_err']}, distinct "
+        f"{r['distinct_ok']}, identical rows on two calls {r['identical_rows']} ok={r['ok']}  "
+        f"kernel_ms {r['ms']:.3f} ({r['us_a_step']:.2f} us a step)  plain_ms {plain}  "
+        f"grid {r['plan']['grid']} x {r['plan']['rows_per_block']} rows ({r['plan']['threads']} "
+        f"threads), resident share "
+        f"{r['resident_share']:.3f}, exchange round trip {r['exchange_round_trip_us']:.3f} us  "
+        f"bound_ms {r['bound_ms']:.3f} ({r['bound_by']}; on-chip {r['onchip_bound_ms']:.3f} "
+        f"({r['onchip_bound_by']}, {r['ms'] / r['onchip_bound_ms']:.2f}x), chain "
+        f"{r['chain_bound_ms']:.3f} ({r['ms'] / r['chain_bound_ms']:.2f}x); x each step "
+        f"{r['x_each_step_bound_ms']:.3f}; inputs once {r['inputs_once_bound_ms']:.4f})  "
+        f"{r['cuda_launches_per_call']:g} launch(es) a call (the profiler saw "
+        f"{r['profiler_kernel_launches']} of the kernel and {r['device_events_per_call']} device "
+        f"events)  [{smi}]")
+
+
+def kmeanspp_records(torch, km, smi, phase="phase 8"):
     recs = []
     for name, n, d, ks, distinct in KMEANSPP_SHAPES:
         if distinct:
@@ -2384,8 +2494,10 @@ def kmeanspp_records(torch, km):
                     % distinct].contiguous()
         else:
             x = mixture(torch, n, d, seed=n + d)
-        for k in ks:
-            recs.append(kmeanspp_record(torch, km, name, x, k, seed=k, distinct=distinct))
+        for i, k in enumerate(ks):
+            recs.append(kmeanspp_record(torch, km, name, x, k, seed=k, distinct=distinct,
+                                        time_plain=i == 0 or n <= 4096))
+            log_seeding(phase, recs[-1], smi)
         del x
     return recs
 
@@ -2894,14 +3006,7 @@ def synthesis_training_phase(torch, ops, counters, smi):
     from sylber_tpu_torch.models.hubert import matmul_precision
 
     with matmul_precision("highest"):
-        seeding = kmeanspp_records(torch, km)
-    for r in seeding:
-        log(f"phase 8: kmeanspp {r['name']} {r['shape']} (n, d, k): {r['ties']} tie(s) (worst "
-            f"gap {r['worst_tie_gap']:.2g} of the total, tol {KMEANSPP_TIE_RTOL}), "
-            f"{r['non_tie_differences']} other differences, copy err {r['max_abs_err']}, "
-            f"distinct {r['distinct_ok']} ok={r['ok']}  kernel_ms {r['ms']:.3f}  plain_ms "
-            f"{r['plain_ms']:.3f}  bound_ms {r['bound_ms']:.3f} ({r['bound_by']}; x read once: "
-            f"{r['bound_once_ms']:.4f})  {r['cuda_launches_per_call']} launches a call  [{smi}]")
+        seeding = kmeanspp_records(torch, km, smi)
     bad = [r for r in seeding if not r["ok"]]
     if bad:
         raise AssertionError(f"kmeanspp disagrees with its plain version: {bad}")
@@ -4889,23 +4994,17 @@ def fit_quantizer_run(torch, counters, smi, tmp):
 
 def production_seeding(torch, km, smi):
     """The seeding kernel at the production pool's shape (n 110,109, d 144)
-    on seeded features of ``PRODUCTION_CLUSTERS`` clusters: against its plain
-    version at k 5,000 (``kmeanspp_record``), then timed at each k beside
-    the byte bound (x read once a step)."""
+    on seeded features of ``PRODUCTION_CLUSTERS`` clusters, at each k
+    against its plain version (``kmeanspp_record``; the plain version timed
+    at the first k)."""
     n, d, ks = PRODUCTION_SEEDING
     x = mixture(torch, n, d, seed=13, clusters=PRODUCTION_CLUSTERS)
-    rec = kmeanspp_record(torch, km, "production", x, ks[0], seed=ks[0])
-    rec["timed"] = []
+    recs = []
     for k in ks:
-        u = km.seeding_uniforms(k, k).cuda()
-        ms = time_ms(torch, lambda: km.kmeanspp(x, u), reps=2, warmup=1)
-        bound, by = bound_ms((k - 1) * n * d * 4.0 + k * d * 4.0, 3.0 * n * d * (k - 1),
-                             "float32")
-        rec["timed"].append(dict(k=k, ms=ms, bound_ms=bound, bound_by=by))
-        log(f"phase 13 kmeanspp n {n} d {d} k {k}: {ms:.2f} ms, bound {bound:.2f} ms ({by}), "
-            f"{ms / bound:.2f}x" + (f"; plain {rec['plain_ms']:.1f} ms, {rec['ties']} tie(s), "
-                                    f"ok={rec['ok']}" if k == ks[0] else "") + f"  [{smi}]")
+        recs.append(kmeanspp_record(torch, km, "production", x, k, seed=k, time_plain=k == ks[0]))
+        log_seeding("phase 13", recs[-1], smi)
     del x
+    rec = dict(recs[0], timed=recs, ok=all(r["ok"] for r in recs))
     return rec
 
 
@@ -5368,6 +5467,10 @@ def main() -> int:
                     help="build the kernels, then train configs/sylber_resynthesis_mini.yaml "
                          "(6,000 steps) on the card and evaluate it with 50 ODE steps against "
                          "mini_synth.json's recorded eval; prints no result line")
+    ap.add_argument("--only-seeding", action="store_true",
+                    help="build the kernels and run the seeding kernel's records of phases 8 "
+                         "and 13 alone (every seeding shape against the plain version, the "
+                         "plan, the exchange's round trip, the bounds); prints no result line")
     ap.add_argument("--only-evals", action="store_true",
                     help="build the kernels and run phase 13 alone (the evaluation entry "
                          "points); prints no result line")
@@ -5458,6 +5561,22 @@ def main() -> int:
             Path(args.out).parent.mkdir(parents=True, exist_ok=True)
             Path(args.out).write_text(json.dumps(dict(card=smi, dispatch=p12), indent=1,
                                                  default=str))
+        return 0
+    if args.only_seeding:
+        from sylber_tpu_torch.flow import kmeans as km
+
+        with matmul_precision("highest"):
+            recs = kmeanspp_records(torch, km, smi) + production_seeding(torch, km, smi)["timed"]
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            build_log = kernels.BUILD_DIR / "build.log"  # registers, shared memory, spills
+            if build_log.exists():
+                Path(args.out).with_suffix(".build.log").write_text(build_log.read_text())
+            Path(args.out).write_text(json.dumps(dict(card=smi, seeding=recs), indent=1,
+                                                 default=str))
+        bad = [(r["name"], r["shape"]) for r in recs if not r["ok"]]
+        if bad:
+            raise AssertionError(f"kmeanspp failed at {bad}")
         return 0
     if args.only_evals:
         p13 = eval_phase(torch, counters, smi)
@@ -5664,20 +5783,29 @@ def main() -> int:
         entry["mesh_launches"] = mesh["launches"][name]
     # the seeding kernel (phase 8): its main path is fit_kmeans; the headline
     # shape is the production seed pool's width at 2,000 centers
+    # (bound_ms: every input read once, every output written once; the
+    # design's bounds, on-chip bytes and the chain, under their own names)
     seeding = synthesis_training["kmeanspp"]
     head = next(r for r in seeding if r["name"] == "full_width")
+    shape_keys = ("name", "shape", "ties", "worst_tie_gap", "non_tie_differences",
+                  "identical_rows", "ms", "us_a_step", "plain_ms", "plan", "resident_share",
+                  "exchange_round_trip_us", "bound_ms", "bound_by", "onchip_bound_ms",
+                  "chain_bound_ms", "x_each_step_bound_ms", "inputs_once_bound_ms",
+                  "cuda_launches_per_call", "ok")
     line.append(dict(name="kmeanspp", route="cuda", source="sylber_tpu_torch/csrc/kmeanspp.cu",
                      replaces="sylber_tpu/flow/kmeans.py:31",
                      launches=synthesis_training["kmeanspp_launches"],
                      max_abs_err=head["max_abs_err"], ms=head["ms"], plain_ms=head["plain_ms"],
-                     bound_ms=head["bound_ms"], bound_by=head["bound_by"], library_ms=None,
+                     bound_ms=head["inputs_once_bound_ms"],
+                     bound_by=head["inputs_once_bound_by"], library_ms=None,
                      dtype="float32", shape=head["shape"],
                      cuda_launches_per_call=head["cuda_launches_per_call"],
-                     bound_once_ms=head["bound_once_ms"],
+                     design_bound_ms=head["bound_ms"], design_bound_by=head["bound_by"],
+                     onchip_bound_ms=head["onchip_bound_ms"],
+                     chain_bound_ms=head["chain_bound_ms"],
+                     x_each_step_bound_ms=head["x_each_step_bound_ms"],
                      ties=sum(r["ties"] for r in seeding),
-                     shapes=[{k: r[k] for k in ("name", "shape", "ties", "worst_tie_gap", "ms",
-                                                "plain_ms", "bound_ms", "ok")}
-                             for r in seeding],
+                     shapes=[{k: r[k] for k in shape_keys} for r in seeding],
                      fit_kmeans=synthesis_training["fit_kmeans"]))
     # the int8 serving path's kernels and the GateLoop kernel (phase 9)
     line += int8_kernel_entries(int8)
@@ -5699,10 +5827,8 @@ def main() -> int:
     for entry in line:
         entry["eval_launches"] = evals["launches"].get(entry["name"], 0)
     entries["kmeanspp"] = next(e for e in line if e["name"] == "kmeanspp")
-    entries["kmeanspp"]["production_shape"] = {
-        k: evals["production_seeding"][k] for k in ("shape", "ties", "worst_tie_gap", "ms",
-                                                    "plain_ms", "bound_ms", "bound_by",
-                                                    "timed", "ok")}
+    entries["kmeanspp"]["production_shape"] = [
+        {k: r[k] for k in shape_keys} for r in evals["production_seeding"]["timed"]]
     gate = next(e for e in line if e["name"] == "gate_loop")
     gate["bf16_regressor_launches"] = dispatch["bf16_regressor"]["runs"][
         "bfloat16_gateloop"]["launches"]["gate_loop_operator"]

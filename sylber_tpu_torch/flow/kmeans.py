@@ -13,8 +13,9 @@ subsample chose, drawn by distance from that subsample.
   re-seeding), so everything but the seeding's own draws is the same
   stream.
 - The seeding, :func:`kmeanspp`, is the hand-written kernel of
-  ``csrc/kmeanspp.cu`` on a CUDA tensor (its header says what bounds it and
-  how the design answers that) and :func:`kmeanspp_plain` on a CPU tensor:
+  ``csrc/kmeanspp.cu`` on a CUDA tensor (one persistent cooperative launch a
+  seeding; its header says what bounds it and how the design answers that)
+  and :func:`kmeanspp_plain` on a CPU tensor:
   the same inverse-CDF draws from k float64 uniforms (a ``torch.Generator``
   seeded with ``seed``, where JAX draws a Gumbel-max categorical from a
   ``PRNGKey``), one step at a time with ``torch.cumsum`` and
@@ -23,6 +24,7 @@ subsample chose, drawn by distance from that subsample.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple, Union
 
 import numpy as np
@@ -33,6 +35,11 @@ from ..kernels import check, device_of, lib, require_cuda, stream_of
 from ..models.hubert import matmul_precision
 
 MIN_WEIGHT = 1e-30  # the floor of a squared distance as a draw's weight (JAX's)
+# the seeding kernel's launch: the fewest rows a block owns (a small pool
+# takes a small grid, and with it a cheaper exchange) and a block's most
+# threads
+MIN_ROWS_PER_BLOCK = 64
+MAX_THREADS = 1024
 
 
 def kmeanspp_plain(x: torch.Tensor, u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -59,9 +66,9 @@ def kmeanspp_plain(x: torch.Tensor, u: torch.Tensor) -> Tuple[torch.Tensor, torc
 
 
 def kmeanspp(x: torch.Tensor, u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """:func:`kmeanspp_plain`'s function: the kernel on a CUDA tensor (2k - 1
-    launches enqueued at once, nothing read back), the plain version on a
-    CPU tensor."""
+    """:func:`kmeanspp_plain`'s function: the kernel on a CUDA tensor (one
+    cooperative launch, nothing read back), the plain version on a CPU
+    tensor."""
     if x.device.type == "cpu":
         return kmeanspp_plain(x, u)
     if x.ndim != 2 or x.dtype != torch.float32:
@@ -69,27 +76,74 @@ def kmeanspp(x: torch.Tensor, u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tens
     if u.ndim != 1 or u.numel() < 1:
         raise ValueError("kmeanspp: u must hold one uniform a center")
     x = x.contiguous()
+    if x.data_ptr() % 16:  # the kernel reads rows as float4
+        x = x.clone()
     u = u.to(x.device, torch.float64).contiguous()
     require_cuda("kmeanspp", x, u)
     return _launch(x, u)
 
 
-def _launch(x: torch.Tensor, u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+_PLAN_KEYS = ("grid", "rows_per_block", "resident_rows_per_block", "lanes_per_row", "smem_bytes",
+              "threads")
+
+
+def _plan(kl, n: int, d: int, min_rows: int, max_threads: int,
+          capacity: int) -> Tuple[int, dict]:
+    """The 8-byte words of scratch the kernel takes for n rows of width d on
+    the current card, and its launch (``_PLAN_KEYS``); raises on a shape it
+    refuses."""
+    plan = (ctypes.c_int * len(_PLAN_KEYS))()
+    size = kl.sylber_kmeanspp_scratch(n, d, min_rows, max_threads, capacity, plan)
+    if size < 0:
+        check(-size, "kmeanspp")
+    return size, dict(zip(_PLAN_KEYS, plan))
+
+
+def _launch(x: torch.Tensor, u: torch.Tensor, capacity: int = -1,
+            min_rows: int = MIN_ROWS_PER_BLOCK,
+            max_threads: int = MAX_THREADS) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel on ``x`` (n, d) and ``u`` (k,): ``capacity`` resident rows
+    a block (-1: as many as the card's shared memory holds)."""
     (n, d), k = x.shape, u.shape[0]
     kl = lib()
-    d2 = torch.empty(n, dtype=torch.float32, device=x.device)
-    block_sums = torch.empty(kl.sylber_kmeanspp_blocks(n), dtype=torch.float64, device=x.device)
-    rows = torch.empty(k, dtype=torch.int32, device=x.device)
-    centers = torch.empty(k, d, dtype=torch.float32, device=x.device)
     with device_of(x):
-        check(kl.sylber_kmeanspp(x.data_ptr(), u.data_ptr(), d2.data_ptr(), block_sums.data_ptr(),
-                                 rows.data_ptr(), centers.data_ptr(), n, d, k, stream_of(x)),
-              "kmeanspp")
+        size, _ = _plan(kl, n, d, min_rows, max_threads, capacity)
+        scratch = torch.zeros(size, dtype=torch.int64, device=x.device)
+        rows = torch.empty(k, dtype=torch.int32, device=x.device)
+        centers = torch.empty(k, d, dtype=torch.float32, device=x.device)
+        check(kl.sylber_kmeanspp(x.data_ptr(), u.data_ptr(), scratch.data_ptr(), rows.data_ptr(),
+                                 centers.data_ptr(), n, d, k, min_rows, max_threads, capacity,
+                                 stream_of(x)), "kmeanspp")
     kmeanspp.launches += 1
     return centers, rows.long()
 
 
 kmeanspp.launches = 0
+
+
+def seeding_plan(n: int, d: int, device: Union[str, torch.device] = "cuda",
+                 min_rows: int = MIN_ROWS_PER_BLOCK, max_threads: int = MAX_THREADS) -> dict:
+    """The seeding kernel's launch for n rows of width d on a CUDA
+    ``device``: ``_PLAN_KEYS``."""
+    with torch.cuda.device(torch.device(device)):
+        return _plan(lib(), n, d, min_rows, max_threads, -1)[1]
+
+
+def kmeanspp_barrier_probe(n: int, d: int, steps: int, device: Union[str, torch.device] = "cuda",
+                           min_rows: int = MIN_ROWS_PER_BLOCK,
+                           max_threads: int = MAX_THREADS) -> None:
+    """Enqueue ``steps`` of the kernel's exchange of every block's sum to
+    every block, alone, on its grid for (n, d) on a CUDA ``device``: one
+    cooperative launch, timed by the caller (the exchange's round trip, the
+    unit of the kernel's chain bound)."""
+    kl = lib()
+    dev = torch.device(device)
+    with torch.cuda.device(dev):
+        size, _ = _plan(kl, n, d, min_rows, max_threads, -1)
+        scratch = torch.zeros(size, dtype=torch.int64, device=dev)
+        check(kl.sylber_kmeanspp_barrier_probe(scratch.data_ptr(), n, d, min_rows, max_threads,
+                                               steps, torch.cuda.current_stream(dev).cuda_stream),
+              "kmeanspp_barrier_probe")
 
 
 def seeding_uniforms(seed: int, k: int) -> torch.Tensor:

@@ -44,8 +44,9 @@ _SIGNATURES = {
     "sylber_segment_pass1": ([_P] * 10 + [_I, _I, _I, _F, _P, _P], _I),
     "sylber_shared_divisor": ([_P] * 4 + [_I, _P], _I),
     "sylber_segment_pass2": ([_P] * 12 + [_I, _I, _I, _F, _P, _P], _I),
-    "sylber_kmeanspp_blocks": ([_I], _I),
-    "sylber_kmeanspp": ([_P] * 6 + [_I, _I, _I, _P], _I),
+    "sylber_kmeanspp_scratch": ([_I] * 5 + [_P], _I),
+    "sylber_kmeanspp": ([_P] * 5 + [_I] * 6 + [_P], _I),
+    "sylber_kmeanspp_barrier_probe": ([_P] + [_I] * 5 + [_P], _I),
     "sylber_quantize_rows": ([_P, _P, _P, _I, _I, _L, _I, _I, _I, _P], _I),
     "sylber_int8_gemm": ([_P] * 6 + [_I, _I, _I, _I, _I, _L, _I, _P], _I),
     "sylber_gate_loop": ([_P] * 4 + [_I, _I, _I, _S, _P], _I),

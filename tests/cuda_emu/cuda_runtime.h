@@ -1,7 +1,8 @@
 // A host stand-in for the part of the CUDA runtime that the kernels of
 // sylber_tpu_torch/csrc use, so that the kernel sources can be compiled with
 // g++ and run on the CPU by tests/test_torch_cuda_emu.py. Every CUDA thread
-// of a block is a host thread; blocks run one after the other.
+// of a block is a host thread; blocks run one after the other, except in a
+// cooperative launch, where every block's threads run at once.
 // __syncthreads, __syncwarp, the warp shuffles and the ballot are barriers
 // with an exchange buffer. It checks indexing, masking and pipeline order; it
 // cannot check PTX, timing or anything asynchronous (copies complete at once).
@@ -16,6 +17,8 @@
 #include <functional>
 #include <mutex>
 #include <thread>
+#include <type_traits>
+#include <utility>
 #include <vector>
 
 #define __global__
@@ -44,7 +47,7 @@ inline uint2 make_uint2(uint32_t a, uint32_t b) { return {a, b}; }
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 typedef void* cudaStream_t;
 typedef int cudaError_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorCooperativeLaunchTooLarge = 82 };
 enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 constexpr size_t kMaxBlockSharedMemory = 232448;
 template <typename K>
@@ -52,10 +55,25 @@ cudaError_t cudaFuncSetAttribute(K, int, int bytes) {
   return (size_t)bytes > kMaxBlockSharedMemory ? cudaErrorInvalidValue : cudaSuccess;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
-// a card of 3 SMs: a persistent grid walks several tiles a block
-enum { cudaDevAttrMultiProcessorCount = 16 };
+// a small card: 3 SMs (a persistent grid walks several tiles a block), each
+// running two blocks that take at most half of the shared memory, else one
+constexpr int kEmuSMs = 3;
+enum { cudaDevAttrMultiProcessorCount = 16, cudaDevAttrMaxSharedMemoryPerBlockOptin = 97 };
 inline cudaError_t cudaGetDevice(int* device) { *device = 0; return cudaSuccess; }
-inline cudaError_t cudaDeviceGetAttribute(int* value, int, int) { *value = 3; return cudaSuccess; }
+inline cudaError_t cudaDeviceGetAttribute(int* value, int attr, int) {
+  if (attr == cudaDevAttrMultiProcessorCount) *value = kEmuSMs;
+  else if (attr == cudaDevAttrMaxSharedMemoryPerBlockOptin) *value = (int)kMaxBlockSharedMemory;
+  else return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+inline int emu_blocks_per_sm(size_t smem) {
+  return smem > kMaxBlockSharedMemory ? 0 : smem <= kMaxBlockSharedMemory / 2 - 1024 ? 2 : 1;
+}
+template <typename K>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* blocks, K, int, size_t smem) {
+  *blocks = emu_blocks_per_sm(smem);
+  return cudaSuccess;
+}
 enum cudaDriverEntryPointQueryResult { cudaDriverEntryPointSuccess = 0 };
 enum { cudaEnableDefault = 0 };
 // Hands out emu.cpp's cuTensorMapEncodeTiled for that name, fails for any other.
@@ -91,10 +109,12 @@ struct WarpCtx {
 struct BlockCtx {
   Barrier* bar;
   std::vector<WarpCtx*> warps;
+  unsigned char* smem;  // the block's dynamic shared memory
 };
 extern thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 extern thread_local BlockCtx* emu_block;
 inline WarpCtx& emu_warp() { return *emu_block->warps[threadIdx.x / 32]; }
+inline unsigned char* emu_dynamic_smem() { return emu_block->smem; }
 inline int emu_lane() { return threadIdx.x % 32; }
 
 inline void __syncthreads() { emu_block->bar->wait(); }
@@ -107,6 +127,17 @@ inline V __shfl_xor_sync(unsigned, V v, int lane_mask) {
   w.bar.wait();
   V r;
   memcpy(&r, &w.buf[lane ^ lane_mask][0], sizeof(V));
+  w.bar.wait();
+  return r;
+}
+template <typename V>
+inline V __shfl_up_sync(unsigned, V v, int delta) {
+  WarpCtx& w = emu_warp();
+  const int lane = emu_lane();
+  memcpy(&w.buf[lane][0], &v, sizeof(V));
+  w.bar.wait();
+  V r = v;
+  if (lane >= delta) memcpy(&r, &w.buf[lane - delta][0], sizeof(V));
   w.bar.wait();
   return r;
 }
@@ -133,6 +164,7 @@ inline unsigned __ballot_sync(unsigned, int pred) {
 inline bool __any_sync(unsigned mask, int pred) { return __ballot_sync(mask, pred) != 0; }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __clz(int x) { return x ? __builtin_clz((unsigned)x) : 32; }
+inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
 // round-to-nearest single operations that the compiler may not contract
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
@@ -140,6 +172,16 @@ inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
 inline float __fdiv_rn(float a, float b) { volatile float r = a / b; return r; }
 inline float __frcp_rn(float a) { volatile float r = 1.f / a; return r; }
 
+inline double __longlong_as_double(long long x) {
+  double f;
+  memcpy(&f, &x, 8);
+  return f;
+}
+inline long long __double_as_longlong(double x) {
+  long long i;
+  memcpy(&i, &x, 8);
+  return i;
+}
 inline float __int_as_float(unsigned x) {
   float f;
   memcpy(&f, &x, 4);
@@ -184,3 +226,18 @@ inline int max(int a, int b) { return a > b ? a : b; }
 // Runs `body` once per thread of every block of the grid.
 void emu_launch(const std::function<void()>& body, dim3 grid, int threads, size_t smem,
                 cudaStream_t);
+// The same with every block's threads at once, each block with its own
+// dynamic shared memory: cudaLaunchCooperativeKernel. Refuses a grid that
+// the small card cannot hold resident at once, as CUDA does.
+cudaError_t emu_launch_cooperative(const std::function<void()>& body, dim3 grid, int threads,
+                                   size_t smem);
+template <typename... A, size_t... I>
+void emu_call(void (*kernel)(A...), void** args, std::index_sequence<I...>) {
+  kernel(*static_cast<std::remove_reference_t<A>*>(args[I])...);
+}
+template <typename... A>
+cudaError_t cudaLaunchCooperativeKernel(void (*kernel)(A...), dim3 grid, dim3 block, void** args,
+                                        size_t smem, cudaStream_t) {
+  return emu_launch_cooperative(
+      [=] { emu_call(kernel, args, std::index_sequence_for<A...>{}); }, grid, block.x, smem);
+}

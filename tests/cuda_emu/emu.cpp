@@ -1,8 +1,11 @@
-// The launch loop and the PTX helpers of common.cuh, attn_tile.cuh and
+// The launch loops and the PTX helpers of common.cuh, attn_tile.cuh and
 // int8_gemm.cu, emulated on the host after the PTX ISA: mbarriers (arrivals
 // and transaction bytes, phases), the bulk copy, ldmatrix and mma.m16n8k16
 // bf16 fragment layouts, TMA 2-D tile loads with the 128-byte swizzle and
-// wgmma s8 through shared-memory descriptors.
+// wgmma s8 through shared-memory descriptors; the cooperative launch and
+// common.cuh's flag words.
+#include <chrono>
+#include <memory>
 #include <unordered_map>
 
 #include "cuda.h"
@@ -82,6 +85,32 @@ void mbar_wait(uint64_t* bar, int parity) {
     }
   }
 }
+// Spins, yielding, until `done()`; aborts with `what` after two minutes.
+template <typename F>
+static void spin_until(F done, const char* what) {
+  const auto deadline = std::chrono::steady_clock::now() + std::chrono::minutes(2);
+  while (!done()) {
+    std::this_thread::yield();
+    if (std::chrono::steady_clock::now() > deadline) {
+      fprintf(stderr, "%s\n", what);
+      abort();
+    }
+  }
+}
+// common.cuh's flag words: a store and a spin on the step, as whole 8-byte words
+void flag_store(unsigned long long* word, unsigned value, unsigned step) {
+  __atomic_store_n(word, (unsigned long long)step << 32 | value, __ATOMIC_SEQ_CST);
+}
+unsigned flag_load(const unsigned long long* word, unsigned step) {
+  unsigned long long v = 0;
+  spin_until(
+      [&] {
+        v = __atomic_load_n(word, __ATOMIC_SEQ_CST);
+        return (unsigned)(v >> 32) == step;
+      },
+      "a wait for a flag word that never holds its step");
+  return (unsigned)v;
+}
 void bulk_copy_to_shared(void* dst, const void* src, unsigned bytes, uint64_t* bar) {
   if (bytes % 16 || (uintptr_t)dst % 16 || (uintptr_t)src % 16) {
     fprintf(stderr, "bulk copy of %u bytes: size or an address is not a multiple of 16\n", bytes);
@@ -138,6 +167,7 @@ void emu_launch(const std::function<void()>& body, dim3 grid, int threads, size_
       Barrier bar(threads);
       BlockCtx ctx;
       ctx.bar = &bar;
+      ctx.smem = sylber::attn::smem_raw;
       for (int w = 0; w < (threads + 31) / 32; ++w) ctx.warps.push_back(new WarpCtx);
       std::vector<std::thread> pool;
       for (int t = 0; t < threads; ++t)
@@ -152,6 +182,39 @@ void emu_launch(const std::function<void()>& body, dim3 grid, int threads, size_
       for (auto& t : pool) t.join();
       for (auto* w : ctx.warps) delete w;
     }
+}
+
+cudaError_t emu_launch_cooperative(const std::function<void()>& body, dim3 grid, int threads,
+                                   size_t smem) {
+  const unsigned blocks = grid.x * grid.y * grid.z;
+  if (smem > kMaxBlockSharedMemory || blocks > (unsigned)(kEmuSMs * emu_blocks_per_sm(smem)))
+    return cudaErrorCooperativeLaunchTooLarge;
+  std::vector<std::unique_ptr<Barrier>> bars;
+  std::vector<BlockCtx> ctxs(blocks);
+  std::vector<std::vector<float4>> memory(blocks);  // 16-byte aligned
+  for (unsigned b = 0; b < blocks; ++b) {
+    bars.emplace_back(new Barrier(threads));
+    memory[b].resize(smem / 16 + 1);
+    memset(memory[b].data(), 0xff, smem);  // NaNs: nothing is zero by luck
+    ctxs[b].bar = bars.back().get();
+    ctxs[b].smem = (unsigned char*)memory[b].data();
+    for (int w = 0; w < (threads + 31) / 32; ++w) ctxs[b].warps.push_back(new WarpCtx);
+  }
+  std::vector<std::thread> pool;
+  for (unsigned b = 0; b < blocks; ++b)
+    for (int t = 0; t < threads; ++t)
+      pool.emplace_back([&, b, t] {
+        threadIdx = dim3(t);
+        blockIdx = dim3(b % grid.x, b / grid.x % grid.y, b / (grid.x * grid.y));
+        blockDim = dim3(threads);
+        gridDim = grid;
+        emu_block = &ctxs[b];
+        body();
+      });
+  for (auto& t : pool) t.join();
+  for (auto& c : ctxs)
+    for (auto* w : c.warps) delete w;
+  return cudaSuccess;
 }
 
 namespace sylber { namespace attn {

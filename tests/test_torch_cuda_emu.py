@@ -7,8 +7,9 @@ reach only the plain versions. Here every source of
 compiled by g++
 against the host stand-in of ``tests/cuda_emu``: every CUDA thread is a host
 thread, and the PTX helpers of the headers (cp.async, ldmatrix, mma.sync, the
-bulk copy with its mbarrier, the approximate reciprocal and square root) are
-replaced by emulations written after the PTX ISA. The wrappers' own launch
+bulk copy with its mbarrier, the approximate reciprocal and square root, the
+flag words of a cooperative launch) are replaced by emulations written after
+the PTX ISA. The wrappers' own launch
 code (``ops/_attn_launch.py``, ``ops/segment.py``, ``ops/frontend.py``,
 ``flow/kmeans.py``: scratch, strides, output layout) then drives the
 emulated kernels on CPU tensors. The same numpy inputs go through the JAX package (Pallas kernels in
@@ -55,7 +56,8 @@ _PTX_HELPERS = {
     "attn_tile.cuh": ["cp_async16", "cp_async_commit", "cp_async_wait", "ldmatrix_x4_trans",
                       "ldmatrix_x4", "mma_bf16", "fast_exp2"],
     "common.cuh": ["ex2_approx", "rcp_approx", "mbar_init", "fence_mbar_init", "mbar_expect_tx",
-                   "mbar_arrive", "bulk_copy_to_shared", "mbar_wait", "rsqrt_approx"],
+                   "mbar_arrive", "bulk_copy_to_shared", "mbar_wait", "rsqrt_approx", "flag_store",
+                   "flag_load"],
     "int8_gemm.cu": ["smem_addr", "tma_load_2d", "wgmma_fence", "wgmma_commit", "wgmma_wait",
                      "wgmma_s8"],
 }
@@ -89,11 +91,16 @@ void mbar_expect_tx(uint64_t* bar, unsigned bytes);
 void mbar_arrive(uint64_t* bar);
 void bulk_copy_to_shared(void* dst, const void* src, unsigned bytes, uint64_t* bar);
 void mbar_wait(uint64_t* bar, int parity);
+// the flag words, emulated in emu.cpp: whole 8-byte words, a wait that yields
+// and aborts after two minutes
+void flag_store(unsigned long long* word, unsigned value, unsigned step);
+unsigned flag_load(const unsigned long long* word, unsigned step);
 """),
 }
 _ENTRY_POINTS = ["sylber_small_attention", "sylber_flash_attention", "sylber_segment_pass1",
                  "sylber_segment_pass2", "sylber_shared_divisor", "sylber_conv0_partials_size",
-                 "sylber_conv0_gn_gelu", "sylber_kmeanspp_blocks", "sylber_kmeanspp"]
+                 "sylber_conv0_gn_gelu", "sylber_kmeanspp_scratch", "sylber_kmeanspp",
+                 "sylber_kmeanspp_barrier_probe"]
 
 
 SOURCES = ("common.cuh", "attn_tile.cuh", "smallattn.cu", "flash.cu", "segment_scan.cu",
@@ -102,10 +109,12 @@ SOURCES = ("common.cuh", "attn_tile.cuh", "smallattn.cu", "flash.cu", "segment_s
 
 def _host_sources(out: Path, names=SOURCES) -> list:
     """Copies of the kernel sources ``names`` that g++ takes: the PTX helpers
-    renamed away, ``<<<...>>>`` launches turned into calls of ``emu_launch``,
-    and the ``__shared__`` arrays inside kernels made static (one copy for the
-    block's host threads; the attention kernels' dynamic array is defined in
-    emu.cpp)."""
+    renamed away, ``<<<...>>>`` launches turned into calls of ``emu_launch``
+    and cooperative launches into the stand-in's typed
+    ``cudaLaunchCooperativeKernel``, and the ``__shared__`` arrays inside
+    kernels made static (one copy for the block's host threads; the attention
+    kernels' dynamic array is defined in emu.cpp, the seeding kernel's is
+    each emulated block's own)."""
     sources = []
     for src in (_build.CSRC / n for n in names):
         text = src.read_text()
@@ -123,6 +132,10 @@ def _host_sources(out: Path, names=SOURCES) -> list:
                                 "static __align__(128) float ring[RING * MAX_DIM];")
             text = text.replace("extern __shared__ __align__(1024) int8_t gemm_smem[];",
                                 "int8_t* const gemm_smem = (int8_t*)::sylber::attn::smem_raw;")
+            text = text.replace("extern __shared__ __align__(16) unsigned char seed_smem[];",
+                                "unsigned char* const seed_smem = emu_dynamic_smem();")
+            text = text.replace("cudaLaunchCooperativeKernel((const void*)",
+                                "cudaLaunchCooperativeKernel(")
             text = text.replace("__shared__", "static")
         text = re.sub(r"\b(\w+(?:<[^<>;()]*>)?)\s*<<<(.*?)>>>\s*\((.*?)\);",
                       r"emu_launch([&] { \1(\3); }, \2);", text, flags=re.S)
@@ -540,20 +553,33 @@ def kmeanspp_launch(emulated, monkeypatch):
 
 
 KMEANSPP_CASES = [
-    # name, rows, width, centers, distinct points (each repeated) or None
-    ("two-blocks", 128, 24, 24, None),      # float4 loads, the update's grid is 2 blocks
-    ("scalar-width", 128, 5, 16, None),     # d % 4 != 0: plain loads
-    ("awkward-rows", 150, 144, 12, None),   # 3 blocks of 50 rows
-    ("duplicates", 128, 8, 16, 16),         # 16 distinct points, 8 copies each
+    # name, rows, width, centers, distinct points (each repeated) or None, resident rows a
+    # block (-1: all that fit), the fewest rows a block, a block's most threads; on the
+    # stand-in's card of 3 SMs
+    ("two-blocks", 128, 24, 24, None, -1, 64, 64),      # float4 loads, a grid of 2 blocks
+    ("scalar-width", 128, 5, 16, None, -1, 64, 64),     # d % 4 != 0: rows padded in shared memory
+    ("awkward-rows", 150, 144, 12, None, -1, 64, 128),  # 3 blocks of 50 rows
+    ("duplicates", 128, 8, 16, 16, -1, 64, 64),         # 16 distinct points, 8 copies each
+    ("partly-resident", 150, 24, 16, None, 20, 64, 64),    # 20 of a block's 50 rows resident
+    ("none-resident-scalar", 128, 5, 16, None, 0, 64, 32),  # every row from memory, one warp
+    ("d768-partly-resident", 96, 768, 8, None, 12, 32, 64),  # 3 blocks of 32 rows, 12 resident
+    ("d768-resident", 96, 768, 8, None, -1, 32, 64),
+    ("draw-in-last-block", 150, 24, 12, None, -1, 64, 64),  # the last block's rows far out
+    ("grid-of-one", 20, 24, 20, None, -1, 64, 64),   # n below min_rows: one block, every row
+    ("six-blocks", 384, 8, 12, None, -1, 64, 64),    # 2 blocks an SM: more blocks than SMs
 ]
 
 
-@pytest.mark.parametrize("name,n,d,k,distinct", KMEANSPP_CASES, ids=[c[0] for c in KMEANSPP_CASES])
-def test_emulated_kmeanspp_matches_plain(kmeanspp_launch, name, n, d, k, distinct):
-    """The two kernels of a seeding step (distance update, inverse-CDF draw)
-    against ``kmeanspp_plain`` on the same uniforms: the same rows (a row may
-    differ only where the uniform lands within float64 rounding of a prefix
-    boundary; none does here), and on a pool of k distinct points each
+@pytest.mark.parametrize("name,n,d,k,distinct,capacity,min_rows,max_threads", KMEANSPP_CASES,
+                         ids=[c[0] for c in KMEANSPP_CASES])
+def test_emulated_kmeanspp_matches_plain(kmeanspp_launch, emulated, name, n, d, k, distinct,
+                                         capacity, min_rows, max_threads):
+    """The seeding kernel (one cooperative launch: the distance update, the
+    exchanges of flag words, the draw spread over the grid) against
+    ``kmeanspp_plain`` on the same uniforms: the same rows and centers
+    exactly (a row may differ only where the uniform lands within float64
+    rounding of a prefix boundary; none does here), twice with the same rows,
+    wholly and partly resident; on a pool of k distinct points each
     repeated, every distinct point once."""
     rng = np.random.RandomState(n + d + k)
     if distinct:
@@ -561,12 +587,47 @@ def test_emulated_kmeanspp_matches_plain(kmeanspp_launch, name, n, d, k, distinc
         x = torch.from_numpy(pts[rng.permutation(np.repeat(np.arange(distinct), n // distinct))])
     else:
         x = torch.from_numpy(rng.randn(n, d).astype(np.float32))
+    plan = (ctypes.c_int * 6)()
+    assert emulated.sylber_kmeanspp_scratch(n, d, min_rows, max_threads, capacity, plan) > 0
+    grid, rows_per_block, resident = plan[0], plan[1], plan[2]
+    if name == "draw-in-last-block":
+        x[(grid - 1) * rows_per_block:] *= 20
     u = port_kmeans.seeding_uniforms(n + k, k)
-    assert port_kmeans.lib is not _build.lib and (n + 63) // 64 >= 2
-    centers, rows = kmeanspp_launch(x, u)
+    assert port_kmeans.lib is not _build.lib
+    centers, rows = kmeanspp_launch(x, u, capacity, min_rows, max_threads)
+    again_centers, again = kmeanspp_launch(x, u, capacity, min_rows, max_threads)
     want_centers, want_rows = port_kmeans.kmeanspp_plain(x, u)
     np.testing.assert_array_equal(rows.numpy(), want_rows.numpy())
     torch.testing.assert_close(centers, want_centers, rtol=0, atol=0)
+    np.testing.assert_array_equal(again.numpy(), rows.numpy())
+    torch.testing.assert_close(again_centers, centers, rtol=0, atol=0)
+    expect = {"grid-of-one": 1, "six-blocks": 6, "awkward-rows": 3, "two-blocks": 2}
+    assert grid == expect.get(name, grid)
+    assert resident == (min(capacity, rows_per_block) if capacity >= 0 else rows_per_block)
+    if name == "draw-in-last-block":
+        assert (rows[1:] >= (grid - 1) * rows_per_block).sum() >= k // 2
+    if name == "grid-of-one":
+        assert sorted(rows.tolist()) == list(range(n))
     if distinct:
         assert len({tuple(r) for r in centers.numpy().tolist()}) == distinct
 
+
+@pytest.mark.parametrize("n,d,min_rows,grid", [(150, 24, 64, 3), (384, 8, 64, 6)],
+                         ids=["3-blocks", "6-blocks"])
+def test_emulated_exchange_reaches_every_block(emulated, n, d, min_rows, grid):
+    """The exchange probe on the seeding's grid: 40 steps of every block's
+    flag words to every block end with every block's words of the last
+    step written (a block that read a word before its step would have taken
+    a stale value; one that waited for a step never written would abort the
+    stand-in); a capacity past the card's shared memory is refused."""
+    plan = (ctypes.c_int * 6)()
+    size = emulated.sylber_kmeanspp_scratch(n, d, min_rows, 64, -1, plan)
+    stride = -(-d // 4) * 4
+    assert plan[0] == grid and size == 2 * (2 * grid + stride)
+    scratch = np.zeros(size, np.uint64)
+    _check(emulated.sylber_kmeanspp_barrier_probe(scratch.ctypes.data, n, d, min_rows, 64, 40,
+                                                  None), "kmeanspp_barrier_probe")
+    last = scratch[: 2 * grid]  # step 40's parity: 0
+    assert ((last >> np.uint64(32)) == 40).all()
+    assert (scratch[size // 2: size // 2 + 2 * grid] >> np.uint64(32) == 39).all()
+    assert emulated.sylber_kmeanspp_scratch(n, d, min_rows, 64, 10 ** 6, None) == -1
