@@ -237,6 +237,25 @@ Phases, each of which fails the script when it fails:
    ``configs/sylber_resynthesis_tokens_mini.yaml`` (12,000 steps); 50 steps
    of each training run timed first, the projected wall printed; none
    prints a result.
+14. the analyses, every launch counter from 0 around each entry-point call
+   on the card (their sum: the ``analysis_launches`` of the kernels line;
+   conv0, small attention and both segmentation passes must launch in each
+   entry point's calls, flash in the 20 s parity call):
+   ``pitch_modulation_ceiling_probe`` (48 utterances) on the card and on the
+   CPU (the truth-span ceiling equal, every utterance's segments equal, the
+   encoder-segment ceiling within 1e-6); ``pitch_decodability_probe`` for
+   ``mini_ckpt.json`` and ``mini_ckpt_rich.json`` at ``--style rich --n 56``
+   on both (per-utterance and pooled r within 5e-3: the encoder runs at
+   "default", TF32 on the card), beside the recorded r (not gated);
+   ``vq_pitch_probe`` on both (the r of probes (a)-(e) within 2e-3, probe
+   (f)'s MSE at steps 100 and 600 within 5 % relative: the VQ's argmin may
+   flip); ``parity_vs_reference`` on random full-width HuBERT-base weights
+   saved as an HF state dict, against HF ``HubertModel`` on the CPU, on
+   ``speechlike.wav`` and on a 20 s synthetic utterance (999 frames, the
+   flash path): "PARITY OK" (exact segments, hidden states within 1e-3); the
+   seeding kernel at d 4,100 (n 512, k 16) and at d 60,000 (n 64, k 8, its
+   center past a block's shared memory) against its plain version as in
+   phase 8. ``--only-analyses`` runs phases 1 and 14 and prints no result.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit
 (``nvidia-smi``), and as its last line
@@ -251,6 +270,7 @@ import argparse
 import contextlib
 import io
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -5150,6 +5170,211 @@ def eval_phase(torch, counters, smi):
     return rep
 
 
+# ---------------------------------------------------------------- phase 14
+
+CEILING_TOL = 1e-6         # the encoder-segment ceiling, card vs CPU (the same segments)
+DECODABILITY_TOL = 5e-3    # r, card (TF32: precision "default") vs CPU
+VQ_PROBE_R_TOL = 2e-3      # the r of probes (a)-(e), card vs CPU
+VQ_PROBE_MSE_RTOL = 0.05   # probe (f)'s MSE, card vs CPU: the VQ's argmin may flip
+PARITY_SECONDS = 20.0      # the long parity utterance: 999 frames, the flash path
+# STATUS.md:208-212 (the JAX package's runs): (pooled r, per-utterance r) on rich audio
+RECORDED_DECODABILITY = {"mini_ckpt.json": (0.77, 0.28), "mini_ckpt_rich.json": (0.83, 0.14)}
+WIDE_SEEDING = (("d4100", 512, 4100, 16), ("past_shared_memory", 64, 60000, 8))
+
+
+def quiet(fn):
+    """``fn`` with its standard output dropped (the entry points print their
+    JSON)."""
+    def run():
+        with contextlib.redirect_stdout(io.StringIO()):
+            return fn()
+    return run
+
+
+def idle_kernels(launches, kernels=CHAIN_KERNELS):
+    return [k for k in kernels if launches.get(k, 0) == 0]
+
+
+def ceiling_agreement(counters, smi, tmp):
+    """``pitch_modulation_ceiling_probe`` at its 48 utterances on the card
+    (counted) and on the CPU."""
+    from sylber_tpu_torch import pitch_modulation_ceiling_probe as ceiling
+
+    t0 = time.perf_counter()
+    card, launches = counted_call(counters, quiet(lambda: ceiling.main(
+        ["--device", "cuda", "--out-dir", str(tmp / "ceiling_cuda")])))
+    card_s = time.perf_counter() - t0
+    cpu = quiet(lambda: ceiling.main(["--device", "cpu", "--out-dir", str(tmp / "ceiling_cpu")]))()
+    same = len(card["segments"]) == len(cpu["segments"]) and all(
+        np.array_equal(a, b) for a, b in zip(card["segments"], cpu["segments"]))
+    gap = abs(card["oracle_segment_fill"] - cpu["oracle_segment_fill"])
+    idle = idle_kernels(launches)
+    ok = (same and card["oracle_truth_segments"] == cpu["oracle_truth_segments"]
+          and gap <= CEILING_TOL and not idle)
+    rec = dict(n_eval=card["n_eval_utts"], card=_without(card, "segments"),
+               cpu=_without(cpu, "segments"), segments_equal=bool(same), fill_gap=gap,
+               launches=launches, card_s=card_s, ok=bool(ok))
+    log(f"phase 14 pitch_modulation_ceiling_probe ({rec['n_eval']} utterances): segments card "
+        f"= CPU {same}; oracle_segment_fill card {card['oracle_segment_fill']:.6f} CPU "
+        f"{cpu['oracle_segment_fill']:.6f} (gap {gap:.2g}, tol {CEILING_TOL}); "
+        f"oracle_truth_segments {card['oracle_truth_segments']:.6f} / "
+        f"{cpu['oracle_truth_segments']:.6f}; launches {launches}; card {card_s:.2f} s "
+        f"ok={rec['ok']}  [{smi}]")
+    return rec
+
+
+def _without(d, key):
+    return {k: v for k, v in d.items() if k != key}
+
+
+def decodability_agreement(counters, smi, tmp):
+    """``pitch_decodability_probe --style rich --n 56`` for both encoder
+    fixtures on the card (counted) and on the CPU."""
+    from sylber_tpu_torch import pitch_decodability_probe as dec
+
+    rows = []
+    for name, (pooled, per_utt) in RECORDED_DECODABILITY.items():
+        argv = ["--encoder", str(FIXTURES / name), "--style", "rich", "--n", "56"]
+        t0 = time.perf_counter()
+        card, launches = counted_call(counters, quiet(lambda: dec.main(
+            argv + ["--device", "cuda", "--out-dir", str(tmp / f"dec_cuda_{name}")])))
+        card_s = time.perf_counter() - t0
+        cpu = quiet(lambda: dec.main(argv + ["--device", "cpu",
+                                             "--out-dir", str(tmp / f"dec_cpu_{name}")]))()
+        gaps = {k: abs(card[k] - cpu[k]) for k in ("per_utt_mean_removed_pitch_r",
+                                                   "pooled_pitch_r")}
+        idle = idle_kernels(launches)
+        rec = dict(encoder=name, card=card, cpu=cpu, gaps=gaps, launches=launches,
+                   recorded_pooled_r=pooled, recorded_per_utt_r=per_utt, card_s=card_s,
+                   ok=bool(max(gaps.values()) <= DECODABILITY_TOL and not idle))
+        rows.append(rec)
+        log(f"phase 14 pitch_decodability_probe {name} (rich, n 56): per-utterance r card "
+            f"{card['per_utt_mean_removed_pitch_r']:.4f} CPU "
+            f"{cpu['per_utt_mean_removed_pitch_r']:.4f}, pooled r card "
+            f"{card['pooled_pitch_r']:.4f} CPU {cpu['pooled_pitch_r']:.4f} (gaps "
+            f"{max(gaps.values()):.2g}, tol {DECODABILITY_TOL}); recorded pooled {pooled} / "
+            f"per-utterance {per_utt} (not gated); launches {launches}; card {card_s:.2f} s "
+            f"ok={rec['ok']}  [{smi}]")
+    return rows
+
+
+def vq_probe_agreement(counters, smi, tmp):
+    """``vq_pitch_probe`` at its full size on the card (counted) and on the
+    CPU, from the same initial state (a generator seeded 0)."""
+    from sylber_tpu_torch import vq_pitch_probe as vqp
+
+    t0 = time.perf_counter()
+    card, launches = counted_call(counters, quiet(lambda: vqp.main(
+        ["--device", "cuda", "--out-dir", str(tmp / "vq_cuda")])))
+    card_s = time.perf_counter() - t0
+    cpu = quiet(lambda: vqp.main(["--device", "cpu", "--out-dir", str(tmp / "vq_cpu")]))()
+    r_gap = max(abs(card["probes"][p][k] - cpu["probes"][p][k])
+                for p in card["probes"] for k in ("r_train", "r_heldout"))
+    mse_gap = {s: abs(card["supervised_mse"][s] - cpu["supervised_mse"][s])
+               / cpu["supervised_mse"][s] for s in (100, 600)}
+    idle = idle_kernels(launches)
+    ok = r_gap <= VQ_PROBE_R_TOL and max(mse_gap.values()) <= VQ_PROBE_MSE_RTOL and not idle
+    rec = dict(card=card, cpu=cpu, r_gap=r_gap, mse_rel_gap=mse_gap, launches=launches,
+               card_s=card_s, ok=bool(ok))
+    probes = ", ".join(f"({p}) {card['probes'][p]['r_heldout']:.3f}/"
+                       f"{cpu['probes'][p]['r_heldout']:.3f}" for p in card["probes"])
+    log(f"phase 14 vq_pitch_probe (64 + 24 utterances, 600 steps of 4,096): held-out r card/CPU "
+        f"{probes} (largest gap {r_gap:.2g}, tol {VQ_PROBE_R_TOL}); (f) MSE at 100 / 600 card "
+        f"{card['supervised_mse'][100]:.4f} / {card['supervised_mse'][600]:.4f}, CPU "
+        f"{cpu['supervised_mse'][100]:.4f} / {cpu['supervised_mse'][600]:.4f} (relative gaps "
+        f"{mse_gap[100]:.3g} / {mse_gap[600]:.3g}, tol {VQ_PROBE_MSE_RTOL}); history only: "
+        f"the old r4 tokenizer's pre-VQ r 0.884, quantized 0.000 (STATUS.md:130-139); "
+        f"launches {launches}; card {card_s:.2f} s ok={rec['ok']}  [{smi}]")
+    return rec
+
+
+def parity_runs(torch, counters, smi, tmp):
+    """``parity_vs_reference`` on random full-width HuBERT-base weights
+    saved as an HF state dict (``torch.manual_seed(0)``), the port on the
+    card (counted) against HF on the CPU, on ``speechlike.wav`` and on a
+    20 s synthetic utterance (``data/synthetic.py``, 16-bit WAV)."""
+    from scipy.io import wavfile
+
+    from sylber_tpu_torch import parity_vs_reference as pvr
+    from sylber_tpu_torch.data.synthetic import synth_utterance
+
+    try:
+        os.environ.setdefault("USE_TF", "0")
+        from transformers import HubertConfig as HFConfig
+        from transformers import HubertModel as HFModel
+    except ImportError as e:
+        raise AssertionError(f"phase 14: the parity check's reference side needs transformers, "
+                             f"which does not import here ({e})") from e
+    torch.manual_seed(0)
+    ckpt = tmp / "hubert_base_random.pt"
+    torch.save(HFModel(HFConfig(num_hidden_layers=9)).state_dict(), ckpt)
+    wav, _ = synth_utterance(np.random.RandomState(20), int(PARITY_SECONDS * 16000))
+    long_wav = tmp / "synthetic_20s.wav"
+    wavfile.write(long_wav, 16000, np.round(wav / np.abs(wav).max() * 30000).astype(np.int16))
+    rows = []
+    for name, path, flash in (("speechlike", FIXTURES / "speechlike.wav", False),
+                              ("synthetic_20s", long_wav, True)):
+        out = tmp / f"parity_{name}"
+        t0 = time.perf_counter()
+        code, launches = counted_call(counters, quiet(lambda: pvr.main(
+            ["--ckpt", str(ckpt), "--wav", str(path), "--device", "cuda",
+             "--out-dir", str(out)])))
+        rep = json.loads((out / "parity_vs_reference.json").read_text())
+        attention = "flash_attention" if flash else "small_attention"
+        idle = idle_kernels(launches, ("conv0_gn_gelu", attention, "segment_pass1",
+                                       "segment_pass2"))
+        rec = dict(name=name, exit_code=code, report=rep, launches=launches,
+                   wall_s=time.perf_counter() - t0, ok=bool(code == 0 and rep["ok"] and not idle))
+        rows.append(rec)
+        verdict = "PARITY OK" if code == 0 else "PARITY MISMATCH"
+        log(f"phase 14 parity_vs_reference {name} ({rep['frames']} frames, {rep['segments']} "
+            f"segments) vs HF HubertModel on the CPU: {verdict}, segments exact "
+            f"{rep['segments_exact']}, boundary F1 "
+            f"{rep['boundary_f1_tol0']:.4f}, hidden states max |delta| "
+            f"{rep['hidden_states_max_abs_delta']:.3g} (tol {rep['tol']}), segment features "
+            f"{rep['segment_features_max_abs_delta']:.3g}; launches {launches}; "
+            f"{rec['wall_s']:.2f} s ok={rec['ok']}  [{smi}]")
+    return rows
+
+
+def analyses_phase(torch, counters, smi):
+    """Phase 14: the analyses' entry points (each call on the card with every
+    counter set to 0 just before it and read just after; ``launches``,
+    their sum, is the ``analysis_launches`` of the kernels line), then the
+    seeding kernel at the widths it used to refuse."""
+    from sylber_tpu_torch.flow import kmeans as km
+    from sylber_tpu_torch.models.hubert import matmul_precision
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_analyses_") as tmp:
+        tmp = Path(tmp)
+        ceiling = ceiling_agreement(counters, smi, tmp)
+        decodability = decodability_agreement(counters, smi, tmp)
+        vq = vq_probe_agreement(counters, smi, tmp)
+        parity = parity_runs(torch, counters, smi, tmp)
+    launches = {}
+    for r in [ceiling, vq] + decodability + parity:
+        add_launches(launches, r["launches"])
+    with matmul_precision("highest"):
+        seeding = []
+        for name, n, d, k in WIDE_SEEDING:
+            seeding.append(kmeanspp_record(torch, km, name, mixture(torch, n, d, seed=n + d), k,
+                                           seed=k))
+            log_seeding("phase 14", seeding[-1], smi)
+    rep = dict(ceiling=ceiling, decodability=decodability, vq_pitch_probe=vq, parity=parity,
+               wide_seeding=seeding, launches=launches, seconds=time.perf_counter() - t0)
+    log(f"phase 14: launches over the analyses' entry-point calls {launches}; took "
+        f"{rep['seconds']:.1f} s  [{smi}]")
+    bad = ([n for n, r in (("pitch_modulation_ceiling_probe", ceiling),
+                           ("vq_pitch_probe", vq)) if not r["ok"]]
+           + [f"pitch_decodability_probe {r['encoder']}" for r in decodability if not r["ok"]]
+           + [f"parity_vs_reference {r['name']}" for r in parity if not r["ok"]]
+           + [f"kmeanspp {r['name']}" for r in seeding if not r["ok"]])
+    if bad:
+        raise AssertionError(f"phase 14 failed: {bad}")
+    return rep
+
+
 # ---------------------------------------------------------------- the reproductions
 
 def table_gaps(got, want):
@@ -5474,6 +5699,10 @@ def main() -> int:
     ap.add_argument("--only-evals", action="store_true",
                     help="build the kernels and run phase 13 alone (the evaluation entry "
                          "points); prints no result line")
+    ap.add_argument("--only-analyses", action="store_true",
+                    help="build the kernels and run phase 14 alone (the pitch analyses, the "
+                         "parity check, the seeding at its repaired widths); prints no result "
+                         "line")
     ap.add_argument("--reproduce-tokens", action="store_true",
                     help="build the kernels, then the token chains (v1 and rich, recorded "
                          "codebooks and refit), the pitch chain and the production codebooks "
@@ -5583,6 +5812,13 @@ def main() -> int:
         if args.out:
             Path(args.out).parent.mkdir(parents=True, exist_ok=True)
             Path(args.out).write_text(json.dumps(dict(card=smi, evals=p13), indent=1,
+                                                 default=str))
+        return 0
+    if args.only_analyses:
+        p14 = analyses_phase(torch, counters, smi)
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(dict(card=smi, analyses=p14), indent=1,
                                                  default=str))
         return 0
     if (args.reproduce_tokens or args.reproduce_vocoder or args.reproduce_vq
@@ -5717,6 +5953,8 @@ def main() -> int:
 
     evals = eval_phase(torch, counters, smi)
 
+    analyses = analyses_phase(torch, counters, smi)
+
     sources = {"conv0_gn_gelu": ("frontend.cu", "sylber_tpu/ops/pallas/frontend.py:122"),
                "small_attention": ("smallattn.cu", "sylber_tpu/ops/pallas/smallattn.py:78"),
                "flash_attention": ("flash.cu", "sylber_tpu/ops/pallas/flash.py:125"),
@@ -5833,6 +6071,12 @@ def main() -> int:
     gate["bf16_regressor_launches"] = dispatch["bf16_regressor"]["runs"][
         "bfloat16_gateloop"]["launches"]["gate_loop_operator"]
     gate["bf16_regressor_call"] = evals["gateloop_bf16"]
+    # phase 14: every kernel's launches over the analyses' entry points, the
+    # seeding at the widths it used to refuse
+    for entry in line:
+        entry["analysis_launches"] = analyses["launches"].get(entry["name"], 0)
+    entries["kmeanspp"]["wide_shapes"] = [{k: r[k] for k in shape_keys}
+                                          for r in analyses["wide_seeding"]]
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         build_log = kernels.BUILD_DIR / "build.log"  # registers, shared memory, spills
@@ -5849,7 +6093,8 @@ def main() -> int:
                                                   resynthesis=resynthesis,
                                                   synthesis_training=synthesis_training,
                                                   int8=int8, corpus=corpus, mesh=mesh,
-                                                  dispatch=dispatch, evals=evals),
+                                                  dispatch=dispatch, evals=evals,
+                                                  analyses=analyses),
                                              indent=1, default=str))
     log(json.dumps({"kernels": line}))
     log(smi)

@@ -31,8 +31,9 @@
 //     loaded once; the rest stream from device memory every step (L2 hits
 //     where the spill fits the 50 MB L2). The slice's d2 stays in shared
 //     memory.
-//   - A step: the update (the newest center in shared memory) and the
-//     slice's float64 weight sum; exchange 1, every block's sum to every
+//   - A step: the update (the newest center in shared memory, or, where it
+//     does not fit, read from exchange 2's words: see the widths below) and
+//     the slice's float64 weight sum; exchange 1, every block's sum to every
 //     block; every block makes the same fixed-order prefix of the G sums in
 //     one warp and finds the owning block of u[j] * total; the owner scans
 //     its slice's weights in shared memory to the first row whose prefix
@@ -51,6 +52,18 @@
 //     float64 rounding of a prefix. Where the rounding leaves the target at
 //     or past a prefix's end, the last block, or the owner's last row, is
 //     taken, as searchsorted's clamp does.
+//   - Widths: a block's fixed part of shared memory is its scratch, the
+//     words of exchange 1, the slice's prefix and d2 and, where it fits
+//     beside them, the newest center (4 d bytes: up to about 57,000 floats
+//     in 227 KB). Past that the update reads center j - 1 from exchange 2's
+//     flag words, each with flag_load, through L2 (the copy in `centers` is
+//     written after the flag words with no fence between, so a reader may
+//     not see it yet); center 0 from its row of x. No row of such a width is
+//     resident either (a row takes as much as the center).
+// Limits: d up to MAX_WIDTH (2^29: the scratch counts its words in int),
+// and as many rows as a block's prefix and d2 (12 bytes a row) hold in
+// shared memory on a grid of one block an SM: about 2.5 million rows on the
+// H100 (flow/kmeans.py::seeding_refusal says so before a launch).
 // Bounds on the H100 (chip_smoke.py::kmeanspp_bounds): bytes, the part of x
 // that does not fit the grid's shared memory read once a step at 3.35 TB/s
 // (x once where all of it fits: 132 x 227 KB, about 29 MB); and the chain,
@@ -63,7 +76,7 @@ namespace kmpp {
 
 constexpr int MAX_THREADS = 1024;
 constexpr int MAX_WARPS = MAX_THREADS / 32;
-constexpr int MAX_DIM = 4096;
+constexpr int MAX_WIDTH = 1 << 29;
 constexpr float MIN_WEIGHT = 1e-30f;
 constexpr int NONE = 0x7fffffff;  // no row found yet
 
@@ -76,15 +89,17 @@ __host__ __device__ __forceinline__ int row_stride(int d) { return (d + 3) / 4 *
 
 // The dynamic shared memory of a block: the block's scratch (two sets of
 // warp partials, the step's target, base, row and owner), the words of
-// exchange 1, the slice's prefix of weights, the center, the slice's d2,
-// then the resident rows. Byte offsets, each a multiple of 16.
+// exchange 1, the slice's prefix of weights, the center (where
+// `shared_center`), the slice's d2, then the resident rows. Byte offsets,
+// each a multiple of 16.
 struct Layout {
   int words, prefix, center, d2, rows, bytes;
-  __host__ __device__ Layout(int d, int grid, int rows_per_block, int resident) {
+  __host__ __device__ Layout(int d, int grid, int rows_per_block, int resident,
+                             bool shared_center) {
     words = 16 * MAX_WARPS + 32;
     prefix = words + 4 * row_stride(2 * grid);
     center = prefix + 8 * row_stride(rows_per_block);
-    d2 = center + 4 * row_stride(d);
+    d2 = center + (shared_center ? 4 * row_stride(d) : 0);
     rows = d2 + 4 * row_stride(rows_per_block);
     bytes = rows + 4 * row_stride(d) * resident;
   }
@@ -152,19 +167,49 @@ __device__ __forceinline__ float row_distance(const float* row, bool in_shared, 
   return acc;
 }
 
+// row_distance with the center read from exchange 2's flag words of `step`
+// (`cw`, a word a float), for a row in device memory: the same sums in the
+// same order.
+__device__ __forceinline__ float row_distance_words(const float* row,
+                                                    const unsigned long long* cw, unsigned step,
+                                                    int d, int lanes, int glane, bool live) {
+  float acc = 0.f;
+  if (live) {
+    if (d % 4 == 0) {
+      const float4* xr = reinterpret_cast<const float4*>(row);
+      for (int q = glane; q < d / 4; q += lanes) {
+        const float4 a = __ldg(xr + q);
+        const unsigned long long* w = cw + 4 * q;
+        const float e0 = a.x - __uint_as_float(flag_load(w, step)),
+                    e1 = a.y - __uint_as_float(flag_load(w + 1, step)),
+                    e2 = a.z - __uint_as_float(flag_load(w + 2, step)),
+                    e3 = a.w - __uint_as_float(flag_load(w + 3, step));
+        acc += e0 * e0 + e1 * e1 + e2 * e2 + e3 * e3;
+      }
+    } else {
+      for (int e = glane; e < d; e += lanes) {
+        const float v = __ldg(row + e) - __uint_as_float(flag_load(cw + e, step));
+        acc += v * v;
+      }
+    }
+  }
+  for (int o = lanes / 2; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  return acc;
+}
+
 __global__ void __launch_bounds__(MAX_THREADS, 1)
     kmeanspp_seed(const float* __restrict__ x, const double* __restrict__ u,
                   unsigned long long* scratch, int* chosen, float* centers, int n, int d, int k,
-                  int rows, int resident, int lanes) {
+                  int rows, int resident, int lanes, int shared_center) {
   extern __shared__ __align__(16) unsigned char seed_smem[];
-  const Layout lay(d, gridDim.x, rows, resident);
+  const Layout lay(d, gridDim.x, rows, resident, shared_center);
   double* part = reinterpret_cast<double*>(seed_smem);  // MAX_WARPS warp partials
   double* scan = part + MAX_WARPS;                      // and again, for the prefix
   double* info = scan + MAX_WARPS;                      // target, base
   int* found = reinterpret_cast<int*>(info + 2);        // row, owner
   unsigned* words = reinterpret_cast<unsigned*>(seed_smem + lay.words);
   double* prefix = reinterpret_cast<double*>(seed_smem + lay.prefix);
-  float* c = reinterpret_cast<float*>(seed_smem + lay.center);
+  float* c = reinterpret_cast<float*>(seed_smem + lay.center);  // where shared_center
   float* d2 = reinterpret_cast<float*>(seed_smem + lay.d2);
   float* xs = reinterpret_cast<float*>(seed_smem + lay.rows);
   const int threads = blockDim.x, warps = threads / 32;
@@ -177,7 +222,8 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
     xs[i] = e < d ? x[(size_t)(r0 + r) * d + e] : 0.f;
   }
   const int first = min((int)floor(u[0] * (double)n), n - 1);
-  for (int e = t; e < stride; e += threads) c[e] = e < d ? x[(size_t)first * d + e] : 0.f;
+  if (shared_center)
+    for (int e = t; e < stride; e += threads) c[e] = e < d ? x[(size_t)first * d + e] : 0.f;
   if (b == 0) {
     for (int e = t; e < d; e += threads) centers[e] = x[(size_t)first * d + e];
     if (t == 0) chosen[0] = first;
@@ -190,13 +236,20 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
   for (int j = 1; j < k; ++j) {
     unsigned long long* sums = scratch + (j & 1) * parity_words(G, d);
     unsigned long long* center = sums + 2 * G;
-    // the update: d2 of the slice against center j - 1, the slice's weight
+    // the update: d2 of the slice against center j - 1, the slice's weight;
+    // without a shared center, center 0 from x and center j - 1 from the
+    // words exchange 2 wrote at step j - 1 (the other parity's, not written
+    // again before every block has sent step j + 1's sum)
+    const float* cx = shared_center ? c : x + (size_t)first * d;
+    const unsigned long long* prev =
+        shared_center || j == 1 ? nullptr : scratch + ((j - 1) & 1) * parity_words(G, d) + 2 * G;
     double wsum = 0.0;
     for (int i0 = 0; i0 < nr; i0 += groups) {
       const int i = i0 + group;
       const bool live = i < nr, in_shared = i < nres;
       const float* row = in_shared ? xs + (size_t)i * stride : x + (size_t)(r0 + i) * d;
-      const float acc = row_distance(row, in_shared, c, d, lanes, glane, live);
+      const float acc = prev ? row_distance_words(row, prev, j - 1, d, lanes, glane, live)
+                             : row_distance(row, in_shared, cx, d, lanes, glane, live);
       if (live && glane == 0) {
         const float nd = j == 1 ? acc : fminf(d2[i], acc);
         d2[i] = nd;
@@ -274,11 +327,11 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
       for (int e = t; e < stride; e += threads) {
         const float v = e < d ? src[e] : 0.f;
         flag_store(center + e, __float_as_uint(v), j);  // exchange 2
-        c[e] = v;
+        if (shared_center) c[e] = v;
         if (e < d) centers[(size_t)j * d + e] = v;
       }
       if (t == 0) chosen[j] = r0 + i;
-    } else {
+    } else if (shared_center) {
       for (int e = t; e < stride; e += threads) c[e] = __uint_as_float(flag_load(center + e, j));
     }
     __syncthreads();
@@ -301,11 +354,11 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
 
 // The launch's shape for n rows of width d.
 struct Plan {
-  int grid, rows, resident, lanes, smem, threads;
+  int grid, rows, resident, lanes, smem, threads, shared_center;
 };
 
 cudaError_t make_plan(int n, int d, int min_rows, int max_threads, int capacity, Plan* p) {
-  if (n < 1 || d < 1 || d > MAX_DIM || min_rows < 1 || max_threads < 32 ||
+  if (n < 1 || d < 1 || d > MAX_WIDTH || min_rows < 1 || max_threads < 32 ||
       max_threads > MAX_THREADS || max_threads % 32)
     return cudaErrorInvalidValue;
   int device = 0, sms = 0, optin = 0;
@@ -323,19 +376,24 @@ cudaError_t make_plan(int n, int d, int min_rows, int max_threads, int capacity,
   const int d4 = row_stride(d) / 4;
   p->lanes = d4 >= 8 ? 8 : d4 >= 4 ? 4 : d4 >= 2 ? 2 : 1;
   while (p->lanes < 32 && d4 >= 8 * p->lanes) p->lanes *= 2;
-  const int row_bytes = 4 * row_stride(d), by_n = ceil_div(n, min_rows);
+  const long long row_bytes = 4LL * row_stride(d);
+  const int by_n = ceil_div(n, min_rows);
   int grid = min(sms, by_n);
   for (int pass = 0; pass < 2; ++pass) {
     p->rows = ceil_div(n, grid);
     p->grid = ceil_div(n, p->rows);  // no block without rows
     // a thread a lane of a row, in whole warps, up to max_threads
     p->threads = min(max_threads, ceil_div(p->rows * p->lanes, 32) * 32);
-    const int fixed = Layout(d, p->grid, p->rows, 0).bytes;
-    if (fixed > optin) return cudaErrorInvalidValue;
-    const int most = (optin - fixed) / row_bytes;
+    // the fixed part: the slice's prefix and d2 must fit, the center where
+    // it fits beside them
+    const int bare = Layout(d, p->grid, p->rows, 0, false).bytes;
+    if (bare > optin) return cudaErrorInvalidValue;
+    p->shared_center = bare + row_bytes <= optin;
+    const int fixed = Layout(d, p->grid, p->rows, 0, p->shared_center).bytes;
+    const int most = (int)((optin - fixed) / row_bytes);
     if (capacity > most) return cudaErrorInvalidValue;
     p->resident = min(p->rows, capacity < 0 ? most : capacity);
-    p->smem = fixed + p->resident * row_bytes;
+    p->smem = fixed + (int)(p->resident * row_bytes);
     int per_sm = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kmeanspp_seed, p->threads,
                                                         (size_t)p->smem);
@@ -359,15 +417,16 @@ using namespace sylber::kmpp;
 // (a multiple of 32 up to 1,024); `capacity`: the resident rows a block, -1
 // for as many as the card's shared memory holds. `plan`, where not null,
 // receives the grid, the rows a block, the resident rows a block, the lanes
-// a row, the dynamic shared memory and the threads a block.
+// a row, the dynamic shared memory, the threads a block and whether the
+// center is in shared memory (1) or read from exchange 2's words (0).
 extern "C" int sylber_kmeanspp_scratch(int n, int d, int min_rows, int max_threads, int capacity,
                                        int* plan) {
   Plan p;
   const cudaError_t err = make_plan(n, d, min_rows, max_threads, capacity, &p);
   if (err != cudaSuccess) return -(int)err;
   if (plan) {
-    const int fields[] = {p.grid, p.rows, p.resident, p.lanes, p.smem, p.threads};
-    for (int i = 0; i < 6; ++i) plan[i] = fields[i];
+    const int fields[] = {p.grid, p.rows, p.resident, p.lanes, p.smem, p.threads, p.shared_center};
+    for (int i = 0; i < 7; ++i) plan[i] = fields[i];
   }
   return 2 * parity_words(p.grid, d);
 }
@@ -384,7 +443,7 @@ extern "C" int sylber_kmeanspp(const float* x, const double* u, unsigned long lo
   if (k < 1) return (int)cudaErrorInvalidValue;
   void* args[] = {(void*)&x, (void*)&u, (void*)&scratch, (void*)&chosen, (void*)&centers,
                   (void*)&n, (void*)&d, (void*)&k, (void*)&p.rows, (void*)&p.resident,
-                  (void*)&p.lanes};
+                  (void*)&p.lanes, (void*)&p.shared_center};
   err = cudaLaunchCooperativeKernel((const void*)kmeanspp_seed, dim3(p.grid), dim3(p.threads),
                                     args, (size_t)p.smem, stream);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());

@@ -15,17 +15,20 @@ subsample chose, drawn by distance from that subsample.
 - The seeding, :func:`kmeanspp`, is the hand-written kernel of
   ``csrc/kmeanspp.cu`` on a CUDA tensor (one persistent cooperative launch a
   seeding; its header says what bounds it and how the design answers that)
-  and :func:`kmeanspp_plain` on a CPU tensor:
-  the same inverse-CDF draws from k float64 uniforms (a ``torch.Generator``
-  seeded with ``seed``, where JAX draws a Gumbel-max categorical from a
-  ``PRNGKey``), one step at a time with ``torch.cumsum`` and
-  ``searchsorted``.
+  and :func:`kmeanspp_plain` on a CPU tensor. The kernel takes any width up
+  to ``MAX_WIDTH`` (past about 57,000 floats its center is read through L2
+  instead of shared memory) and about 2.5 million rows on an H100; it
+  raises a ``ValueError`` before the launch for a shape past that
+  (:func:`seeding_refusal`). Both make the same inverse-CDF draws from k
+  float64 uniforms (a ``torch.Generator`` seeded with ``seed``, where JAX
+  draws a Gumbel-max categorical from a ``PRNGKey``), the plain version one
+  step at a time with ``torch.cumsum`` and ``searchsorted``.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -40,6 +43,7 @@ MIN_WEIGHT = 1e-30  # the floor of a squared distance as a draw's weight (JAX's)
 # threads
 MIN_ROWS_PER_BLOCK = 64
 MAX_THREADS = 1024
+MAX_WIDTH = 1 << 29  # csrc/kmeanspp.cu: the scratch counts its words in int
 
 
 def kmeanspp_plain(x: torch.Tensor, u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -65,10 +69,35 @@ def kmeanspp_plain(x: torch.Tensor, u: torch.Tensor) -> Tuple[torch.Tensor, torc
     return x.index_select(0, rows), rows
 
 
+def _row_stride(d: int) -> int:
+    return (d + 3) // 4 * 4
+
+
+def seeding_refusal(n: int, d: int, sms: int, optin_bytes: int,
+                    min_rows: int = MIN_ROWS_PER_BLOCK) -> Optional[str]:
+    """Why the seeding kernel cannot take ``n`` rows of width ``d`` on a card
+    of ``sms`` SMs with ``optin_bytes`` of shared memory a block, or None:
+    the width past ``MAX_WIDTH``, or a block's fixed part of shared memory
+    (``csrc/kmeanspp.cu``'s ``Layout`` without the center: its scratch, the
+    words of exchange 1, the slice's float64 prefix and float32 d2) past
+    ``optin_bytes`` on the first grid the plan tries."""
+    if d > MAX_WIDTH:
+        return f"a width of {d} is past the kernel's {MAX_WIDTH}"
+    grid = min(sms, -(-n // min_rows))
+    rows = -(-n // grid)
+    grid = -(-n // rows)
+    fixed = 16 * 32 + 32 + 4 * _row_stride(2 * grid) + 12 * _row_stride(rows)
+    if fixed > optin_bytes:
+        return (f"{n} rows take {rows} a block on {grid} blocks, whose weights need {fixed} "
+                f"bytes of shared memory a block, past the card's {optin_bytes}")
+    return None
+
+
 def kmeanspp(x: torch.Tensor, u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`kmeanspp_plain`'s function: the kernel on a CUDA tensor (one
     cooperative launch, nothing read back), the plain version on a CPU
-    tensor."""
+    tensor. Raises a ``ValueError`` before the launch for a shape the
+    kernel cannot take (:func:`seeding_refusal`)."""
     if x.device.type == "cpu":
         return kmeanspp_plain(x, u)
     if x.ndim != 2 or x.dtype != torch.float32:
@@ -80,11 +109,16 @@ def kmeanspp(x: torch.Tensor, u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tens
         x = x.clone()
     u = u.to(x.device, torch.float64).contiguous()
     require_cuda("kmeanspp", x, u)
+    props = torch.cuda.get_device_properties(x.device)
+    why = seeding_refusal(x.shape[0], x.shape[1], props.multi_processor_count,
+                          props.shared_memory_per_block_optin)
+    if why:
+        raise ValueError(f"kmeanspp: the seeding kernel refuses x {tuple(x.shape)}: {why}")
     return _launch(x, u)
 
 
 _PLAN_KEYS = ("grid", "rows_per_block", "resident_rows_per_block", "lanes_per_row", "smem_bytes",
-              "threads")
+              "threads", "shared_center")
 
 
 def _plan(kl, n: int, d: int, min_rows: int, max_threads: int,

@@ -587,7 +587,7 @@ def test_emulated_kmeanspp_matches_plain(kmeanspp_launch, emulated, name, n, d, 
         x = torch.from_numpy(pts[rng.permutation(np.repeat(np.arange(distinct), n // distinct))])
     else:
         x = torch.from_numpy(rng.randn(n, d).astype(np.float32))
-    plan = (ctypes.c_int * 6)()
+    plan = (ctypes.c_int * len(port_kmeans._PLAN_KEYS))()
     assert emulated.sylber_kmeanspp_scratch(n, d, min_rows, max_threads, capacity, plan) > 0
     grid, rows_per_block, resident = plan[0], plan[1], plan[2]
     if name == "draw-in-last-block":
@@ -620,7 +620,7 @@ def test_emulated_exchange_reaches_every_block(emulated, n, d, min_rows, grid):
     step written (a block that read a word before its step would have taken
     a stale value; one that waited for a step never written would abort the
     stand-in); a capacity past the card's shared memory is refused."""
-    plan = (ctypes.c_int * 6)()
+    plan = (ctypes.c_int * len(port_kmeans._PLAN_KEYS))()
     size = emulated.sylber_kmeanspp_scratch(n, d, min_rows, 64, -1, plan)
     stride = -(-d // 4) * 4
     assert plan[0] == grid and size == 2 * (2 * grid + stride)

@@ -6,7 +6,9 @@ checks ``sys.modules``; then, with no GPU, the entry
 points (the resynthesis chain's and its trainers', ``fit_kmeans`` and
 ``Sylber`` included, the corpus path's runners and ``mini_proof``, and the
 evaluation entry points: ``vocoder_proof``, ``token_chain_proof``,
-``pitch_chain_proof``, ``production_codebooks``, ``fit_quantizer``, ``demo``)
+``pitch_chain_proof``, ``production_codebooks``, ``fit_quantizer``, ``demo``,
+and the analyses: ``pitch_modulation_ceiling_probe``,
+``pitch_decodability_probe``, ``vq_pitch_probe``, ``parity_vs_reference``)
 refuse to run unless the caller asks for the CPU.
 """
 
@@ -51,6 +53,8 @@ from sylber_tpu_torch.vocoder import VocoderTrainConfig, make_vocoder_train_step
 from sylber_tpu_torch import mini_proof, precompute_segments, segment_corpus
 from sylber_tpu_torch import (demo, fit_quantizer, pitch_chain_proof, production_codebooks,
                               token_chain_proof, vocoder_proof)
+from sylber_tpu_torch import (parity_vs_reference, pitch_decodability_probe,
+                              pitch_modulation_ceiling_probe, vq_pitch_probe)
 for make in (lambda: LongFormSegmenter(Segmenter()), lambda: KMQuantizer([[0.0, 1.0]]),
              lambda: train({"data": {"synthetic": True}}, out_dir="/nonexistent"),
              lambda: train_cli(["--config", "/nonexistent.yaml"]),
@@ -73,7 +77,12 @@ for make in (lambda: LongFormSegmenter(Segmenter()), lambda: KMQuantizer([[0.0, 
              lambda: production_codebooks.main(["--out-dir", "/nonexistent"]),
              lambda: fit_quantizer.main(["--manifest", "/nonexistent", "--wav-dir", "/x",
                                          "--out", "/nonexistent/c.npy"]),
-             lambda: demo.main(["--wav", "/nonexistent.wav", "--out-dir", "/nonexistent"])):
+             lambda: demo.main(["--wav", "/nonexistent.wav", "--out-dir", "/nonexistent"]),
+             lambda: pitch_modulation_ceiling_probe.main(["--out-dir", "/nonexistent"]),
+             lambda: pitch_decodability_probe.main(["--out-dir", "/nonexistent"]),
+             lambda: vq_pitch_probe.main(["--out-dir", "/nonexistent"]),
+             lambda: parity_vs_reference.main(["--ckpt", "/nonexistent.pt",
+                                               "--out-dir", "/nonexistent"])):
     try:
         make()
     except RuntimeError as e:
@@ -97,5 +106,5 @@ def test_port_imports_no_jax_and_needs_a_gpu_or_cpu_choice():
     # vq_tokenizer, and its trainers, flow/kmeans and models/sylber included,
     # and the corpus path's utils/native, utils/sndfile, ops/segment_np,
     # segment_corpus, precompute_segments and mini_proof, the mesh's
-    # parallel/, and the six evaluation entry points)
-    assert int(count.split()[0]) >= 70, count
+    # parallel/, the six evaluation entry points and the four analyses)
+    assert int(count.split()[0]) >= 74, count

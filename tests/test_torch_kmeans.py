@@ -11,6 +11,10 @@ against ``sylber_tpu/flow/kmeans.py`` on the CPU, fp32.
   (both must take every distinct point once); its second draw over 3,000
   seeds follows d^2 / sum d^2 (chi-square, p above 1e-3); center 0 is
   uniform over the rows.
+- The kernel's wrapper raises a ``ValueError`` before the launch, naming
+  the limit, for a shape the kernel cannot take (past ``MAX_WIDTH``, or
+  more rows than a block's weights hold in shared memory), and takes the
+  widths JAX takes below that.
 """
 
 import jax
@@ -107,3 +111,28 @@ def test_seeding_draws_by_squared_distance():
     p_second = stats.chisquare(second, expected).pvalue
     p_first = stats.chisquare(first, np.full(n, seeds / n)).pvalue
     assert p_second > 1e-3 and p_first > 1e-3, (p_second, p_first)
+
+
+@pytest.mark.parametrize("n,d,match", [
+    (4, tkm.MAX_WIDTH + 1, "a width of 536870913 is past the kernel's 536870912"),
+    (132 * 19236 + 1, 8, "19237 a block on 132 blocks, whose weights need 232480 bytes"),
+], ids=["width", "rows"])
+def test_wrapper_refuses_before_the_launch(monkeypatch, n, d, match):
+    """``kmeanspp`` on a device tensor (a ``meta`` tensor stands in for the
+    card's: no memory, no kernel) with an H100's 132 SMs and 232,448 bytes
+    of shared memory a block: a ``ValueError`` that says why, raised before
+    the library is loaded; the widths of the card's checks pass."""
+    import types
+
+    def no_launch():
+        raise AssertionError("the kernel was reached")
+
+    monkeypatch.setattr(tkm, "require_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(tkm, "lib", no_launch)
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda dev: types.SimpleNamespace(
+        multi_processor_count=132, shared_memory_per_block_optin=232448))
+    x = torch.empty(n, d, device="meta")
+    with pytest.raises(ValueError, match="kmeanspp: the seeding kernel refuses x .*" + match):
+        tkm.kmeanspp(x, torch.rand(4, dtype=torch.float64))
+    for shape in ((512, 4100), (64, 60000), (65536, 768), (132 * 19236, 8)):
+        assert tkm.seeding_refusal(*shape, 132, 232448) is None
