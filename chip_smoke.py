@@ -256,6 +256,21 @@ Phases, each of which fails the script when it fails:
    seeding kernel at d 4,100 (n 512, k 16) and at d 60,000 (n 64, k 8, its
    center past a block's shared memory) against its plain version as in
    phase 8. ``--only-analyses`` runs phases 1 and 14 and prints no result.
+15. the JAX trainer's Orbax checkpoints, read with no JAX (``io/zstd.py``'s
+   hand-written zstd decoder, ``io/ocdbt.py``, ``io/orbax.py``), on the
+   fixtures under ``tests/fixtures/orbax``: the decoder's MB/s of
+   decompressed output on the host over ``mini_ckpt_params``' chunks; the
+   mini ``Segmenter`` from ``mini_ckpt_params`` against the one from
+   ``mini_ckpt.npz`` on 8 x 5 s (segments, features and hidden states
+   bit-equal; conv0, small attention and both passes must launch);
+   ``SegmentSynthesis`` from ``mini_ckpt_params`` + ``mini_synth_params``
+   against the ``.npz`` fixtures, one midpoint resynthesis of 2 x 3 s (art
+   and segments bit-equal); the port's trainer resumed from the JAX
+   trainer's step 2 (``tiny_train_ckpts``): parameters, EMA, AdamW moments
+   and step counts bit-equal to the fixture's arrays, then 3 steps with
+   finite losses. Each card call counted from 0; their sum is the
+   ``orbax_launches`` of the kernels line. ``--only-orbax`` runs phases 1
+   and 15 and prints no result.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit
 (``nvidia-smi``), and as its last line
@@ -5375,6 +5390,176 @@ def analyses_phase(torch, counters, smi):
     return rep
 
 
+def zstd_rate(store_dir):
+    """The zstd decoder's MB/s of decompressed output on the host over every
+    zarr chunk of the Orbax store ``store_dir`` (file reads apart), and the
+    seconds of ``read_tree`` over the whole directory."""
+    from sylber_tpu_torch.io.ocdbt import OcdbtStore
+    from sylber_tpu_torch.io.orbax import read_tree
+    from sylber_tpu_torch.io.zstd import decompress
+
+    store = OcdbtStore(store_dir)
+    frames = [store.read(k) for k in store.list() if not k.endswith(".zarray")]
+    decompress(frames[0])  # the library built and loaded
+    t0 = time.perf_counter()
+    out = sum(len(decompress(f)) for f in frames)
+    dt = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    read_tree(store_dir)
+    return dict(chunks=len(frames), compressed_bytes=sum(map(len, frames)), bytes=out,
+                seconds=dt, mb_per_s=out / 1e6 / dt, read_tree_s=time.perf_counter() - t0)
+
+
+def orbax_segmenter(torch, counters, Segmenter, HubertConfig):
+    """The mini Segmenter from the Orbax copy of ``mini_ckpt.npz`` against
+    the same model from the ``.npz``, both on the card, fp32 "highest", on 8
+    utterances of 5 s: segments, features and hidden states bit-equal (the
+    same weight bits). Launches of the Orbax model's call, counted from 0."""
+    meta = json.loads((FIXTURES / "mini_ckpt.json").read_text())
+    hub = {k: tuple(v) if isinstance(v, list) else v for k, v in meta["hubert"].items()}
+    kw = dict(hubert_config=HubertConfig(num_hidden_layers=meta["encoding_layer"],
+                                         precision="highest", **hub),
+              norm_threshold=meta["norm_threshold"], merge_threshold=meta["merge_threshold"],
+              device="cuda")
+    rng = np.random.RandomState(15)
+    wavs = [speechlike(rng, 5 * 16000) for _ in range(8)]
+    orbax = Segmenter(model_ckpt=str(FIXTURES / "orbax" / "mini_ckpt_params"), **kw)
+    npz = Segmenter(model_ckpt=str(FIXTURES / "mini_ckpt.npz"), **kw)
+    got, launches = counted_call(counters, lambda: orbax.process(wavs, in_second=False))
+    want = npz.process(wavs, in_second=False)
+    diffs = [key for g, w in zip(got, want) for key in ("segments", "segment_features",
+                                                        "hidden_states")
+             if not np.array_equal(g[key], w[key])]
+    nseg = [len(g["segments"]) for g in got]
+    rec = dict(utterances=len(wavs), seconds=5.0, segments=nseg, bit_equal=not diffs,
+               differing=sorted(set(diffs)), launches=launches,
+               ok=not diffs and min(nseg) > 0 and all(launches[c.__name__] > 0 for c in (
+                   counters[0], counters[1], counters[3], counters[4])))
+    log(f"phase 15: Segmenter from the Orbax fixture vs mini_ckpt.npz on the card, 8 x 5 s: "
+        f"segments, features and hidden states bit-equal {not diffs} {nseg}; launches "
+        f"{launches} ok={rec['ok']}")
+    return rec
+
+
+def orbax_synthesis(torch, counters):
+    """``SegmentSynthesis`` on the Orbax fixtures (``mini_ckpt_params`` as the
+    encoder, ``mini_synth_params``) against the same model from the ``.npz``
+    files, on the card: one fixed-grid resynthesis (midpoint, 8 steps) of 2
+    utterances, art and segments bit-equal."""
+    from sylber_tpu_torch.io.orbax import load_params
+    from sylber_tpu_torch.synthesis import SegmentSynthesis
+
+    npz, _ = _mini_synth(torch, "mini_synth", "cuda")
+    params = {"hubert": load_params(FIXTURES / "orbax" / "mini_ckpt_params"),
+              **load_params(FIXTURES / "orbax" / "mini_synth_params")}
+    orbax = SegmentSynthesis(config=npz.config, params=params,
+                             device="cuda")
+    rng = np.random.RandomState(16)
+    wav = np.stack([speechlike(rng, 3 * 16000) for _ in range(2)])
+    (art, segs), launches = counted_call(counters, lambda: orbax.resynthesize(
+        input_values=wav, steps=8, method="midpoint"))
+    want_art, want_segs = npz.resynthesize(input_values=wav, steps=8, method="midpoint")
+    same = bool(np.array_equal(art, want_art)
+                and all(np.array_equal(a, b) for a, b in zip(segs, want_segs)))
+    rec = dict(utterances=2, seconds=3.0, art_shape=list(art.shape), bit_equal=same,
+               finite=bool(np.isfinite(art).all()), launches=launches,
+               ok=same and bool(np.isfinite(art).all()) and all(
+                   launches[c.__name__] > 0 for c in (counters[0], counters[1], counters[3],
+                                                      counters[4])))
+    log(f"phase 15: SegmentSynthesis from the Orbax fixtures vs the .npz on the card, 2 x 3 s "
+        f"midpoint 8 steps: art {list(art.shape)} and segments bit-equal {same}; launches "
+        f"{launches} ok={rec['ok']}")
+    return rec
+
+
+def orbax_resume(torch, counters, tmp):
+    """The port's trainer resumed on the card from the JAX trainer's step 2
+    (``tests/fixtures/orbax/tiny_train_ckpts``): the restored parameters,
+    EMA, AdamW moments and step counts bit-equal to the fixture's arrays,
+    then ``train()`` from there to step 5 (3 steps), every loss finite."""
+    import shutil
+
+    import yaml
+
+    from sylber_tpu_torch.io.checkpoint import TrainCheckpointManager, state_dict_from_jax_params
+    from sylber_tpu_torch.io.orbax import read_tree
+    from sylber_tpu_torch.train.distill import init_train_state
+    from sylber_tpu_torch.train.loop import distill_config_from_dict, train
+
+    recipe = yaml.safe_load((FIXTURES / "orbax" / "tiny_train.yaml").read_text())
+    shutil.copytree(FIXTURES / "orbax" / "tiny_train_ckpts", tmp / "ckpts")
+    tree = read_tree(tmp / "ckpts" / "2" / "default")
+    state = init_train_state(distill_config_from_dict(dict(recipe["model"])), "cuda",
+                             thresholder_kwargs=recipe["model"]["thresholder_configs"])
+    names = [n for n, _ in state.student.named_parameters()]
+    state.load_state_dict(TrainCheckpointManager(str(tmp / "ckpts")).restore(param_names=names))
+    adam = tree["opt_state"][1][0]
+    want = {"params": state_dict_from_jax_params(tree["params"]),
+            "ema": state_dict_from_jax_params(tree["ema_params"]),
+            "exp_avg": state_dict_from_jax_params(adam["mu"]),
+            "exp_avg_sq": state_dict_from_jax_params(adam["nu"])}
+    opt = {n: state.optimizer.state[p] for n, p in state.student.named_parameters()}
+    got = {"params": state.student.state_dict(), "ema": state.teacher.state_dict(),
+           "exp_avg": {n: opt[n]["exp_avg"] for n in names},
+           "exp_avg_sq": {n: opt[n]["exp_avg_sq"] for n in names}}
+    bad = [f"{what}/{k}" for what in want for k in want[what]
+           if not torch.equal(got[what][k].cpu(), want[what][k])]
+    counts = {float(opt[n]["step"]) for n in names}
+    on_card = all(t.is_cuda for t in list(got["params"].values()) + [opt[n]["step"]
+                                                                      for n in names])
+    (_, launches) = counted_call(counters, lambda: train(
+        recipe, out_dir=str(tmp), max_steps=5, log_every=1, ckpt_every=0, device="cuda"))
+    rows = [json.loads(ln) for ln in open(tmp / "metrics.jsonl")]
+    losses = [r["loss"] for r in rows]
+    rec = dict(restored_step=state.step, bit_equal=not bad, differing=bad[:8],
+               adam_counts=sorted(counts), on_card=on_card,
+               steps=[r["step"] for r in rows], losses=losses, launches=launches,
+               ok=(not bad and counts == {float(adam["count"])} and state.step == 2 and on_card
+                   and [r["step"] for r in rows] == [3, 4, 5]
+                   and all(np.isfinite(x) for x in losses)
+                   and all(launches[c.__name__] > 0 for c in (counters[0], counters[1],
+                                                               counters[3], counters[4]))))
+    log(f"phase 15: the port's trainer resumed on the card from the JAX trainer's step 2: "
+        f"parameters, EMA and AdamW moments bit-equal {not bad} ({len(names)} leaves each, "
+        f"step counts {sorted(counts)}), steps {rec['steps']} losses "
+        f"{[f'{x:.6g}' for x in losses]}; launches {launches} ok={rec['ok']}")
+    return rec
+
+
+def orbax_phase(torch, counters, Segmenter, HubertConfig, smi):
+    """Phase 15: the JAX trainer's Orbax checkpoints read by the port, with no
+    JAX (``io/zstd.py``, ``io/ocdbt.py``, ``io/orbax.py``): the host decoder's
+    rate, then the Segmenter, the resynthesis chain and a resumed trainer on
+    the committed fixtures on the card. ``launches``, the sum of the card
+    calls' (each counted from 0), is the ``orbax_launches`` of the kernels
+    line."""
+    from sylber_tpu_torch.models.hubert import matmul_precision
+
+    t0 = time.perf_counter()
+    rate = zstd_rate(FIXTURES / "orbax" / "mini_ckpt_params" / "params")
+    log(f"phase 15: zstd decoder {rate['mb_per_s']:.1f} MB/s of decompressed output on the "
+        f"host ({rate['chunks']} zarr chunks, {rate['compressed_bytes']} -> {rate['bytes']} "
+        f"bytes in {rate['seconds']:.4f} s); read_tree of mini_ckpt_params "
+        f"{rate['read_tree_s']:.3f} s  [{smi}]")
+    segmenter = orbax_segmenter(torch, counters, Segmenter, HubertConfig)
+    with matmul_precision("highest"):
+        synthesis = orbax_synthesis(torch, counters)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_orbax_") as tmp:
+        resume = orbax_resume(torch, counters, Path(tmp))
+    launches = {}
+    for r in (segmenter, synthesis, resume):
+        add_launches(launches, r["launches"])
+    rep = dict(zstd=rate, segmenter=segmenter, synthesis=synthesis, resume=resume,
+               launches=launches, seconds=time.perf_counter() - t0)
+    log(f"phase 15: launches over the Orbax runs {launches}; took {rep['seconds']:.1f} s  "
+        f"[{smi}]")
+    bad = [n for n, r in (("segmenter", segmenter), ("synthesis", synthesis),
+                          ("resume", resume)) if not r["ok"]]
+    if bad:
+        raise AssertionError(f"phase 15 failed: {bad}")
+    return rep
+
+
 # ---------------------------------------------------------------- the reproductions
 
 def table_gaps(got, want):
@@ -5703,6 +5888,11 @@ def main() -> int:
                     help="build the kernels and run phase 14 alone (the pitch analyses, the "
                          "parity check, the seeding at its repaired widths); prints no result "
                          "line")
+    ap.add_argument("--only-orbax", action="store_true",
+                    help="build the kernels and run phase 15 alone (the JAX trainer's Orbax "
+                         "checkpoints read by the port: the Segmenter, the resynthesis chain "
+                         "and a resumed trainer on the committed fixtures); prints no result "
+                         "line")
     ap.add_argument("--reproduce-tokens", action="store_true",
                     help="build the kernels, then the token chains (v1 and rich, recorded "
                          "codebooks and refit), the pitch chain and the production codebooks "
@@ -5819,6 +6009,13 @@ def main() -> int:
         if args.out:
             Path(args.out).parent.mkdir(parents=True, exist_ok=True)
             Path(args.out).write_text(json.dumps(dict(card=smi, analyses=p14), indent=1,
+                                                 default=str))
+        return 0
+    if args.only_orbax:
+        p15 = orbax_phase(torch, counters, Segmenter, HubertConfig, smi)
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(dict(card=smi, orbax=p15), indent=1,
                                                  default=str))
         return 0
     if (args.reproduce_tokens or args.reproduce_vocoder or args.reproduce_vq
@@ -5955,6 +6152,8 @@ def main() -> int:
 
     analyses = analyses_phase(torch, counters, smi)
 
+    orbax = orbax_phase(torch, counters, Segmenter, HubertConfig, smi)
+
     sources = {"conv0_gn_gelu": ("frontend.cu", "sylber_tpu/ops/pallas/frontend.py:122"),
                "small_attention": ("smallattn.cu", "sylber_tpu/ops/pallas/smallattn.py:78"),
                "flash_attention": ("flash.cu", "sylber_tpu/ops/pallas/flash.py:125"),
@@ -6077,6 +6276,9 @@ def main() -> int:
         entry["analysis_launches"] = analyses["launches"].get(entry["name"], 0)
     entries["kmeanspp"]["wide_shapes"] = [{k: r[k] for k in shape_keys}
                                           for r in analyses["wide_seeding"]]
+    # phase 15: every kernel's launches over the Orbax checkpoints' card calls
+    for entry in line:
+        entry["orbax_launches"] = orbax["launches"].get(entry["name"], 0)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         build_log = kernels.BUILD_DIR / "build.log"  # registers, shared memory, spills
@@ -6094,7 +6296,7 @@ def main() -> int:
                                                   synthesis_training=synthesis_training,
                                                   int8=int8, corpus=corpus, mesh=mesh,
                                                   dispatch=dispatch, evals=evals,
-                                                  analyses=analyses),
+                                                  analyses=analyses, orbax=orbax),
                                              indent=1, default=str))
     log(json.dumps({"kernels": line}))
     log(smi)

@@ -59,8 +59,10 @@ class Segmenter:
     """Syllable segmenter: wav -> {segments, segment_features, hidden_states}.
 
     ``model_ckpt``: a PyTorch ``sylber.ckpt``-style state dict file, a
-    ``.npz`` parameter file of the JAX package, or ``None`` for seeded random
-    weights (tests and benchmarks). ``params`` takes a JAX parameter tree of
+    ``.npz`` parameter file of the JAX package, an Orbax directory of the JAX
+    package (its trainer's ``params_final``; read without JAX, by
+    ``io/orbax.py``), or ``None`` for seeded random weights (tests and
+    benchmarks). ``params`` takes a JAX parameter tree of
     numpy arrays directly.
 
     ``mesh`` (``parallel/mesh.py::make_mesh(dp, devices=[...])``, a mesh of

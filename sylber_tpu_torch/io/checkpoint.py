@@ -13,7 +13,8 @@ the resynthesis modules, whose parameter names are the JAX tree's
 ``discriminator_state_dicts_from_jax``).
 :class:`TrainCheckpointManager` keeps the trainer's rolling step
 directories (``torch.save``), the port's counterpart of the JAX package's
-Orbax manager.
+Orbax manager, and resumes from either (``io/orbax.py`` reads the JAX
+trainer's steps and ``params_final`` without JAX).
 """
 
 from __future__ import annotations
@@ -194,14 +195,15 @@ def save_params_npz(path: str, sd: Mapping[str, torch.Tensor]) -> None:
 
 
 def load_state_dict(path: str, num_layers: int) -> Dict[str, torch.Tensor]:
-    """A HubertModel state dict from a JAX-layout ``.npz`` or a PyTorch
-    HF / ``sylber.ckpt`` state dict file (layers past ``num_layers``
-    dropped). An Orbax directory raises: reading one needs JAX."""
+    """A HubertModel state dict from a JAX-layout ``.npz``, an Orbax
+    directory of the JAX package (``save_params``' layout: the JAX trainer's
+    ``params_final``, read by ``io/orbax.py`` without JAX) or a PyTorch HF /
+    ``sylber.ckpt`` state dict file (layers past ``num_layers`` dropped)."""
     p = Path(path)
     if p.is_dir():
-        raise NotImplementedError(
-            f"{path}: Orbax checkpoint directories need JAX; save the parameters "
-            "with sylber_tpu.io.checkpoint.save_params_npz and pass the .npz file")
+        from .orbax import load_params
+
+        return state_dict_from_jax_params(load_params(p))
     if not p.exists():
         raise FileNotFoundError(f"checkpoint {path!r} not found")
     if p.suffix == ".npz":
@@ -211,15 +213,84 @@ def load_state_dict(path: str, num_layers: int) -> Dict[str, torch.Tensor]:
     return load_torch_checkpoint(str(p), num_hidden_layers=num_layers)
 
 
+def _find(tree: Any, keys) -> Optional[Mapping[str, Any]]:
+    """The first dict in ``tree`` (depth first) holding every key of ``keys``."""
+    if isinstance(tree, Mapping):
+        if all(k in tree for k in keys):
+            return tree
+        children = tree.values()
+    elif isinstance(tree, list):
+        children = tree
+    else:
+        return None
+    for child in children:
+        found = _find(child, keys)
+        if found is not None:
+            return found
+    return None
+
+
+def train_state_from_jax(tree: Mapping[str, Any], param_names) -> Dict[str, Any]:
+    """The dict :meth:`sylber_tpu_torch.train.distill.TrainState.load_state_dict`
+    takes, from a train state the JAX trainer saved (``read_tree`` of
+    ``<ckpts>/<step>/default``: ``step``, ``params``, ``ema_params``,
+    ``opt_state``, ``thresholder``).
+
+    ``params`` and ``ema_params`` go through :func:`state_dict_from_jax_params`.
+    optax's ``ScaleByAdamState`` (``count``, ``mu``, ``nu``; found wherever
+    the chain, or ``MultiSteps``' inner state, holds it) becomes torch
+    AdamW's per-parameter ``step``, ``exp_avg`` and ``exp_avg_sq`` in the
+    torch layout, keyed by the position of each name in ``param_names`` (the
+    student's ``named_parameters()`` order), one group whose other settings
+    are the live optimizer's (the JAX state holds no rate or decay).
+    ``MultiSteps``' ``acc_grads`` become the accumulators; ``step`` and the
+    thresholder's statistics carry over."""
+    adam = _find(tree["opt_state"], ("count", "mu", "nu"))
+    if adam is None:
+        raise ValueError("the JAX train state holds no ScaleByAdamState (count, mu, nu)")
+    mu, nu = state_dict_from_jax_params(adam["mu"]), state_dict_from_jax_params(adam["nu"])
+    count = torch.tensor(float(np.asarray(adam["count"])), dtype=torch.float32)
+    names = list(param_names)
+    missing = [n for n in names if n not in mu]
+    if missing:
+        raise KeyError(f"the JAX optimizer state lacks moments for {missing}")
+    state = {i: {"step": count.clone(), "exp_avg": mu[n], "exp_avg_sq": nu[n]}
+             for i, n in enumerate(names)}
+    multi = _find(tree["opt_state"], ("mini_step", "acc_grads"))
+    acc = None
+    if multi is not None:
+        grads = state_dict_from_jax_params(multi["acc_grads"])
+        acc = [grads[n] for n in names]
+    thr = tree["thresholder"]
+    return dict(step=int(np.asarray(tree["step"])),
+                params=state_dict_from_jax_params(tree["params"]),
+                ema=state_dict_from_jax_params(tree["ema_params"]),
+                optimizer={"state": state, "param_groups": [{"params": list(range(len(names)))}]},
+                thresholder=tuple(torch.tensor(np.asarray(thr[k], np.float32)) for k in
+                                  ("signal_mean", "signal_var", "noise_mean", "noise_var",
+                                   "fixed")),
+                acc_grads=acc)
+
+
 class TrainCheckpointManager:
     """Rolling train-state checkpoints with resume.
 
     A save writes ``<directory>/<step>/state.pt`` (``torch.save`` of a dict
     of tensors, numbers and containers) through a temporary directory that
     is renamed when complete, so a run killed during a save leaves no step
-    that ``latest_step`` would pick up. The ``max_to_keep`` newest steps are
-    kept. Saves are synchronous; the caller decides when one is due, so the
-    state is copied to the host only then.
+    that ``latest_step`` would pick up. The ``max_to_keep`` newest of these
+    steps are kept. Saves are synchronous; the caller decides when one is
+    due, so the state is copied to the host only then.
+
+    The directory may also hold steps the JAX trainer wrote
+    (``<step>/default``, Orbax): :meth:`restore` reads those too, without
+    JAX (:func:`train_state_from_jax`), and the newest step wins, whichever
+    trainer wrote it (the port's at a tie). Pruning leaves them alone. A run
+    resumed from a JAX step continues its parameters, EMA, AdamW moments,
+    step count and thresholder; the batches after the resume are the
+    port's, drawn from ``(seed, step)`` (``train/loop.py``; intended
+    differences (n) and (o) in ``ROADMAP.md`` section 3), not the JAX
+    loop's.
     """
 
     def __init__(self, directory: str, max_to_keep: int = 5):
@@ -227,9 +298,13 @@ class TrainCheckpointManager:
         self.max_to_keep = max_to_keep
         self.directory.mkdir(parents=True, exist_ok=True)
 
-    def steps(self):
+    def _steps(self, marker: str):
         return sorted(int(d.name) for d in self.directory.iterdir()
-                      if d.name.isdigit() and (d / "state.pt").exists())
+                      if d.name.isdigit() and (d / marker).exists())
+
+    def steps(self):
+        """Every step saved, by either trainer."""
+        return sorted(set(self._steps("state.pt")) | set(self._steps("default/_METADATA")))
 
     @property
     def latest_step(self) -> Optional[int]:
@@ -242,15 +317,25 @@ class TrainCheckpointManager:
         tmp.mkdir()
         torch.save(state, tmp / "state.pt")
         final = self.directory / str(step)
+        if (final / "default").exists():
+            raise FileExistsError(f"{final} holds a JAX trainer's step; not overwritten")
         shutil.rmtree(final, ignore_errors=True)
         os.replace(tmp, final)
-        for old in self.steps()[:-self.max_to_keep]:
+        for old in self._steps("state.pt")[:-self.max_to_keep]:
             shutil.rmtree(self.directory / str(old), ignore_errors=True)
 
-    def restore(self, step: Optional[int] = None) -> Dict[str, Any]:
-        """The saved dict of ``step`` (default the latest), on the CPU."""
+    def restore(self, step: Optional[int] = None, param_names=None) -> Dict[str, Any]:
+        """The saved dict of ``step`` (default the latest), on the CPU. A
+        JAX trainer's step is mapped by :func:`train_state_from_jax`, which
+        needs ``param_names``, the student's ``named_parameters()`` order."""
         step = self.latest_step if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoint under {self.directory}")
-        return torch.load(self.directory / str(step) / "state.pt", map_location="cpu",
-                          weights_only=True)
+        d = self.directory / str(step)
+        if (d / "state.pt").exists():
+            return torch.load(d / "state.pt", map_location="cpu", weights_only=True)
+        if param_names is None:
+            raise ValueError(f"{d} is a JAX trainer's step: restoring it needs param_names")
+        from .orbax import read_tree
+
+        return train_state_from_jax(read_tree(d / "default"), param_names)

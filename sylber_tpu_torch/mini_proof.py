@@ -206,7 +206,7 @@ def main(argv=None) -> Dict[str, Any]:
         f"_{args.style}" if args.style != "v1" else "")
     print(f"device: {device}"
           + (f" {torch.cuda.get_device_name(device)}" if device.type == "cuda" else "")
-          + "; one step a dispatch (steps_per_dispatch is not ported)")
+          + "; one step a dispatch")
 
     # ---- stage 1: distil onto the ground-truth segments ----
     cfg1 = {"name": "mini_stage1", "seed": 0,

@@ -246,8 +246,8 @@ def _read_config(path: str) -> dict:
 def build_synthesis_stack(synthesis_ckpt: str, synthesis_config: str, device,
                           quantizer=None, vocoder_ckpt=None, vocoder_config=None):
     """``(SegmentSynthesis, SparcDecoder or None)`` from checkpoint paths: a
-    JAX-layout ``.npz`` or a reference torch checkpoint for each (an Orbax
-    directory raises). ``vocoder_config`` holds ``{"generator": {...}}``
+    JAX-layout ``.npz``, an Orbax directory of the JAX package or a reference
+    torch checkpoint for each. ``vocoder_config`` holds ``{"generator": {...}}``
     (HiFiGANConfig fields; default ``SparcDecoderConfig()``)."""
     from .synthesis import SegmentSynthesis, synthesis_config_from_dict
     from .vocoder.hifigan import HiFiGANConfig

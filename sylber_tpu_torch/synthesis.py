@@ -167,10 +167,11 @@ class SegmentSynthesis:
 
     Weights: ``params``, a JAX tree of numpy arrays with ``hubert``,
     ``input_mlp`` and ``regressor`` subtrees (as the JAX package's
-    ``SynthesisParams``); ``model_ckpt``, a ``.npz`` of such a tree or a
+    ``SynthesisParams``); ``model_ckpt``, a ``.npz`` of such a tree, the
+    Orbax directory the JAX package's ``SegmentSynthesis.save`` or its
+    synthesis trainer writes (read without JAX, by ``io/orbax.py``), or a
     reference torch checkpoint (``io/torch_convert.py``); neither: seeded
-    random weights. An Orbax directory raises, and a path
-    that does not exist raises (no hub download)."""
+    random weights. A path that does not exist raises (no hub download)."""
 
     def __init__(self, model_ckpt: Optional[str] = None,
                  config: Optional[SynthesisConfig] = None,
@@ -225,10 +226,10 @@ class SegmentSynthesis:
 
     def _load(self, path: str):
         p = Path(path)
-        if p.is_dir():
-            raise NotImplementedError(
-                f"{path}: Orbax checkpoint directories need JAX; save the parameters with "
-                "sylber_tpu.io.checkpoint.save_params_npz and pass the .npz file")
+        if p.is_dir():  # the JAX package's SegmentSynthesis.save (Orbax)
+            from .io.orbax import load_params
+
+            return synthesis_state_dict_from_jax(load_params(p))
         if not p.exists():
             raise FileNotFoundError(f"checkpoint {path!r} not found")
         if p.suffix == ".npz":

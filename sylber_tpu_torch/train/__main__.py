@@ -6,8 +6,9 @@
 
 The same YAML recipes as the JAX package's ``train.py``. ``speech_model_ckpt``
 (encoder initialisation) or ``model_ckpt`` (the previous stage's parameters)
-take a PyTorch state dict (HF ``HubertModel`` or ``sylber.ckpt``) or a
-JAX-layout ``.npz``; an Orbax directory raises. Runs on the GPU unless
+take a PyTorch state dict (HF ``HubertModel`` or ``sylber.ckpt``), a
+JAX-layout ``.npz`` or an Orbax directory of the JAX package (the JAX
+trainer's ``params_final``). Runs on the GPU unless
 ``--device cpu`` is given, and refuses to start without one.
 
 Several GPUs: ``torchrun --nproc_per_node N -m sylber_tpu_torch.train

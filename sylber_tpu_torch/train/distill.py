@@ -295,9 +295,14 @@ def host_optimizer_state(optimizer: torch.optim.Optimizer) -> Dict[str, Any]:
 def load_optimizer_state(optimizer: torch.optim.Optimizer, sd: Dict[str, Any]) -> None:
     """Load :func:`host_optimizer_state`'s layout, keeping each group's own
     ``capturable`` flag and device rate tensor (and its step counts on the
-    parameters' device)."""
+    parameters' device). A setting a saved group lacks (a JAX trainer's
+    state holds none, ``io/checkpoint.py::train_state_from_jax``) is the
+    live group's."""
     kept = [(g["capturable"], g["lr"]) for g in optimizer.param_groups]
-    optimizer.load_state_dict(sd)
+    live = optimizer.state_dict()["param_groups"]
+    optimizer.load_state_dict(dict(sd, param_groups=[
+        {**{k: v for k, v in lg.items() if k != "params"}, **g}
+        for lg, g in zip(live, sd["param_groups"], strict=True)]))
     for group, (capturable, lr) in zip(optimizer.param_groups, kept):
         if isinstance(lr, torch.Tensor):
             lr.fill_(float(group["lr"]))

@@ -222,8 +222,9 @@ def train(cfg: Dict[str, Any], out_dir: str = "runs/sylber", max_steps: Optional
                              fsdp=bool(mesh_cfg.get("fsdp", False)) and mesh is not None,
                              fsdp_min_size=int(mesh_cfg.get("fsdp_min_size", FSDP_MIN_SIZE)))
     mgr = TrainCheckpointManager(os.path.join(out_dir, "ckpts"))
-    if mgr.latest_step is not None:
-        state.load_state_dict(mgr.restore())
+    if mgr.latest_step is not None:  # the port's step, or the JAX trainer's
+        state.load_state_dict(mgr.restore(
+            param_names=[n for n, _ in state.student.named_parameters()]))
         if main:
             print(f"resumed from step {state.step}")
     start = state.step

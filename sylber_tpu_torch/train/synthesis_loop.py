@@ -20,7 +20,8 @@ Artifacts in ``out_dir``: ``synthesis_final.npz`` (the ``hubert``,
 ``input_mlp`` and ``regressor`` trees in the JAX layout, which the JAX
 package's ``load_params_npz`` and the port's ``SegmentSynthesis`` read),
 ``eval.json`` and ``metrics.jsonl``. The JAX loop writes an Orbax directory
-instead (intended difference (y), ``ROADMAP.md`` section 3).
+instead (intended difference (y), ``ROADMAP.md`` section 3), which the port
+reads (``io/orbax.py``) but does not write.
 
 Data parallelism (``mesh: {dp}``, ``distributed:``; JAX's
 ``synthesis_loop.py:286-356``): the process joins the run's process group

@@ -2,8 +2,10 @@
 
 A copy of ``sylber_tpu/utils/flac.py`` (the port imports nothing of the JAX
 package). LibriSpeech ships as FLAC and the port depends on no audio
-library, so it carries its own decoder. The JAX package's C++ decoder
-(``sylber_tpu/native/flac.cc``), which is faster, is not ported yet.
+library, so it carries its own decoder. The faster C++ decoder is the
+port's ``native/flac.cc`` (``utils/native.py::decode_flac_native``), which
+``utils/audio.py`` tries before this one; this one is the fallback and
+names the reason for a stream neither decodes.
 
 Supported (everything libFLAC emits for 8/16/24-bit PCM):
 - STREAMINFO + all metadata blocks (skipped), fixed & variable blocksize

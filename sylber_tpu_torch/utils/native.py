@@ -11,10 +11,13 @@ does for the CUDA kernels. Nothing is built when the module is imported.
 - the segmenter (``segment.cc``): CPU-only preprocessing of a corpus
   (``precompute_segments --native``) and an independent oracle in the tests;
 - the FLAC decoder (``flac.cc``): ingestion of a FLAC corpus (LibriSpeech's
-  format) at thousands of times real time on one host core.
+  format) at thousands of times real time on one host core;
+- the zstd decoder and CRC-32C (``zstd.cc``): the Orbax checkpoint reader
+  (``io/zstd.py``, ``io/ocdbt.py``, ``io/orbax.py``).
 
-Callers catch :class:`NativeUnavailable` (no toolchain, a failed build) and
-fall back.
+The segmenter's and the FLAC decoder's callers catch
+:class:`NativeUnavailable` (no toolchain, a failed build) and fall back; the
+zstd decoder has no fallback, so its callers see the error.
 """
 
 from __future__ import annotations
@@ -118,6 +121,23 @@ def load_flac_library() -> ctypes.CDLL:
     lib.sylber_flac_read.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int32)]
     lib.sylber_flac_free.restype = None
     lib.sylber_flac_free.argtypes = [ctypes.c_void_p]
+    lib._sylber_bound = True
+    return lib
+
+
+def load_zstd_library() -> ctypes.CDLL:
+    """The zstd decoder's library, built and bound on first use."""
+    lib = _load("zstd")
+    if hasattr(lib, "_sylber_bound"):
+        return lib
+    lib.sylber_zstd_decompress.restype = ctypes.c_int
+    lib.sylber_zstd_decompress.argtypes = [
+        ctypes.c_char_p, ctypes.c_size_t, ctypes.POINTER(ctypes.c_void_p),
+        ctypes.POINTER(ctypes.c_size_t), ctypes.c_char_p, ctypes.c_size_t]
+    lib.sylber_zstd_free.restype = None
+    lib.sylber_zstd_free.argtypes = [ctypes.c_void_p]
+    lib.sylber_crc32c.restype = ctypes.c_uint32
+    lib.sylber_crc32c.argtypes = [ctypes.c_char_p, ctypes.c_size_t]
     lib._sylber_bound = True
     return lib
 

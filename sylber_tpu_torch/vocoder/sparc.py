@@ -96,9 +96,11 @@ class SparcDecoder:
 def load_decoder(ckpt: str, config: Optional[SparcDecoderConfig] = None,
                  device: Union[None, str, torch.device] = None) -> SparcDecoder:
     """A trained ``SparcDecoder`` from ``ckpt``: a JAX-layout generator
-    ``.npz`` or a torch HiFi-GAN generator checkpoint (a state dict, or a
-    dict holding one under ``"generator"``), at ``config``'s widths
-    (``SparcDecoderConfig()`` by default). An Orbax directory raises."""
+    ``.npz``, an Orbax directory of the JAX generator tree (``save_params``'
+    layout, read by ``io/orbax.py`` without JAX) or a torch HiFi-GAN
+    generator checkpoint (a state dict, or a dict holding one under
+    ``"generator"``), at ``config``'s widths (``SparcDecoderConfig()`` by
+    default)."""
     from pathlib import Path
 
     config = config or SparcDecoderConfig()
@@ -107,8 +109,9 @@ def load_decoder(ckpt: str, config: Optional[SparcDecoderConfig] = None,
 
         return SparcDecoder(config, params=load_params_npz(ckpt), device=device)
     if Path(ckpt).is_dir():
-        raise NotImplementedError(f"{ckpt}: Orbax directories need JAX; pass a .npz or a "
-                                  "torch generator checkpoint")
+        from ..io.orbax import load_params
+
+        return SparcDecoder(config, params=load_params(ckpt), device=device)
     from ..io.torch_convert import hifigan_params_from_torch, torch_load
 
     sd = torch_load(ckpt)

@@ -1,8 +1,10 @@
 """The port imports torch, never JAX, and nothing of ``sylber_tpu``.
 
 A fresh interpreter imports every module of ``sylber_tpu_torch`` (walked
-with ``pkgutil``, ``parallel.mesh`` and ``parallel.launch`` among them) and
-checks ``sys.modules``; then, with no GPU, the entry
+with ``pkgutil``, ``parallel.mesh``, ``parallel.launch`` and the Orbax
+reader's ``io.zstd``, ``io.ocdbt`` and ``io.orbax`` among them) and checks
+``sys.modules``: no JAX, no ``sylber_tpu``, and none of ``orbax``,
+``tensorstore`` or ``zstandard``, which the Orbax reader does without; then, with no GPU, the entry
 points (the resynthesis chain's and its trainers', ``fit_kmeans`` and
 ``Sylber`` included, the corpus path's runners and ``mini_proof``, and the
 evaluation entry points: ``vocoder_proof``, ``token_chain_proof``,
@@ -25,12 +27,15 @@ import sylber_tpu_torch
 
 names = ["sylber_tpu_torch"] + [m.name for m in pkgutil.walk_packages(
     sylber_tpu_torch.__path__, "sylber_tpu_torch.")]
-assert {"sylber_tpu_torch.parallel.mesh", "sylber_tpu_torch.parallel.launch"} <= set(names)
+assert {"sylber_tpu_torch.parallel.mesh", "sylber_tpu_torch.parallel.launch",
+        "sylber_tpu_torch.io.zstd", "sylber_tpu_torch.io.ocdbt",
+        "sylber_tpu_torch.io.orbax"} <= set(names)
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
-             or m == "sylber_tpu" or m.startswith("sylber_tpu."))
+             or m == "sylber_tpu" or m.startswith("sylber_tpu.")
+             or m.split(".")[0] in ("orbax", "tensorstore", "zstandard"))
 assert not bad, bad
 print(len(names), "modules")
 
@@ -106,5 +111,6 @@ def test_port_imports_no_jax_and_needs_a_gpu_or_cpu_choice():
     # vq_tokenizer, and its trainers, flow/kmeans and models/sylber included,
     # and the corpus path's utils/native, utils/sndfile, ops/segment_np,
     # segment_corpus, precompute_segments and mini_proof, the mesh's
-    # parallel/, the six evaluation entry points and the four analyses)
-    assert int(count.split()[0]) >= 74, count
+    # parallel/, the six evaluation entry points, the four analyses and the
+    # Orbax reader's three modules)
+    assert int(count.split()[0]) >= 77, count

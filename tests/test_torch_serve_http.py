@@ -178,7 +178,8 @@ def test_resynthesize_endpoint_with_the_mini_fixtures(tmp_path):
     of the three subtrees and the fixture's metadata as the config; the
     vocoder's ``.npz`` and its generator config): JSON art equal to a
     direct ``resynthesize``, audio=1 a WAV of 320 samples a frame, 503
-    without a vocoder for audio=1, and an Orbax directory refused."""
+    without a vocoder for audio=1, and a directory that is no Orbax
+    checkpoint refused."""
     from sylber_tpu_torch.io.checkpoint import load_params_npz, save_tree_npz
 
     tree = {"hubert": load_params_npz(str(ROOT / "tests/fixtures/mini_ckpt.npz")),
@@ -189,7 +190,7 @@ def test_resynthesize_endpoint_with_the_mini_fixtures(tmp_path):
         vocoder_ckpt=str(ROOT / "tests/fixtures/mini_vocoder.npz"),
         vocoder_config=str(ROOT / "tests/fixtures/mini_vocoder.json"))
     (tmp_path / "orbax").mkdir()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(FileNotFoundError, match="not an Orbax checkpoint"):
         serve_http.build_synthesis_stack(str(tmp_path / "orbax"),
                                          str(ROOT / "tests/fixtures/mini_synth.json"), "cpu")
     seg = Segmenter(hubert_config=HubertConfig(**TINY), device="cpu")

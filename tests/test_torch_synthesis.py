@@ -6,8 +6,9 @@ against ``sylber_tpu/synthesis.py`` on the CPU.
   1e-4 of the largest; the feature path with guidance (``cond_scale`` 1.5)
   too (the adaptive path: ``test_torch_synthesis_adaptive.py``).
 - The segment fill and ``expand_feature`` equal JAX's.
-- Refusals: an Orbax directory, a missing file, no GPU without
-  ``device="cpu"``; a random-init vocoder warns.
+- Refusals: a directory that is no Orbax checkpoint, a missing file, no
+  GPU without ``device="cpu"``; a random-init vocoder warns (Orbax
+  checkpoints load: ``test_torch_orbax.py``).
 """
 
 import json
@@ -111,7 +112,7 @@ def test_refusals_and_the_random_vocoder_warning(tmp_path, monkeypatch):
                                  intermediate_size=64, conv_dim=(16,) * 7,
                                  num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4))
     (tmp_path / "orbax").mkdir()
-    with pytest.raises(NotImplementedError, match="npz"):
+    with pytest.raises(FileNotFoundError, match="not an Orbax checkpoint"):
         tsyn.SegmentSynthesis(model_ckpt=str(tmp_path / "orbax"), config=cfg, device="cpu")
     with pytest.raises(FileNotFoundError):
         tsyn.SegmentSynthesis(model_ckpt=str(tmp_path / "absent.ckpt"), config=cfg, device="cpu")
