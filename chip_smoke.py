@@ -271,6 +271,22 @@ Phases, each of which fails the script when it fails:
    finite losses. Each card call counted from 0; their sum is the
    ``orbax_launches`` of the kernels line. ``--only-orbax`` runs phases 1
    and 15 and prints no result.
+16. the port's trainer writing the JAX trainer's Orbax steps
+   asynchronously: the full-width stage-2 recipe (phase 6's, bf16, B32 x
+   5 s) for 8 steps with ``ckpt_every`` 2 and ``max_to_keep`` 2 in a
+   temporary directory; each save's cost on the critical path (the wall of
+   the step after it minus the p50 of the other steps), its host copy's ms
+   (CUDA events), its background write's seconds and MB/s and the bytes on
+   disk; the last step read back through the port's own reader, every leaf
+   bit-equal to the live state; a resume from step 6 for 2 steps against
+   the uninterrupted run (loss rel 1e-6, parameters atol 1e-6, bit-equality
+   reported; cuDNN deterministic in both); the ``Segmenter`` from the
+   written ``params_final/`` against the one from ``params_final.npz`` on
+   4 x 5 s (segments, features and hidden states bit-equal). The trainer's
+   and the Segmenter's card calls each counted from 0 (conv0, small
+   attention and both passes must launch); their sum is the
+   ``orbax_write_launches`` of the kernels line. ``--only-orbax-write``
+   runs phases 1 and 16 and prints no result.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit
 (``nvidia-smi``), and as its last line
@@ -5560,6 +5576,182 @@ def orbax_phase(torch, counters, Segmenter, HubertConfig, smi):
     return rep
 
 
+# ---------------------------------------------------------------- phase 16
+
+def saves_on_the_critical_path(rows, saves):
+    """Each save's cost on the critical path: the wall of the step after the
+    save (the save runs after its step's metrics row, so its cost lands in
+    the next row's time) minus the p50 of the walls of the steps after no
+    save. ``rows``: the train rows, one a step; ``saves``: the manager's
+    records. The last save's cost is its ``save_call_ms`` (no step follows)."""
+    t = {r["step"]: r["time"] for r in rows}
+    wall = {s: 1e3 * (t[s] - t[s - 1]) for s in t if s - 1 in t}
+    saved = {r["step"] for r in saves}
+    others = [ms for s, ms in wall.items() if s - 1 not in saved]
+    p50 = float(np.median(others))
+    out = []
+    for r in saves:
+        after = wall.get(r["step"] + 1)
+        out.append(dict(r, step_wall_ms=after, other_steps_p50_ms=p50,
+                        critical_path_ms=(after - p50) if after is not None else None))
+    return out, others
+
+
+def orbax_write_phase(torch, counters, Segmenter, HubertConfig, smi):
+    """Phase 16: the port's trainer writes the JAX trainer's Orbax steps
+    asynchronously (``io/checkpoint.py::TrainCheckpointManager``), at full
+    width; the read-back, a resume and the ``Segmenter`` on the written
+    ``params_final/``. ``launches``, the sum of its card calls' (each
+    counted from 0), is the ``orbax_write_launches`` of the kernels line."""
+    import shutil
+
+    from sylber_tpu_torch.io.checkpoint import train_state_to_jax
+    from sylber_tpu_torch.io.orbax import read_tree
+    from sylber_tpu_torch.train.loop import distill_config_from_dict, train
+
+    t0 = time.perf_counter()
+    recipe = stage2_recipe("bfloat16", "default", 32)
+    dcfg = distill_config_from_dict(dict(recipe["model"], accumulate_grad_batches=1))
+    kw = dict(log_every=1, ckpt_every=2, device="cuda", max_to_keep=2)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # the resume compared bit for bit beside
+    launches = {}
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_orbax_write_") as tmp:
+            tmp = Path(tmp)
+            run = tmp / "run"
+            parts = {}
+            t = time.perf_counter()
+            state, got = counted_call(counters, lambda: train(recipe, out_dir=str(run),
+                                                              max_steps=8, **kw))
+            torch.cuda.synchronize()
+            parts["train_8_steps_s"] = time.perf_counter() - t
+            add_launches(launches, got)
+            rows = [json.loads(ln) for ln in open(run / "metrics.jsonl")]
+            rows = [r for r in rows if r["prefix"] == "train"]
+            records = [json.loads(ln) for ln in open(run / "checkpoints.jsonl")]
+            saves, others = saves_on_the_critical_path(rows, records)
+            kept = sorted(int(d.name) for d in (run / "ckpts").iterdir() if d.name.isdigit())
+            disk = {s: sum(f.stat().st_size for f in (run / "ckpts" / str(s)).rglob("*")
+                           if f.is_file()) for s in kept}
+            for r in saves:
+                cp = ("none: no step follows" if r["critical_path_ms"] is None else
+                      f"{r['critical_path_ms']:.1f} ms (step wall {r['step_wall_ms']:.1f} ms - "
+                      f"p50 {r['other_steps_p50_ms']:.1f} ms of the steps after no save)")
+                log(f"phase 16: save at step {r['step']}: critical path {cp}, save() call "
+                    f"{r['save_call_ms']:.1f} ms (pinned buffer made {r['pin_ms']:.1f} ms), host "
+                    f"copy {r['host_copy_ms']:.1f} ms, background write {r['write_s']:.3f} s "
+                    f"at {r['mb_per_s']:.0f} MB/s, {r['bytes']} bytes of {r['leaves']} "
+                    f"leaves, {r['disk_bytes']} in the data file  [{smi}]")
+            log(f"phase 16: steps kept {kept}, bytes on disk {disk}; step walls "
+                f"{[round(1e3 * (b['time'] - a['time']), 1) for a, b in zip(rows, rows[1:])]}"
+                f" ms  [{smi}]")
+
+            # the last step read back through the port's reader, against the live state
+            t = time.perf_counter()
+            names = [n for n, _ in state.student.named_parameters()]
+            live = train_state_to_jax(state.state_dict(), names, dcfg)
+            back = read_tree(run / "ckpts" / "8" / "default")
+            bad, count = [], [0]
+
+            def walk(a, b, path):
+                if isinstance(a, dict):
+                    if not isinstance(b, dict) or a.keys() != b.keys():
+                        bad.append(path)
+                        return
+                    for k in a:
+                        walk(a[k], b[k], f"{path}/{k}")
+                elif isinstance(a, (list, tuple)):
+                    if not isinstance(b, list) or len(a) != len(b):
+                        bad.append(path)
+                        return
+                    for i, (x, y) in enumerate(zip(a, b)):
+                        walk(x, y, f"{path}/{i}")
+                elif a is None:
+                    if b is not None:
+                        bad.append(path)
+                else:
+                    count[0] += 1
+                    x = (a.detach().cpu().numpy() if isinstance(a, torch.Tensor)
+                         else np.asarray(a))
+                    if x.dtype != b.dtype or x.shape != b.shape or not np.array_equal(
+                            x.reshape(-1).view(np.uint8), b.reshape(-1).view(np.uint8)):
+                        bad.append(path)
+
+            walk(live, back, "state")
+            parts["read_back_s"] = time.perf_counter() - t
+            log(f"phase 16: step 8 read back by io/orbax.py: {count[0]} leaves, bit-equal to "
+                f"the live state {not bad} {bad[:4]}")
+
+            # a resume from step 6 for 2 steps against the uninterrupted run
+            t = time.perf_counter()
+            resumed = tmp / "resumed"
+            shutil.copytree(run / "ckpts" / "6", resumed / "ckpts" / "6")
+            again, got = counted_call(counters, lambda: train(
+                recipe, out_dir=str(resumed), max_steps=8, **dict(kw, ckpt_every=0)))
+            torch.cuda.synchronize()
+            add_launches(launches, got)
+            rows_b = [json.loads(ln) for ln in open(resumed / "metrics.jsonl")]
+            la, lb = rows[-1]["loss"], rows_b[-1]["loss"]
+            rel = abs(la - lb) / abs(la)
+            pa, pb = state.student.state_dict(), again.student.state_dict()
+            err = max(float((pa[k] - pb[k]).abs().max()) for k in pa)
+            bits = all(torch.equal(pa[k], pb[k]) for k in pa)
+            resume = dict(loss_step8=la, loss_step8_resumed=lb, loss_rel_err=rel,
+                          param_max_abs_err=err, bit_equal=bits,
+                          steps_logged=[r["step"] for r in rows_b],
+                          ok=bool(rel <= 1e-6 and err <= 1e-6
+                                  and [r["step"] for r in rows_b] == [7, 8]))
+            log(f"phase 16: resumed from the Orbax step 6 for 2 steps: step 8 loss {la:.7g} "
+                f"uninterrupted vs {lb:.7g} (rel {rel:.2g}, tol 1e-6), parameters max |diff| "
+                f"{err:.3g} (tol 1e-6), bit-equal {bits} ok={resume['ok']}")
+            del state, again
+            torch.cuda.empty_cache()
+            parts["resume_s"] = time.perf_counter() - t
+            t = time.perf_counter()
+
+            # the Segmenter from the written params_final/ against the .npz
+            seg_kw = dict(hubert_config=HubertConfig(num_hidden_layers=9), norm_threshold=0.0,
+                          merge_threshold=0.9, device="cuda")
+            rng = np.random.RandomState(16)
+            wavs = [speechlike(rng, 5 * 16000) for _ in range(4)]
+            orbax = Segmenter(model_ckpt=str(run / "params_final"), **seg_kw)
+            npz = Segmenter(model_ckpt=str(run / "params_final.npz"), **seg_kw)
+            out, got = counted_call(counters, lambda: orbax.process(wavs, in_second=False))
+            add_launches(launches, got)
+            want = npz.process(wavs, in_second=False)
+            diffs = sorted({key for g, w in zip(out, want)
+                            for key in ("segments", "segment_features", "hidden_states")
+                            if not np.array_equal(g[key], w[key])})
+            nseg = [len(g["segments"]) for g in out]
+            parts["segmenters_s"] = time.perf_counter() - t
+            segmenter = dict(utterances=4, seconds=5.0, segments=nseg, bit_equal=not diffs,
+                             differing=diffs, launches=got,
+                             ok=not diffs and min(nseg) > 0)
+            log(f"phase 16: Segmenter from the written params_final/ vs params_final.npz, 4 x "
+                f"5 s: segments, features and hidden states bit-equal {not diffs} {nseg}; "
+                f"launches {got}")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    idle = [c.__name__ for c in (counters[0], counters[1], counters[3], counters[4])
+            if launches.get(c.__name__, 0) == 0]
+    rep = dict(recipe="stage2_recipe('bfloat16', 'default', 32)", steps=8, ckpt_every=2,
+               max_to_keep=2, saves=saves, other_steps_ms=others, kept=kept,
+               disk_bytes=disk, read_back=dict(leaves=count[0], bit_equal=not bad,
+                                               differing=bad[:8]),
+               resume=resume, segmenter=segmenter, launches=launches, parts_s=parts,
+               seconds=time.perf_counter() - t0)
+    log(f"phase 16: launches over the trainer's and the Segmenter's calls {launches}; took "
+        f"{rep['seconds']:.1f} s ({', '.join(f'{k} {v:.1f}' for k, v in parts.items())})  "
+        f"[{smi}]")
+    failed = [n for n, ok in (("read_back", not bad), ("resume", resume["ok"]),
+                              ("segmenter", segmenter["ok"]), ("launches", not idle),
+                              ("steps kept", kept == [6, 8])) if not ok]
+    if failed:
+        raise AssertionError(f"phase 16 failed: {failed} (kernels never launched: {idle})")
+    return rep
+
+
 # ---------------------------------------------------------------- the reproductions
 
 def table_gaps(got, want):
@@ -5893,6 +6085,10 @@ def main() -> int:
                          "checkpoints read by the port: the Segmenter, the resynthesis chain "
                          "and a resumed trainer on the committed fixtures); prints no result "
                          "line")
+    ap.add_argument("--only-orbax-write", action="store_true",
+                    help="build the kernels and run phase 16 alone (the trainer's asynchronous "
+                         "Orbax saves at full width, the read-back, a resume, the Segmenter on "
+                         "the written params_final/); prints no result line")
     ap.add_argument("--reproduce-tokens", action="store_true",
                     help="build the kernels, then the token chains (v1 and rich, recorded "
                          "codebooks and refit), the pitch chain and the production codebooks "
@@ -6016,6 +6212,13 @@ def main() -> int:
         if args.out:
             Path(args.out).parent.mkdir(parents=True, exist_ok=True)
             Path(args.out).write_text(json.dumps(dict(card=smi, orbax=p15), indent=1,
+                                                 default=str))
+        return 0
+    if args.only_orbax_write:
+        p16 = orbax_write_phase(torch, counters, Segmenter, HubertConfig, smi)
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(dict(card=smi, orbax_write=p16), indent=1,
                                                  default=str))
         return 0
     if (args.reproduce_tokens or args.reproduce_vocoder or args.reproduce_vq
@@ -6154,6 +6357,8 @@ def main() -> int:
 
     orbax = orbax_phase(torch, counters, Segmenter, HubertConfig, smi)
 
+    orbax_write = orbax_write_phase(torch, counters, Segmenter, HubertConfig, smi)
+
     sources = {"conv0_gn_gelu": ("frontend.cu", "sylber_tpu/ops/pallas/frontend.py:122"),
                "small_attention": ("smallattn.cu", "sylber_tpu/ops/pallas/smallattn.py:78"),
                "flash_attention": ("flash.cu", "sylber_tpu/ops/pallas/flash.py:125"),
@@ -6279,6 +6484,10 @@ def main() -> int:
     # phase 15: every kernel's launches over the Orbax checkpoints' card calls
     for entry in line:
         entry["orbax_launches"] = orbax["launches"].get(entry["name"], 0)
+    # phase 16: every kernel's launches over the trainer writing Orbax steps
+    # and the Segmenter on its params_final/
+    for entry in line:
+        entry["orbax_write_launches"] = orbax_write["launches"].get(entry["name"], 0)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         build_log = kernels.BUILD_DIR / "build.log"  # registers, shared memory, spills
@@ -6296,7 +6505,8 @@ def main() -> int:
                                                   synthesis_training=synthesis_training,
                                                   int8=int8, corpus=corpus, mesh=mesh,
                                                   dispatch=dispatch, evals=evals,
-                                                  analyses=analyses, orbax=orbax),
+                                                  analyses=analyses, orbax=orbax,
+                                                  orbax_write=orbax_write),
                                              indent=1, default=str))
     log(json.dumps({"kernels": line}))
     log(smi)

@@ -1,4 +1,4 @@
-"""Orbax checkpoint trees to numpy, with no JAX, orbax or tensorstore.
+"""Orbax checkpoint trees to and from numpy, with no JAX, orbax or tensorstore.
 
 An Orbax item directory (``params/`` of the JAX package's ``save_params``,
 ``<step>/default`` of its ``TrainCheckpointManager``) holds:
@@ -23,6 +23,14 @@ array), decoding each with the port's zstd decoder; a missing chunk takes
 the fill value. ``bfloat16`` leaves come back as float32 numpy arrays, the
 bits widened exactly (every bfloat16 is a float32).
 
+:func:`write_tree` is the inverse: the layout of the JAX package's saves
+(``_METADATA`` with ``value_type`` "np.ndarray" for an array, "None" with
+``skip_deserialize`` for ``None``, "Dict", "List" or "Tuple" for an empty
+container; one zarr v2 array a leaf in one chunk, uncompressed), written
+through ``io/ocdbt.py::write_store``. A ``torch.bfloat16`` tensor is written
+as "bfloat16". :func:`write_checkpoint_metadata` writes the
+``_CHECKPOINT_METADATA`` that orbax puts beside an item.
+
 Read: dtypes ``<f4``, ``<f8``, ``<f2``, ``bfloat16``, ``<i4``, ``<i8``,
 ``<u4``, ``|b1``; compressor zstd or none; order C; no filters; dimension
 separator ``.``. Anything else raises ``ValueError`` by name: other dtypes
@@ -36,13 +44,16 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import time
 from itertools import product
 from pathlib import Path
-from typing import Any, List, Union
+from typing import Any, Dict, List, Tuple, Union
 
 import numpy as np
+import torch
 
-from .ocdbt import OcdbtStore
+from .ocdbt import MAX_DECODED_NODE_BYTES, OcdbtStore, write_store
 from .zstd import decompress
 
 _DTYPES = {"<f4": np.float32, "<f8": np.float64, "<f2": np.float16, "<i4": np.int32,
@@ -101,6 +112,9 @@ def read_array(store: OcdbtStore, name: str) -> np.ndarray:
         if len(raw) != chunk_bytes:
             raise ValueError(f"{what}: chunk {key} holds {len(raw)} bytes, {chunk_bytes} expected")
         block = np.frombuffer(raw, stored).reshape(chunks)
+        if chunks == shape and isinstance(raw, bytearray):  # one chunk, already our copy
+            out = block
+            continue
         out[region] = block[tuple(slice(0, r.stop - r.start) for r in region)]
     if bf16:
         return (out.astype(np.uint32) << 16).view(np.float32)
@@ -171,3 +185,93 @@ def load_params(path: Union[str, Path]) -> Any:
     ``sylber_tpu.io.checkpoint.load_params`` does)."""
     sub = Path(path) / "params"
     return read_tree(sub if sub.is_dir() else path)
+
+
+# ---------------------------------------------------------------- the writer
+
+_ZARR_DTYPES = {np.dtype(v): k for k, v in _DTYPES.items()}
+_EMPTY_TYPES = {dict: "Dict", list: "List", tuple: "Tuple"}
+STANDARD_HANDLER = ("orbax.checkpoint._src.handlers.standard_checkpoint_handler."
+                    "StandardCheckpointHandler")
+
+
+def _leaves(tree, keys=()) -> List[Tuple[tuple, Any]]:
+    """``(keys, leaf)`` in the tree's order; ``keys`` are ``(key, key_type)``."""
+    if isinstance(tree, dict) and tree:
+        return [x for k, v in tree.items() for x in _leaves(v, keys + ((str(k), 2),))]
+    if isinstance(tree, (list, tuple)) and tree:
+        return [x for i, v in enumerate(tree) for x in _leaves(v, keys + ((str(i), 1),))]
+    return [(keys, tree)]
+
+
+def _array(leaf, what: str) -> Tuple[str, np.ndarray]:
+    """The zarr dtype of a leaf and its C-ordered bytes as a numpy array."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach()
+        if t.device.type != "cpu":
+            raise ValueError(f"{what}: a tensor on {t.device}; copy it to the host first")
+        t = t.contiguous()
+        if t.dtype == torch.bfloat16:
+            return "bfloat16", t.view(torch.int16).numpy()
+        leaf = t.numpy()
+    if not isinstance(leaf, (np.ndarray, np.generic)):
+        raise TypeError(f"{what}: a {type(leaf).__name__} leaf; the JAX package saves numpy "
+                        "arrays")
+    a = np.asarray(leaf)
+    if not a.flags.c_contiguous:
+        a = a.copy(order="C")
+    if a.dtype.byteorder == ">":
+        a = a.astype(a.dtype.newbyteorder("<"))
+    if a.dtype not in _ZARR_DTYPES:
+        raise ValueError(f"{what}: dtype {a.dtype} is not written")
+    return _ZARR_DTYPES[a.dtype], a
+
+
+def write_tree(path: Union[str, Path], tree: Any,
+               max_decoded_node_bytes: int = MAX_DECODED_NODE_BYTES) -> Dict[str, int]:
+    """Write ``tree`` (nested dicts, lists and tuples of numpy arrays, CPU
+    tensors and ``None``) as the Orbax item directory ``path``, which
+    :func:`read_tree` and orbax's restore read: the OCDBT store, then
+    ``_METADATA``. Returns the store's byte counts
+    (``io/ocdbt.py::write_store``)."""
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    tree_metadata, items = {}, []
+    for keys, leaf in _leaves(tree):
+        if not keys:
+            raise ValueError(f"{path}: the tree is a single leaf; orbax saves a container")
+        name = ".".join(k for k, _ in keys)
+        if leaf is None:
+            value = {"value_type": "None", "skip_deserialize": True}
+        elif type(leaf) in _EMPTY_TYPES:
+            value = {"value_type": _EMPTY_TYPES[type(leaf)], "skip_deserialize": True}
+        else:
+            dtype, a = _array(leaf, f"{path}:{name}")
+            value = {"value_type": "np.ndarray", "skip_deserialize": False}
+            zarray = {"chunks": [max(s, 1) for s in a.shape], "compressor": None,
+                      "dimension_separator": ".", "dtype": dtype, "fill_value": None,
+                      "filters": None, "order": "C", "shape": list(a.shape), "zarr_format": 2}
+            items.append((f"{name}/.zarray", json.dumps(zarray, separators=(",", ":")).encode()))
+            if a.size:
+                items.append((f"{name}/{'.'.join(['0'] * a.ndim) or '0'}", a.reshape(-1)))
+        tree_metadata[str(tuple(k for k, _ in keys))] = {
+            "key_metadata": [{"key": k, "key_type": t} for k, t in keys],
+            "value_metadata": value}
+    stats = write_store(path, items, max_decoded_node_bytes=max_decoded_node_bytes)
+    meta = {"tree_metadata": tree_metadata, "use_ocdbt": True, "use_zarr3": False,
+            "store_array_data_equal_to_fill_value": True, "custom_metadata": None}
+    tmp = path / f"_METADATA.{os.urandom(4).hex()}.tmp"
+    tmp.write_text(json.dumps(meta))
+    os.replace(tmp, path / "_METADATA")
+    return stats
+
+
+def write_checkpoint_metadata(directory: Union[str, Path], item_handlers: Any,
+                              init_ns: int) -> None:
+    """``directory/_CHECKPOINT_METADATA`` as orbax writes it: the item
+    handlers (one class name, or a dict of item name to class name) and the
+    times the save began (``init_ns``) and ended, in nanoseconds."""
+    meta = {"item_handlers": item_handlers, "metrics": {}, "performance_metrics": {},
+            "init_timestamp_nsecs": int(init_ns), "commit_timestamp_nsecs": time.time_ns(),
+            "custom_metadata": {}}
+    (Path(directory) / "_CHECKPOINT_METADATA").write_text(json.dumps(meta))

@@ -437,6 +437,15 @@ class SegmentSynthesis:
                 "input_mlp": tree_from_state_dict(self.input_mlp.state_dict()),
                 "regressor": tree_from_state_dict(self.regressor.state_dict())}
 
+    def save(self, path: str) -> None:
+        """The parameters as an Orbax checkpoint, ``path/params`` holding the
+        :meth:`jax_tree` dict, as ``sylber_tpu/synthesis.py``'s ``save``
+        writes it (``io/checkpoint.py::save_params``): the JAX package's
+        ``SegmentSynthesis(model_ckpt=path)`` and the port's load it."""
+        from .io.checkpoint import save_params
+
+        save_params(path, self.jax_tree())
+
 
 @dataclasses.dataclass(frozen=True)
 class SynthesisOptimizer:

@@ -120,11 +120,12 @@ class TrainState:
 
     def state_dict(self) -> Dict[str, Any]:
         """The whole state; under a mesh every leaf gathered whole (all ranks
-        call this together), so a checkpoint has one layout whatever the mesh."""
+        call this together), so a checkpoint has one layout whatever the mesh.
+        Without a mesh the leaves are the live tensors, AdamW's step counts
+        included (no wait for the device)."""
         if self.mesh is None:
             return dict(step=self.step, params=self.student.state_dict(),
-                        ema=self.teacher.state_dict(),
-                        optimizer=host_optimizer_state(self.optimizer),
+                        ema=self.teacher.state_dict(), optimizer=self.optimizer.state_dict(),
                         thresholder=tuple(self.thresholder), acc_grads=self.acc_grads)
         names = [n for n, _ in self.student.named_parameters()]
         full = lambda sd: {k: gather_full(v, k, self.mesh).cpu() for k, v in sd.items()}  # noqa: E731

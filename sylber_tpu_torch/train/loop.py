@@ -6,10 +6,14 @@ once and gathered on the device (``data.device_resident``, the default for
 it), or from files, assembled on the host (``data.num_workers`` worker
 processes) and copied ahead of use through pinned memory on a side stream;
 metrics fetched every ``log_every`` steps into ``metrics.jsonl``; rolling
-checkpoints every ``ckpt_every`` steps with resume (``resumed from step
+checkpoints every ``ckpt_every`` steps in the JAX trainer's Orbax layout
+(``ckpts/<step>/default``, which the JAX trainer resumes), copied off the
+card on the step's stream and written on a background thread, each save's
+times and bytes in ``checkpoints.jsonl``, with resume (``resumed from step
 N``); a Chrome trace of steps ``a`` to ``b`` with ``profile_steps=(a, b)``
 (``<out_dir>/profile/trace.json``); the final student parameters as
-``params_final.npz`` in the JAX layout.
+``params_final/`` (Orbax, the JAX loop's ``save_params``) and
+``params_final.npz``, both in the JAX layout.
 
 The mesh (``mesh: {dp, mp, fsdp, fsdp_min_size}``, ``distributed:``;
 ``parallel/mesh.py``; FSDP shards the leaves of JAX's plan, those of at
@@ -22,7 +26,7 @@ builds the same global batch from ``(seed, step)`` and keeps its rows; with
 ``data.device_resident`` each rank uploads the whole corpus and gathers the
 global batch on its device (JAX's loop places each host's share of a
 host-built batch). Rank 0 alone prints and writes ``metrics.jsonl``, the
-checkpoints and ``params_final.npz``, whose leaves are gathered whole first
+checkpoints and ``params_final``, whose leaves are gathered whole first
 (a checkpoint resumes under any mesh); the val loss is the global batch's;
 MFU is over the ``dp`` cards, as in JAX.
 
@@ -62,7 +66,8 @@ from ..data.dataset import (SpeechDataset, SyntheticSpeechDataset, load_manifest
 from ..data.device import device_stream, gather_batch, index_stream, precollate, to_device, \
     wait_ready
 from ..data.noise import NoiseMixerConfig
-from ..io.checkpoint import TrainCheckpointManager, save_params_npz
+from ..io.checkpoint import (TrainCheckpointManager, jax_params_from_state_dict, save_params,
+                             save_tree_npz, train_state_to_jax)
 from ..models.hubert import HubertConfig
 from ..parallel.mesh import (FSDP_MIN_SIZE, fetch_global, is_main, maybe_distributed_init,
                              mesh_from_config, shard_batch)
@@ -181,13 +186,16 @@ def _val_batches(data_cfg: Dict[str, Any], batch_size: int, seed: int, device: t
 def train(cfg: Dict[str, Any], out_dir: str = "runs/sylber", max_steps: Optional[int] = None,
           log_every: int = 50, ckpt_every: int = 1000, val_every: Optional[int] = None,
           limit_val_batches: int = 100, init_params: Optional[Dict[str, torch.Tensor]] = None,
-          device=None, profile_steps: Optional[Tuple[int, int]] = None) -> TrainState:
+          device=None, profile_steps: Optional[Tuple[int, int]] = None,
+          max_to_keep: int = 5) -> TrainState:
     """Train from the recipe dict ``cfg`` (the JAX loop's keys) on ``device``
     (``cuda`` unless the caller asks for the CPU, ``cuda:LOCAL_RANK`` in a
     process group; raises without a GPU). ``init_params``: a HubertModel
     state dict for the student and teacher. ``profile_steps=(a, b)``: trace
     steps ``a`` to ``b`` (0-based, both included) into
-    ``<out_dir>/profile`` (rank 0's)."""
+    ``<out_dir>/profile`` (rank 0's). ``max_to_keep``: the checkpoints kept;
+    the JAX trainer's 5 unless a caller asks for fewer (only ``chip_smoke.py``
+    phase 16 does, to keep its disk small). The command line has no such flag."""
     maybe_distributed_init(cfg.get("distributed"), device)
     device = resolve_device(device)
     mesh_cfg = dict(cfg.get("mesh") or {})
@@ -221,10 +229,10 @@ def train(cfg: Dict[str, Any], out_dir: str = "runs/sylber", max_steps: Optional
                              seed=seed, mesh=mesh,
                              fsdp=bool(mesh_cfg.get("fsdp", False)) and mesh is not None,
                              fsdp_min_size=int(mesh_cfg.get("fsdp_min_size", FSDP_MIN_SIZE)))
-    mgr = TrainCheckpointManager(os.path.join(out_dir, "ckpts"))
+    mgr = TrainCheckpointManager(os.path.join(out_dir, "ckpts"), max_to_keep=max_to_keep)
+    names = [n for n, _ in state.student.named_parameters()]
     if mgr.latest_step is not None:  # the port's step, or the JAX trainer's
-        state.load_state_dict(mgr.restore(
-            param_names=[n for n, _ in state.student.named_parameters()]))
+        state.load_state_dict(mgr.restore(param_names=names))
         if main:
             print(f"resumed from step {state.step}")
     start = state.step
@@ -292,9 +300,11 @@ def train(cfg: Dict[str, Any], out_dir: str = "runs/sylber", max_steps: Optional
                     # waits for the device: only every log_every steps
                     log_row(s_end, _fetch(metrics), batch["input_values"].shape[-1])
             if ckpt_every and step_i // ckpt_every != s_end // ckpt_every:
-                full = state.state_dict()  # every rank gathers its pieces
+                # every rank gathers its pieces; without a mesh, the live tensors
+                full = state.state_dict()
                 if main:
-                    mgr.save(s_end, dict(full, data_seed=seed))
+                    mgr.save(s_end, train_state_to_jax(full, names, dcfg),
+                             marker={"data_seed": seed})
             if val_every and step_i // val_every != s_end // val_every:
                 if val_batches is None:  # built once, kept on the device
                     val_batches = [shard_batch(vb, mesh) for vb in _val_batches(
@@ -307,10 +317,16 @@ def train(cfg: Dict[str, Any], out_dir: str = "runs/sylber", max_steps: Optional
                     print(f"  val loss: {loss:.4f}")
             step_i = s_end
 
+    mgr.close()  # the last write ended; a failed write raises here
+    if main and mgr.records:
+        with open(os.path.join(out_dir, "checkpoints.jsonl"), "a") as f:
+            f.writelines(json.dumps(r) + "\n" for r in mgr.records)
     final = fetch_global(state.student.state_dict(), mesh) if mesh is not None \
         else state.student.state_dict()
     if main:
-        save_params_npz(os.path.join(out_dir, "params_final.npz"), final)
+        tree = jax_params_from_state_dict(final)
+        save_tree_npz(os.path.join(out_dir, "params_final.npz"), tree)
+        save_params(os.path.join(out_dir, "params_final"), tree)
     if mesh is not None:
         dist.barrier()  # the outputs exist when any rank returns
     return state

@@ -16,12 +16,12 @@ Port of ``sylber_tpu/train/synthesis_loop.py``:
 4. the held-out gate (:func:`evaluate_synthesis`): sampled trajectories
    against the ground-truth pitch and loudness.
 
-Artifacts in ``out_dir``: ``synthesis_final.npz`` (the ``hubert``,
-``input_mlp`` and ``regressor`` trees in the JAX layout, which the JAX
-package's ``load_params_npz`` and the port's ``SegmentSynthesis`` read),
-``eval.json`` and ``metrics.jsonl``. The JAX loop writes an Orbax directory
-instead (intended difference (y), ``ROADMAP.md`` section 3), which the port
-reads (``io/orbax.py``) but does not write.
+Artifacts in ``out_dir``: ``synthesis_final/`` (the ``hubert``,
+``input_mlp`` and ``regressor`` trees in the JAX layout as an Orbax
+directory, ``SegmentSynthesis.save``, which the JAX loop writes and its
+``SegmentSynthesis`` loads), ``synthesis_final.npz`` (the same trees, which
+the JAX package's ``load_params_npz`` and the port's ``SegmentSynthesis``
+read), ``eval.json`` and ``metrics.jsonl``.
 
 Data parallelism (``mesh: {dp}``, ``distributed:``; JAX's
 ``synthesis_loop.py:286-356``): the process joins the run's process group
@@ -320,6 +320,7 @@ def train_synthesis(cfg: Dict[str, Any], out_dir: str = "runs/synthesis",
                                  pitch_cond=pitch_ev)
     logger.log(total_steps, metrics, prefix="eval")
     print("eval:", json.dumps(metrics))
+    synth.save(os.path.join(out_dir, "synthesis_final"))
     save_tree_npz(os.path.join(out_dir, "synthesis_final.npz"), synth.jax_tree())
     with open(os.path.join(out_dir, "eval.json"), "w") as f:
         json.dump(metrics, f, indent=1)

@@ -1,22 +1,26 @@
 // A host stand-in for the part of the CUDA runtime that the kernels of
 // sylber_tpu_torch/csrc use, so that the kernel sources can be compiled with
 // g++ and run on the CPU by tests/test_torch_cuda_emu.py. Every CUDA thread
-// of a block is a host thread; blocks run one after the other, except in a
-// cooperative launch, where every block's threads run at once.
-// __syncthreads, __syncwarp, the warp shuffles and the ballot are barriers
-// with an exchange buffer. It checks indexing, masking and pipeline order; it
+// of a block is a fiber (a stack and a saved context of its own) on the one
+// host thread that launches: a fiber runs until it waits (a barrier, an
+// mbarrier, a flag word), then hands the host thread to the next one, round
+// robin: in ascending thread order in one block (or cooperative launch) and
+// descending in the next, so that a missing barrier shows whichever thread
+// reads what another wrote. Blocks run one after the other, except in a
+// cooperative launch, where every block's threads take turns at once. __syncthreads,
+// __syncwarp, the warp shuffles and the ballot are barriers with an
+// exchange buffer. It checks indexing, masking and pipeline order; it
 // cannot check PTX, timing or anything asynchronous (copies complete at once).
 #pragma once
 #include <algorithm>
+#include <chrono>
 #include <cmath>
-#include <condition_variable>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
 #include <functional>
 #include <mutex>
-#include <thread>
 #include <type_traits>
 #include <utility>
 #include <vector>
@@ -83,22 +87,39 @@ cudaError_t cudaGetDriverEntryPointByVersion(const char* symbol, void** fn, unsi
 // The kernels' dynamic shared memory (emu.cpp): every block's, one after the other.
 namespace sylber { namespace attn { extern unsigned char smem_raw[]; } }
 
+// Hands the host thread to the next emulated thread (emu.cpp); returns when
+// this one's turn comes round again.
+void emu_yield();
+// One emulated thread's wait: each turn yields; after `limit` it aborts with
+// `what` (a wait that nothing will end).
+struct EmuWait {
+  const char* what;
+  std::chrono::steady_clock::duration limit;
+  std::chrono::steady_clock::time_point start = std::chrono::steady_clock::now();
+  long turns = 0;
+  void turn() {
+    emu_yield();
+    if (++turns % 4096 == 0 && std::chrono::steady_clock::now() - start > limit) {
+      fprintf(stderr, "%s\n", what);
+      abort();
+    }
+  }
+};
+
 struct Barrier {
-  std::mutex mu;
-  std::condition_variable cv;
   int n, count = 0;
   unsigned long generation = 0;
   explicit Barrier(int n_) : n(n_) {}
   void wait() {
-    std::unique_lock<std::mutex> lock(mu);
     const unsigned long g = generation;
     if (++count == n) {
       count = 0;
       ++generation;
-      cv.notify_all();
-    } else {
-      cv.wait(lock, [&] { return generation != g; });
+      return;
     }
+    EmuWait w{"a barrier that some thread of the block never reaches",
+              std::chrono::minutes(1)};
+    while (generation == g) w.turn();
   }
 };
 

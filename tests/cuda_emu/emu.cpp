@@ -3,7 +3,12 @@
 // and transaction bytes, phases), the bulk copy, ldmatrix and mma.m16n8k16
 // bf16 fragment layouts, TMA 2-D tile loads with the 128-byte swizzle and
 // wgmma s8 through shared-memory descriptors; the cooperative launch and
-// common.cuh's flag words.
+// common.cuh's flag words. The emulated threads are fibers (ucontext) that
+// the launch runs round robin on its own host thread, in ascending and
+// descending order by turns.
+#include <sys/mman.h>
+#include <ucontext.h>
+
 #include <chrono>
 #include <memory>
 #include <unordered_map>
@@ -13,6 +18,82 @@
 
 thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 thread_local BlockCtx* emu_block;
+
+namespace {
+// An emulated thread: its context, its stack, and what the launch loop puts in
+// the thread-local registers before it runs.
+struct Fiber {
+  ucontext_t ctx;
+  dim3 tid, bid;
+  BlockCtx* block;
+  bool done;
+};
+constexpr size_t kFiberStack = 256 * 1024;
+thread_local ucontext_t scheduler;
+thread_local Fiber* running;
+thread_local const std::function<void()>* fiber_body;
+thread_local dim3 fiber_block_dim, fiber_grid;
+
+void fiber_main() {  // returns to `scheduler` (uc_link)
+  (*fiber_body)();
+  running = nullptr;
+}
+
+// Every other call takes the turns in reverse order, so that a block whose
+// threads skip a barrier shows it whichever thread reads what another wrote.
+thread_local unsigned long fiber_runs;
+
+// Runs `body` once as each of `fibers` (their ids and blocks set), taking
+// turns at every wait, until all have returned.
+void run_fibers(std::vector<Fiber>& fibers, const std::function<void()>& body, dim3 block_dim,
+                dim3 grid) {
+  const size_t n = fibers.size();
+  unsigned char* stacks = (unsigned char*)mmap(nullptr, n * kFiberStack, PROT_READ | PROT_WRITE,
+                                               MAP_PRIVATE | MAP_ANONYMOUS | MAP_NORESERVE, -1, 0);
+  if (stacks == MAP_FAILED) {
+    fprintf(stderr, "no memory for %zu emulated threads' stacks\n", n);
+    abort();
+  }
+  fiber_body = &body;
+  fiber_block_dim = block_dim;
+  fiber_grid = grid;
+  for (size_t i = 0; i < n; ++i) {
+    Fiber& f = fibers[i];
+    f.done = false;
+    getcontext(&f.ctx);
+    f.ctx.uc_stack.ss_sp = stacks + i * kFiberStack;
+    f.ctx.uc_stack.ss_size = kFiberStack;
+    f.ctx.uc_link = &scheduler;
+    makecontext(&f.ctx, fiber_main, 0);
+  }
+  const bool reverse = fiber_runs++ & 1;
+  for (size_t live = n; live;) {
+    for (size_t i = 0; i < n; ++i) {
+      Fiber& f = fibers[reverse ? n - 1 - i : i];
+      if (f.done) continue;
+      running = &f;
+      threadIdx = f.tid;
+      blockIdx = f.bid;
+      blockDim = fiber_block_dim;
+      gridDim = fiber_grid;
+      emu_block = f.block;
+      swapcontext(&scheduler, &f.ctx);
+      // back here when the fiber waits (emu_yield) or its body returns
+      if (running == nullptr) {
+        f.done = true;
+        --live;
+      }
+    }
+  }
+  munmap(stacks, n * kFiberStack);
+}
+}  // namespace
+
+void emu_yield() {
+  Fiber* f = running;
+  swapcontext(&f->ctx, &scheduler);
+}
+
 namespace sylber { namespace attn {
 // the kernels' extern __shared__ array; 1024-aligned, as the 128-byte swizzle wants
 alignas(1024) unsigned char smem_raw[256 * 1024];
@@ -71,31 +152,22 @@ void mbar_complete_tx(uint64_t* bar, unsigned bytes) {
   settle(b);
 }
 // Returns once the phase of this parity is complete (at once for the parity
-// of the phase before the current one).
+// of the phase before the current one); aborts after a few seconds.
 void mbar_wait(uint64_t* bar, int parity) {
-  for (long spins = 0;; ++spins) {
+  EmuWait w{"a wait for a phase that never completes", std::chrono::seconds(5)};
+  for (;;) {
     {
       std::lock_guard<std::mutex> lock(bar_mu);
       if ((int)(find_barrier(bar).phase & 1) != parity) return;
     }
-    std::this_thread::yield();
-    if (spins > 20000000) {
-      fprintf(stderr, "a wait for a phase that never completes\n");
-      abort();
-    }
+    w.turn();
   }
 }
-// Spins, yielding, until `done()`; aborts with `what` after two minutes.
+// Takes turns until `done()`; aborts with `what` after two minutes.
 template <typename F>
 static void spin_until(F done, const char* what) {
-  const auto deadline = std::chrono::steady_clock::now() + std::chrono::minutes(2);
-  while (!done()) {
-    std::this_thread::yield();
-    if (std::chrono::steady_clock::now() > deadline) {
-      fprintf(stderr, "%s\n", what);
-      abort();
-    }
-  }
+  EmuWait w{what, std::chrono::minutes(2)};
+  while (!done()) w.turn();
 }
 // common.cuh's flag words: a store and a spin on the step, as whole 8-byte words
 void flag_store(unsigned long long* word, unsigned value, unsigned step) {
@@ -160,6 +232,7 @@ void emu_launch(const std::function<void()>& body, dim3 grid, int threads, size_
     fprintf(stderr, "launch asks for %zu bytes of shared memory\n", smem);
     abort();
   }
+  std::vector<Fiber> fibers(threads);
   for (unsigned bz = 0; bz < grid.z; ++bz)
   for (unsigned by = 0; by < grid.y; ++by)
     for (unsigned bx = 0; bx < grid.x; ++bx) {
@@ -169,17 +242,12 @@ void emu_launch(const std::function<void()>& body, dim3 grid, int threads, size_
       ctx.bar = &bar;
       ctx.smem = sylber::attn::smem_raw;
       for (int w = 0; w < (threads + 31) / 32; ++w) ctx.warps.push_back(new WarpCtx);
-      std::vector<std::thread> pool;
-      for (int t = 0; t < threads; ++t)
-        pool.emplace_back([&, t] {
-          threadIdx = dim3(t);
-          blockIdx = dim3(bx, by, bz);
-          blockDim = dim3(threads);
-          gridDim = grid;
-          emu_block = &ctx;
-          body();
-        });
-      for (auto& t : pool) t.join();
+      for (int t = 0; t < threads; ++t) {
+        fibers[t].tid = dim3(t);
+        fibers[t].bid = dim3(bx, by, bz);
+        fibers[t].block = &ctx;
+      }
+      run_fibers(fibers, body, dim3(threads), grid);
       for (auto* w : ctx.warps) delete w;
     }
 }
@@ -200,18 +268,15 @@ cudaError_t emu_launch_cooperative(const std::function<void()>& body, dim3 grid,
     ctxs[b].smem = (unsigned char*)memory[b].data();
     for (int w = 0; w < (threads + 31) / 32; ++w) ctxs[b].warps.push_back(new WarpCtx);
   }
-  std::vector<std::thread> pool;
+  std::vector<Fiber> fibers(blocks * threads);
   for (unsigned b = 0; b < blocks; ++b)
-    for (int t = 0; t < threads; ++t)
-      pool.emplace_back([&, b, t] {
-        threadIdx = dim3(t);
-        blockIdx = dim3(b % grid.x, b / grid.x % grid.y, b / (grid.x * grid.y));
-        blockDim = dim3(threads);
-        gridDim = grid;
-        emu_block = &ctxs[b];
-        body();
-      });
-  for (auto& t : pool) t.join();
+    for (int t = 0; t < threads; ++t) {
+      Fiber& f = fibers[b * threads + t];
+      f.tid = dim3(t);
+      f.bid = dim3(b % grid.x, b / grid.x % grid.y, b / (grid.x * grid.y));
+      f.block = &ctxs[b];
+    }
+  run_fibers(fibers, body, dim3(threads), grid);
   for (auto& c : ctxs)
     for (auto* w : c.warps) delete w;
   return cudaSuccess;

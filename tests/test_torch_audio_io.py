@@ -15,6 +15,7 @@ import pytest
 from sylber_tpu.utils.audio import load_for_inference as jax_load_for_inference
 from sylber_tpu.utils.audio import load_wav as jax_load_wav
 from sylber_tpu_torch.utils import audio, native, sndfile
+from _torch_threads import _few_threads  # noqa: E402,F401 (autouse)
 
 FIXTURES = Path(__file__).parent / "fixtures"
 

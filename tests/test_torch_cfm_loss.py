@@ -21,6 +21,7 @@ from sylber_tpu.flow import cfm as jcfm
 from sylber_tpu_torch.flow import cfm as tcfm
 from sylber_tpu_torch.models import voicebox as tvb
 from sylber_tpu_torch.ops import attention as tattn
+from _torch_threads import _few_threads  # noqa: E402,F401 (autouse)
 
 
 def jax_draws(rng, shape):

@@ -48,6 +48,7 @@ from chip_smoke import half_integer_rows, reciprocal_disagreements
 from sylber_tpu_torch.ops import gateloop as port_gateloop
 from sylber_tpu_torch.ops import int8 as port_int8
 from test_torch_cuda_emu import _check, build_host_library
+from _torch_threads import _few_threads  # noqa: E402,F401 (autouse)
 
 F32, BF16 = torch.float32, torch.bfloat16
 ENTRY_POINTS = ["sylber_quantize_rows", "sylber_int8_gemm", "sylber_gate_loop"]

@@ -29,6 +29,7 @@ import torch
 
 from sylber_tpu_torch.flow import kmeans as port_kmeans
 from test_torch_cuda_emu import _check, build_host_library
+from _torch_threads import _few_threads  # noqa: E402,F401 (autouse)
 
 ENTRY_POINTS = ["sylber_kmeanspp_scratch", "sylber_kmeanspp", "sylber_kmeanspp_barrier_probe"]
 EMU_SMS, EMU_OPTIN = 3, 232448  # tests/cuda_emu/cuda_runtime.h

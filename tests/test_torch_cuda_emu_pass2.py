@@ -34,6 +34,7 @@ from sylber_tpu_torch import Segmenter
 from sylber_tpu_torch.models.hubert import HubertConfig
 from sylber_tpu_torch.ops import segment as port_segment
 from test_torch_cuda_emu import _check, _plateaus, build_host_library
+from _torch_threads import _few_threads  # noqa: E402,F401 (autouse)
 
 FIXTURES = Path(__file__).parent / "fixtures"
 ENTRY_POINTS = ["sylber_segment_pass1", "sylber_segment_pass2"]

@@ -23,6 +23,7 @@ from sylber_tpu_torch.data import dataset as port_ds
 from sylber_tpu_torch.data import device as port_device
 from sylber_tpu_torch.data import synthetic as port_synth
 from sylber_tpu_torch.utils.audio import load_wav
+from _torch_threads import _few_threads  # noqa: E402,F401 (autouse)
 
 FIXTURES = Path(__file__).parent / "fixtures"
 

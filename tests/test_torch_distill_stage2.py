@@ -6,6 +6,7 @@ states. The setting and the tolerances are those of
 that each file stays short."""
 
 from test_torch_distill import check_gradients  # noqa: E402 (same-dir test module)
+from _torch_threads import _few_threads  # noqa: E402,F401 (autouse)
 
 
 def test_stage2_gradients_and_segments_match_jax():

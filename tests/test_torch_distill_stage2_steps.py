@@ -7,6 +7,7 @@ tolerances are those of ``test_torch_distill.py``."""
 import pytest
 
 from test_torch_distill import check_steps  # noqa: E402 (same-dir test module)
+from _torch_threads import _few_threads  # noqa: E402,F401 (autouse)
 
 
 @pytest.mark.parametrize("thrupdate", [True, False], ids=["thrupdate", "no_thrupdate"])

@@ -22,10 +22,11 @@ import torch
 from sylber_tpu.models import hubert as jax_hubert
 from sylber_tpu.train import distill as jax_distill
 from sylber_tpu.train import ema as jax_ema
-from sylber_tpu_torch.io.checkpoint import TrainCheckpointManager
+from sylber_tpu_torch.io.checkpoint import TrainCheckpointManager, train_state_to_jax
 from sylber_tpu_torch.models.hubert import HubertConfig
 from sylber_tpu_torch.train import distill
 from sylber_tpu_torch.train import ema as port_ema
+from _torch_threads import _few_threads  # noqa: E402,F401 (autouse)
 
 TINY = dict(hidden_size=32, num_attention_heads=4, intermediate_size=64, conv_dim=(16,) * 7,
             num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4, num_hidden_layers=1)
@@ -84,10 +85,11 @@ def test_training_state_teacher_dtype_follows_jax_and_survives_a_checkpoint(tmp_
     assert any(not torch.equal(b[k], teachers[False].student.state_dict()[k]) for k in b)
 
     mgr = TrainCheckpointManager(str(tmp_path / "ckpts"))
-    mgr.save(3, teachers[False].state_dict())
+    names = [n for n, _ in teachers[False].student.named_parameters()]
+    mgr.save(3, train_state_to_jax(teachers[False].state_dict(), names, base))
     fresh = distill.init_train_state(dataclasses.replace(base, ema_fp32_shadow=False), "cpu",
                                      seed=1)
-    fresh.load_state_dict(mgr.restore())
+    fresh.load_state_dict(mgr.restore(param_names=names))
     assert fresh.step == 3
     for k, v in fresh.ema.items():
         assert v.dtype == b[k].dtype and torch.equal(v, b[k]), k

@@ -32,6 +32,7 @@ from sylber_tpu_torch.io.checkpoint import (state_dict_from_tree, synthesis_stat
 from sylber_tpu_torch.models import voicebox as tvb
 from sylber_tpu_torch.ops import gateloop as port_gateloop
 from test_torch_synthesis_train import flat
+from _torch_threads import _few_threads  # noqa: E402,F401 (autouse)
 
 # test_gateloop_adaptive.py's wiring configuration
 TINY = dict(dim=32, depth=2, heads=2, dim_head=8, dim_in_proj=8, dim_cond_emb=16,

@@ -4,7 +4,8 @@ Hidden states of ``sylber_tpu_torch.models.hubert.HubertModel`` must match
 ``sylber_tpu.models.hubert.HubertModel`` at atol 2e-4 in fp32 / highest, on
 valid frames of valid items, with the same weights: seeded JAX weights at a
 small width, the trained ``mini_ckpt.npz`` fixture, and an HF
-``HubertModel`` state dict converted by both packages.
+``HubertModel`` state dict converted by both packages. The JAX model's
+``init`` and ``apply`` are jitted (run op by op they cost tens of seconds).
 """
 
 import json
@@ -20,6 +21,7 @@ from sylber_tpu.io.checkpoint import load_params_npz as jax_load_npz
 from sylber_tpu.models import hubert as jax_hubert
 from sylber_tpu_torch.io.checkpoint import load_params_npz, state_dict_from_jax_params
 from sylber_tpu_torch.models import hubert as port_hubert
+from _torch_threads import _few_threads  # noqa: E402,F401 (autouse)
 
 FIXTURES = Path(__file__).parent / "fixtures"
 SMALL = dict(hidden_size=48, num_attention_heads=4, intermediate_size=96,
@@ -46,7 +48,7 @@ def _compare(cfg_kwargs, params, lengths, L, seed):
     rng = np.random.RandomState(seed)
     wav, mask = _batch(rng, lengths, L)
     jcfg = jax_hubert.HubertConfig(precision="highest", **cfg_kwargs)
-    want = np.asarray(jax_hubert.HubertModel(jcfg).apply(
+    want = np.asarray(jax.jit(jax_hubert.HubertModel(jcfg).apply)(  # eager: tens of seconds
         {"params": params}, jnp.asarray(wav), jnp.asarray(mask)))
     with torch.no_grad():
         got = _port_model(cfg_kwargs, params)(torch.from_numpy(wav),
@@ -58,8 +60,9 @@ def _compare(cfg_kwargs, params, lengths, L, seed):
 
 
 def test_small_config_padded_batch_matches_jax():
-    params = jax_hubert.HubertModel(jax_hubert.HubertConfig(**SMALL)).init_params(
-        jax.random.PRNGKey(0), 8000)
+    model = jax_hubert.HubertModel(jax_hubert.HubertConfig(**SMALL))
+    params = jax.device_get(jax.jit(lambda key: model.init_params(key, 8000))(
+        jax.random.PRNGKey(0)))
     _compare(SMALL, params, [8000, 5100, 2300], 8000, seed=0)
 
 
@@ -124,7 +127,7 @@ def test_hf_state_dict_conversion_matches_jax(tmp_path):
     model = port_hubert.HubertModel(port_hubert.HubertConfig(**SMALL))
     model.load_state_dict(load_torch_checkpoint(str(path), num_hidden_layers=2))
     wav = np.random.RandomState(4).randn(1, 6400).astype(np.float32)
-    want = np.asarray(jax_hubert.HubertModel(jax_hubert.HubertConfig(**SMALL)).apply(
+    want = np.asarray(jax.jit(jax_hubert.HubertModel(jax_hubert.HubertConfig(**SMALL)).apply)(
         {"params": params}, jnp.asarray(wav)))
     with torch.no_grad():
         got = model.eval()(torch.from_numpy(wav)).numpy()

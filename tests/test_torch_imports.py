@@ -4,7 +4,11 @@ A fresh interpreter imports every module of ``sylber_tpu_torch`` (walked
 with ``pkgutil``, ``parallel.mesh``, ``parallel.launch`` and the Orbax
 reader's ``io.zstd``, ``io.ocdbt`` and ``io.orbax`` among them) and checks
 ``sys.modules``: no JAX, no ``sylber_tpu``, and none of ``orbax``,
-``tensorstore`` or ``zstandard``, which the Orbax reader does without; then, with no GPU, the entry
+``tensorstore`` or ``zstandard``, which the Orbax reader and writer do
+without (the writer's ``write_store``, ``write_tree``,
+``write_checkpoint_metadata``, ``save_params``, ``train_state_to_jax``,
+``SegmentSynthesis.save`` and the manager's ``wait`` and ``close`` must be
+there); then, with no GPU, the entry
 points (the resynthesis chain's and its trainers', ``fit_kmeans`` and
 ``Sylber`` included, the corpus path's runners and ``mini_proof``, and the
 evaluation entry points: ``vocoder_proof``, ``token_chain_proof``,
@@ -17,6 +21,7 @@ refuse to run unless the caller asks for the CPU.
 import subprocess
 import sys
 from pathlib import Path
+from _torch_threads import _few_threads  # noqa: E402,F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -36,6 +41,18 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "sylber_tpu" or m.startswith("sylber_tpu.")
              or m.split(".")[0] in ("orbax", "tensorstore", "zstandard"))
+assert not bad, bad
+# the Orbax writer: the OCDBT store, the zarr tree, the JAX layouts, the manager
+from sylber_tpu_torch.io.ocdbt import write_store
+from sylber_tpu_torch.io.orbax import write_checkpoint_metadata, write_tree
+from sylber_tpu_torch.io.checkpoint import (TrainCheckpointManager, save_params,
+                                            train_state_to_jax)
+from sylber_tpu_torch.synthesis import SegmentSynthesis
+assert all(map(callable, (write_store, write_tree, write_checkpoint_metadata, save_params,
+                          train_state_to_jax, SegmentSynthesis.save,
+                          TrainCheckpointManager.wait, TrainCheckpointManager.close)))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("orbax", "tensorstore", "zstandard")
+             or m == "jax" or m.startswith(("jax.", "jaxlib", "sylber_tpu.")))
 assert not bad, bad
 print(len(names), "modules")
 

@@ -46,6 +46,7 @@ from sylber_tpu_torch.models import hubert as port_hubert
 from sylber_tpu_torch.ops import int8 as port_int8
 from sylber_tpu_torch.train.distill import DistillConfig, make_train_step
 from sylber_tpu_torch.utils.metrics import boundary_f1
+from _torch_threads import _few_threads  # noqa: E402,F401 (autouse)
 
 FIXTURES = Path(__file__).parent / "fixtures"
 # tests/unit/test_int8.py's _small_cfg

@@ -22,6 +22,7 @@ from sylber_tpu_torch.ops.flash import flash_attention
 from sylber_tpu_torch.ops.frontend import analytic_moments_plain, conv0_gn_gelu
 from sylber_tpu_torch.ops.segment import segment_pass1, segment_pass2
 from sylber_tpu_torch.ops.smallattn import small_attention
+from _torch_threads import _few_threads  # noqa: E402,F401 (autouse)
 
 
 @pytest.fixture

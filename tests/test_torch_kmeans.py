@@ -26,6 +26,7 @@ from scipy import stats
 
 from sylber_tpu.flow import kmeans as jkm
 from sylber_tpu_torch.flow import kmeans as tkm
+from _torch_threads import _few_threads  # noqa: E402,F401 (autouse)
 
 
 def _points(n, d, seed=0, clusters=6):

@@ -33,6 +33,7 @@ import torch
 from sylber_tpu.models import hubert as jax_hubert
 from sylber_tpu_torch.io.checkpoint import jax_params_from_state_dict, state_dict_from_jax_params
 from sylber_tpu_torch.models import hubert as port_hubert
+from _torch_threads import _few_threads  # noqa: E402,F401 (autouse)
 
 TINY = dict(hidden_size=32, num_attention_heads=4, intermediate_size=64, conv_dim=(16,) * 7,
             num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4, num_hidden_layers=1)

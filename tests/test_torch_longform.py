@@ -33,6 +33,7 @@ from sylber_tpu_torch import Segmenter
 from sylber_tpu_torch.longform import LongFormSegmenter
 from sylber_tpu_torch.models.hubert import HubertConfig
 from sylber_tpu_torch.utils.metrics import boundary_f1
+from _torch_threads import _few_threads  # noqa: E402,F401 (autouse)
 
 FIXTURES = Path(__file__).parent / "fixtures"
 LF = dict(chunk_seconds=10.0, overlap_seconds=2.0)

@@ -34,6 +34,7 @@ import pytest
 from sylber_tpu_torch.parallel.launch import spawn
 
 import _torch_mesh_workers as W  # noqa: E402 (same-dir helper module)
+from _torch_threads import _few_threads  # noqa: E402,F401 (autouse)
 
 
 def _losses(run_dir):

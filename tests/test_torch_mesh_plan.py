@@ -24,6 +24,7 @@ from sylber_tpu.models.hubert import HubertConfig as JaxHubertConfig, HubertMode
 from sylber_tpu.parallel import mesh as jax_mesh
 from sylber_tpu_torch.models.hubert import HubertConfig, HubertModel
 from sylber_tpu_torch.parallel import mesh as port_mesh
+from _torch_threads import _few_threads  # noqa: E402,F401 (autouse)
 
 _TO_PORT = ((re.compile(r"^feature_extractor\.conv_(\d+)\."), r"feature_extractor.convs.\1."),
             (re.compile(r"^layer_(\d+)\."), r"layers.\1."))

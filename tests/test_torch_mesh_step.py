@@ -61,6 +61,7 @@ from sylber_tpu_torch.parallel import mesh as port_mesh
 from sylber_tpu_torch.parallel.launch import start
 
 import _torch_mesh_workers as W  # noqa: E402 (same-dir helper module)
+from _torch_threads import _few_threads  # noqa: E402,F401 (autouse)
 
 LAYOUTS = {"dp2": dict(dp=2, mp=1), "dp2_fsdp": dict(dp=2, mp=1, fsdp=True),
            "mp2": dict(dp=1, mp=2), "dp2xmp2": dict(dp=2, mp=2)}

@@ -9,6 +9,7 @@ import pytest
 
 from test_torch_mesh_step import (LAYOUTS, MeshRuns, case_id, check_against_jax,  # noqa: E402
                                   check_against_one_process)
+from _torch_threads import _few_threads  # noqa: E402,F401 (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -25,6 +25,7 @@ from sylber_tpu_torch.ops.segment import segment_batch
 from sylber_tpu_torch.ops.segment_np import frame_norms, pool_segment_features, segment_oracle
 from sylber_tpu_torch.utils import native, sndfile
 from sylber_tpu_torch.utils.flac import FlacError, decode_flac
+from _torch_threads import _few_threads  # noqa: E402,F401 (autouse)
 
 FIXTURES = Path(__file__).parent / "fixtures"
 NEAR_TIE_MARGIN = 1e-4  # tests/unit/test_native_segment.py's gate

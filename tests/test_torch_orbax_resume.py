@@ -33,7 +33,7 @@ import yaml
 from sylber_tpu.io.checkpoint import TrainCheckpointManager as JaxManager
 from sylber_tpu.train import distill as jax_distill
 from sylber_tpu_torch.io.checkpoint import (TrainCheckpointManager, jax_params_from_state_dict,
-                                            state_dict_from_jax_params)
+                                            state_dict_from_jax_params, train_state_to_jax)
 from sylber_tpu_torch.train import distill as port_distill
 from sylber_tpu_torch.train.loop import distill_config_from_dict
 import test_torch_distill  # noqa: E402 (same-dir test module)
@@ -174,12 +174,20 @@ def test_newest_step_wins_and_jax_steps_are_left_alone(tmp_path):
     mgr = TrainCheckpointManager(str(ckpts), max_to_keep=1)
     with pytest.raises(ValueError, match="param_names"):
         mgr.restore()
-    with pytest.raises(FileExistsError):  # a port step may not replace a JAX one
-        mgr.save(2, {"step": 2})
-    mgr.save(3, {"step": 3})
-    mgr.save(4, {"step": 4})  # prunes the port's step 3, not the JAX steps
-    assert mgr.steps() == [1, 2, 4] and mgr.restore() == {"step": 4}
-    shutil.rmtree(ckpts / "4")
     recipe = yaml.safe_load((FIXTURE / "tiny_train.yaml").read_text())
-    state = port_distill.init_train_state(distill_config_from_dict(dict(recipe["model"])), "cpu")
-    assert mgr.latest_step == 2 and mgr.restore(param_names=_names(state))["step"] == 2
+    cfg = distill_config_from_dict(dict(recipe["model"]))
+    state = port_distill.init_train_state(cfg, "cpu")
+    names = _names(state)
+
+    def tree(step):
+        state.step = step
+        return train_state_to_jax(state.state_dict(), names, cfg)
+
+    with pytest.raises(FileExistsError):  # a port step may not replace a JAX one
+        mgr.save(2, tree(2))
+    mgr.save(3, tree(3))
+    mgr.save(4, tree(4))  # prunes the port's step 3, not the JAX steps
+    mgr.wait()
+    assert mgr.steps() == [1, 2, 4] and mgr.restore(param_names=names)["step"] == 4
+    shutil.rmtree(ckpts / "4")
+    assert mgr.latest_step == 2 and mgr.restore(param_names=names)["step"] == 2

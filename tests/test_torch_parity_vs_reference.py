@@ -21,6 +21,7 @@ import torch
 from sylber_tpu.api import Segmenter as JaxSegmenter
 from sylber_tpu_torch import parity_vs_reference as pvr
 from sylber_tpu_torch.utils.audio import load_for_inference
+from _torch_threads import _few_threads  # noqa: E402,F401 (autouse)
 
 WAV = pvr.ROOT / "tests" / "fixtures" / "speechlike.wav"
 LAYERS = 2

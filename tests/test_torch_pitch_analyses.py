@@ -31,6 +31,7 @@ from sylber_tpu.utils.metrics import per_utterance_pitch_modulation
 from sylber_tpu_torch import pitch_decodability_probe as dec
 from sylber_tpu_torch import pitch_modulation_ceiling_probe as ceiling
 from _torch_proof_helpers import FIXTURES, SCRIPTS, jax_synth
+from _torch_threads import _few_threads  # noqa: E402,F401 (autouse)
 
 R_TOL = 1e-4
 

@@ -25,6 +25,7 @@ from sylber_tpu_torch.flow.quantizer import ScalarPitchQuantizer
 from sylber_tpu_torch.quantizer import KMQuantizer
 
 import pitch_chain_proof as jax_pcp  # noqa: E402  (scripts/, on the path by the helpers)
+from _torch_threads import _few_threads  # noqa: E402,F401 (autouse)
 
 CODEBOOK = np.load(FIXTURES / pcp.ART_CODEBOOK).astype(np.float32)
 STEPS, UTTS, SECONDS, BINS = 8, 2, 3.0, 64

@@ -25,6 +25,7 @@ from sylber_tpu.flow import quantizer as jq
 from sylber_tpu.ops import pitch as jp
 from sylber_tpu_torch.flow import quantizer as tq
 from sylber_tpu_torch.ops import pitch as tp
+from _torch_threads import _few_threads  # noqa: E402,F401 (autouse)
 
 FIXTURES = Path(__file__).parent / "fixtures"
 

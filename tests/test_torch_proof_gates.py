@@ -24,6 +24,7 @@ import pytest
 from sylber_tpu_torch import (pitch_chain_proof, production_codebooks, token_chain_proof,
                               vocoder_proof)
 from sylber_tpu_torch.train.vq_synthesis import eval_gate_failures
+from _torch_threads import _few_threads  # noqa: E402,F401 (autouse)
 
 TESTS = Path(__file__).parent
 FIXTURES = TESTS / "fixtures"

@@ -13,6 +13,7 @@ import torch
 from sylber_tpu.ops import segment as jax_segment
 from sylber_tpu.ops.segment_np import pool_segment_features, segment_oracle
 from sylber_tpu_torch.ops import segment as port
+from _torch_threads import _few_threads  # noqa: E402,F401 (autouse)
 
 
 def synthetic_states(rng, L=240, d=64, silence_prob=0.25, noise=0.15,

@@ -32,6 +32,7 @@ from sylber_tpu.models.hubert import HubertConfig as JaxConfig
 from sylber_tpu_torch import Segmenter
 from sylber_tpu_torch.models.hubert import HubertConfig
 from sylber_tpu_torch.serve import SegmenterServer
+from _torch_threads import _few_threads  # noqa: E402,F401 (autouse)
 
 FIXTURES = Path(__file__).parent / "fixtures"
 

@@ -32,6 +32,7 @@ from sylber_tpu_torch import Segmenter, serve_http
 from sylber_tpu_torch.models.hubert import HubertConfig
 from sylber_tpu_torch.quantizer import KMQuantizer
 from sylber_tpu_torch.serve import SegmenterServer
+from _torch_threads import _few_threads  # noqa: E402,F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 TINY = dict(num_hidden_layers=1, hidden_size=32, num_attention_heads=4,

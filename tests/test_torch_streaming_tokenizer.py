@@ -32,6 +32,7 @@ from sylber_tpu_torch.models.hubert import HubertConfig
 from sylber_tpu_torch.quantizer import KMQuantizer, ResidualKMQuantizer, load_km_quantizer
 from sylber_tpu_torch.streaming import StreamingSegmenter
 from sylber_tpu_torch.tokenizer import SylberTokenizer
+from _torch_threads import _few_threads  # noqa: E402,F401 (autouse)
 
 FIXTURES = Path(__file__).parent / "fixtures"
 TIE_RTOL = 1e-6

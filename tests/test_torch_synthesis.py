@@ -26,6 +26,7 @@ from sylber_tpu.train.synthesis_loop import build_synthesis_corpus
 from sylber_tpu.train.synthesis_loop import synthesis_config_from_dict as jax_config_from_dict
 from sylber_tpu_torch import synthesis as tsyn
 from sylber_tpu_torch.models.voicebox import RegressorConfig
+from _torch_threads import _few_threads  # noqa: E402,F401 (autouse)
 
 FIXTURES = Path(__file__).parent / "fixtures"
 ART_RTOL = 1e-4  # of the largest |art|

@@ -22,6 +22,7 @@ from sylber_tpu_torch import synthesis as tsyn
 from sylber_tpu_torch.io import torch_convert as tconv
 from sylber_tpu_torch.io.checkpoint import synthesis_state_dict_from_jax
 from sylber_tpu_torch.models.voicebox import Regressor, RegressorConfig
+from _torch_threads import _few_threads  # noqa: E402,F401 (autouse)
 
 
 def _rel(got, want):

@@ -25,6 +25,7 @@ from sylber_tpu_torch import token_chain_proof as tcp
 from sylber_tpu_torch.quantizer import KMQuantizer
 
 import token_chain_proof as jax_tcp  # noqa: E402  (scripts/, on the path by the helpers)
+from _torch_threads import _few_threads  # noqa: E402,F401 (autouse)
 
 CODEBOOK = np.load(FIXTURES / "mini_codebook_256.npy").astype(np.float32)
 STEPS, UTTS, SECONDS = 8, 2, 3.0

@@ -26,6 +26,7 @@ from sylber_tpu_torch.train import distill as port_distill
 from sylber_tpu_torch.train import ema as port_ema
 from sylber_tpu_torch.train import lr as port_lr
 from sylber_tpu_torch.train import thresholder as port_thr
+from _torch_threads import _few_threads  # noqa: E402,F401 (autouse)
 
 
 @pytest.mark.parametrize("warmup,total,min_factor,hold", [

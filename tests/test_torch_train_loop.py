@@ -23,6 +23,7 @@ import torch
 import yaml
 
 from sylber_tpu_torch.data.dataset import SyntheticSpeechDataset
+from sylber_tpu_torch.io.orbax import read_tree
 from sylber_tpu_torch.models.hubert import HubertConfig
 from sylber_tpu_torch.train import distill
 
@@ -102,10 +103,11 @@ def test_cli_trains_logs_and_checkpoints(runs):
     assert all(np.isfinite(r["normthreshold"]) and r["num_segments"] > 0 for r in train_rows)
     assert "step 4: " in runs["first"].stdout
     assert sorted(int(d.name) for d in (out / "ckpts").iterdir()) == [2, 3, 4, 5, 6]  # 5 kept
-    state = torch.load(out / "ckpts" / "6" / "state.pt", weights_only=True)
-    assert state["step"] == 6 and state["data_seed"] == 0
-    assert {"params", "ema", "optimizer", "thresholder"} <= state.keys()
-    assert (out / "params_final.npz").exists()
+    saved = read_tree(out / "ckpts" / "6" / "default")  # the JAX trainer's layout
+    assert int(saved["step"]) == 6
+    assert {"params", "ema_params", "opt_state", "thresholder"} <= saved.keys()
+    assert json.loads((out / "ckpts" / "6" / "port.json").read_text())["data_seed"] == 0
+    assert (out / "params_final.npz").exists() and (out / "params_final" / "params").is_dir()
 
 
 def test_resume_repeats_the_uninterrupted_run_bit_for_bit(runs):
@@ -116,10 +118,11 @@ def test_resume_repeats_the_uninterrupted_run_bit_for_bit(runs):
     assert a.files == b.files
     for k in a.files:
         assert np.array_equal(a[k], b[k]), k
-    sa = torch.load(runs["tmp"] / "resumed" / "ckpts" / "6" / "state.pt", weights_only=True)
-    sb = torch.load(runs["tmp"] / "whole" / "ckpts" / "6" / "state.pt", weights_only=True)
-    for x, y in zip(sa["thresholder"], sb["thresholder"]):  # the last is NaN: not fixed
-        torch.testing.assert_close(x, y, rtol=0, atol=0, equal_nan=True)
+    sa, sb = (read_tree(runs["tmp"] / d / "ckpts" / "6" / "default")["thresholder"]
+              for d in ("resumed", "whole"))
+    for k in sa:  # "fixed" is NaN: not fixed
+        torch.testing.assert_close(torch.from_numpy(sa[k]), torch.from_numpy(sb[k]), rtol=0,
+                                   atol=0, equal_nan=True)
 
 
 def test_final_npz_loads_into_both_segmenters_with_equal_segments(runs):

@@ -35,6 +35,7 @@ from sylber_tpu_torch.io.checkpoint import (generator_state_dict_from_jax,
                                             jax_tree_from_generator, save_tree_npz)
 from sylber_tpu_torch.io.torch_convert import hifigan_params_from_torch
 from sylber_tpu_torch.vocoder import HiFiGANConfig, SparcDecoder, SparcDecoderConfig, hifigan, mel
+from _torch_threads import _few_threads  # noqa: E402,F401 (autouse)
 
 FIXTURES = Path(__file__).parent / "fixtures"
 META = json.loads((FIXTURES / "mini_vocoder.json").read_text())

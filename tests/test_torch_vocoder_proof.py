@@ -28,6 +28,7 @@ from sylber_tpu_torch.vocoder import HiFiGANConfig
 from sylber_tpu_torch.vocoder.hifigan import Generator
 
 import train_vocoder_proof as jax_vp  # noqa: E402  (scripts/, on the path by the helpers)
+from _torch_threads import _few_threads  # noqa: E402,F401 (autouse)
 
 
 def _synthetic_utterance():

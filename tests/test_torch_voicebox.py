@@ -27,6 +27,7 @@ from sylber_tpu_torch.io.checkpoint import (load_params_npz, save_tree_npz,
                                             state_dict_from_tree, synthesis_state_dict_from_jax,
                                             tree_from_state_dict)
 from sylber_tpu_torch.models import voicebox as tvb
+from _torch_threads import _few_threads  # noqa: E402,F401 (autouse)
 
 FIXTURES = Path(__file__).parent / "fixtures"
 MINI = dict(depth=4, dim=128, heads=4, dim_head=32, dim_in_proj=32, dim_cond_emb=64)

@@ -31,6 +31,7 @@ from sylber_tpu_torch.io.checkpoint import synthesis_state_dict_from_jax
 from sylber_tpu_torch.models import voicebox as tvb
 
 from test_torch_voicebox import MINI, _inputs, _trained_params  # noqa: E402
+from _torch_threads import _few_threads  # noqa: E402,F401 (autouse)
 
 
 def _with_gateloop(params):

@@ -17,6 +17,7 @@ import numpy as np
 
 from sylber_tpu_torch import vq_pitch_probe as vqp
 from _torch_proof_helpers import FIXTURES, SCRIPTS
+from _torch_threads import _few_threads  # noqa: E402,F401 (autouse)
 
 R_TOL = 1e-4
 

@@ -31,6 +31,7 @@ from sylber_tpu.train import vq_synthesis as jvq
 from sylber_tpu_torch import vq_tokenizer as tvq
 from sylber_tpu_torch.flow import quantizer as tq
 from sylber_tpu_torch.io.torch_convert import quantizer_state_from_torch
+from _torch_threads import _few_threads  # noqa: E402,F401 (autouse)
 
 FIXTURES = Path(__file__).parent / "fixtures"
 META = json.loads((FIXTURES / "mini_vq_synth.json").read_text())

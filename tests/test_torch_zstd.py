@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 
 from sylber_tpu_torch.io.zstd import crc32c, decompress
+from _torch_threads import _few_threads  # noqa: E402,F401 (autouse)
 
 LIBZSTD = ctypes.util.find_library("zstd")  # the name only: libzstd is loaded in a subprocess
 pytestmark = pytest.mark.skipif(LIBZSTD is None, reason="libzstd.so.1 is not installed")
